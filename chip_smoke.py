@@ -1,0 +1,390 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port on one NVIDIA GPU and check it.
+
+    python3 chip_smoke.py [--out-dir chip_smoke_out]
+
+1. Preflight: fails without a CUDA device; prints the card's name and power
+   limit; turns TF32 off for float32 matmuls and convolutions.
+2. Builds the CUDA kernels (ops/csrc) from this checkout with nvcc.
+3. Kernel phase, at the training path's shapes (N=12, S=256): each kernel
+   K1 (warp), K2 (CLAHE LUTs), K3 (CLAHE blend) against its plain PyTorch
+   version on the same inputs (coordinates from the port's own augmentation
+   draws plus out-of-range, half-integer and exact-.5 ones; CLAHE apply
+   flags mixing 0 and 1), and timed with CUDA events, the L2 cache flushed
+   before every launch. Fails on any excess over the stated tolerance.
+4. Slice phase: `VolSeg2dTrainer` trains U-Net/ResNet-34 (random init) at
+   256x256, batch 12, bf16 on a 64x256x256 synthetic vessels volume sliced
+   along all three axes: LR finder, frozen epoch, LR finder, unfrozen epoch,
+   with launch counters reset just before. Fails unless every loss is
+   finite, frozen encoder parameters are unchanged, each kernel launched
+   once per train step, and the checkpoint reloads to the same model.
+5. Prints a `{"kernels": [...]}` line and, last, the device line.
+
+Exits non-zero on any failure, without a GPU, and outside a checkout of the
+repository (the package is imported from beside this file).
+"""
+
+import argparse
+import json
+import logging
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+from types import SimpleNamespace
+
+import numpy as np
+import torch
+
+N, S = 12, 256  # parity batch and image size of the shipped settings
+GPU_BANDWIDTH = (  # bytes/s by card name (NVIDIA data sheets)
+    ("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12), ("H200", 4.8e12),
+    ("H100", 3.35e12),
+)
+NO_LIBRARY = ("no single PyTorch call computes the same function "
+              "(grid_sample has no reflect-101 border mode; no CLAHE op)")
+
+
+def nvidia_smi_line() -> str:
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return res.stdout.strip().splitlines()[0]
+
+
+def bandwidth(name: str) -> float:
+    return next(bw for key, bw in GPU_BANDWIDTH if key in name)
+
+
+def time_ms(fn, iters=30, warmup=3) -> float:
+    """Median CUDA-event device time of `fn`. Before each call a 64 MB write
+    evicts its inputs from the 50 MB L2, and a ~1 ms spin keeps the GPU busy
+    while the host enqueues `fn`'s launches, so the interval between the
+    events holds device work only, not host dispatch."""
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        flush.zero_()
+        torch.cuda._sleep(2_000_000)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def make_vessel_volume(shape, n_vessels=40, seed=0):
+    """Synthetic vessels volume: random-walk tubes over a noisy, slowly
+    varying background (the generator of tools/make_tutorial_data.py,
+    written for a non-cubic shape)."""
+    rng = np.random.default_rng(seed)
+    shape_a = np.array(shape, float)
+    labels = np.zeros(shape, dtype=np.uint8)
+    side = max(shape)
+    for _ in range(n_vessels):
+        pos = rng.uniform(shape_a * 0.1, shape_a * 0.9)
+        direction = rng.normal(size=3)
+        direction /= np.linalg.norm(direction)
+        radius = rng.uniform(2.0, max(2.0, side / 40))
+        for _ in range(int(side * 1.5)):
+            direction += rng.normal(scale=0.15, size=3)
+            direction /= np.linalg.norm(direction)
+            pos = pos + direction * 2.0
+            if (pos < radius).any() or (pos > shape_a - radius).any():
+                break
+            c = pos.astype(int)
+            r = int(np.ceil(radius)) + 1
+            sl = tuple(slice(max(c[i] - r, 0), min(c[i] + r + 1, shape[i]))
+                       for i in range(3))
+            zc, yc, xc = (np.arange(s.start, s.stop) for s in sl)
+            d2 = ((zc[:, None, None] - pos[0]) ** 2
+                  + (yc[None, :, None] - pos[1]) ** 2
+                  + (xc[None, None, :] - pos[2]) ** 2)
+            labels[sl] |= (d2 <= radius ** 2).astype(np.uint8)
+    background = rng.normal(90, 18, shape)
+    background += np.cumsum(rng.normal(0, 0.2, shape[0]))[:, None, None]
+    background += np.cumsum(rng.normal(0, 0.2, shape[1]))[None, :, None]
+    vessels = np.where(labels > 0, rng.normal(170, 12, shape), background)
+    return np.clip(vessels, 0, 255).astype(np.uint8), labels
+
+
+def three_axis_slices(vol):
+    return ([s for s in vol] + [vol[:, i] for i in range(vol.shape[1])]
+            + [vol[:, :, i] for i in range(vol.shape[2])])
+
+
+def training_settings() -> SimpleNamespace:
+    """volseg-settings/2d_model_train_settings.yaml as a dict (PyYAML is
+    not needed), with the run cut to one frozen and one unfrozen epoch."""
+    return SimpleNamespace(
+        data_im_dirname="data", seg_im_out_dirname="seg",
+        model_output_fn="trained_2d_model", clip_data=False,
+        st_dev_factor=2.575, data_hdf5_path="/data", seg_hdf5_path="/data",
+        training_axes="All", image_size=S, downsample=False,
+        training_set_proportion=0.8, cuda_device=0,
+        num_cyc_frozen=1, num_cyc_unfrozen=1, patience=3,
+        loss_criterion="DiceLoss", alpha=0.75, beta=0.25, eval_metric="MeanIoU",
+        pct_lr_inc=0.3, starting_lr=1e-6, end_lr=50, lr_find_epochs=1,
+        lr_reduce_factor=500, plot_lr_graph=False,
+        model={"type": "U_Net", "encoder_name": "resnet34",
+               "encoder_weights": None},
+        batch_size=N, compute_dtype="bfloat16", seed=0,
+    )
+
+
+def adversarial_coords(rng, dev):
+    """Out of range by more than one reflect period, half-integer, and
+    exact .5 fractions (mask pick is wy > 0.5, not round-half-even)."""
+    c = np.empty((N, 2, S, S), np.float32)
+    period = 2 * (S - 1)
+    c[0:4] = rng.uniform(-2.5 * period, 2.5 * period, (4, 2, S, S))
+    c[4:8] = rng.integers(-3 * S, 4 * S, (4, 2, S, S)) + 0.5
+    c[8:12, 0] = rng.integers(0, S, (4, S, S)) + 0.5
+    c[8:12, 1] = rng.uniform(-5.0, S + 4.0, (4, S, S))
+    return torch.from_numpy(c).to(dev)
+
+
+def kernel_phase(images_u8, masks_u8, bw, dev):
+    """Each kernel against its plain version; returns per-kernel results."""
+    from volume_segmantics_tpu_torch.ops import augment as aug
+    from volume_segmantics_tpu_torch.ops import clahe as cl
+    from volume_segmantics_tpu_torch.ops import kernels
+    from volume_segmantics_tpu_torch.ops import warp as wp
+
+    kernels.reset_launch_counts()
+    gen = torch.Generator(dev).manual_seed(1)
+    geo = aug.draw_geometric_params(gen, N, S, dev)
+    inten = aug.draw_intensity_params(gen, N, dev)
+    coord_sets = {
+        "augment": aug.geometric_coords(geo, S).contiguous(),
+        "adversarial": adversarial_coords(np.random.default_rng(2), dev),
+    }
+    results = {}
+
+    img_err, msk_bad = 0.0, 0
+    for coords in coord_sets.values():
+        got = wp.warp_batch_u8(images_u8, masks_u8, coords)
+        ref = wp.warp_pair_u8(images_u8, masks_u8, coords)
+        torch.cuda.synchronize()
+        img_err = max(img_err, (got[0] - ref[0]).abs().max().item())
+        msk_bad += int((got[1] != ref[1]).sum())
+    coords = coord_sets["augment"]
+    results["K1"] = dict(
+        max_abs_err=img_err, mask_mismatches=msk_bad, tolerance=2e-7,
+        ok=img_err <= 2e-7 and msk_bad == 0,
+        kernel_ms=time_ms(lambda: wp.warp_batch_u8(images_u8, masks_u8, coords)),
+        plain_ms=time_ms(lambda: wp.warp_pair_u8(images_u8, masks_u8, coords)),
+        bytes=N * S * S * (1 + 1 + 8 + 4 + 1),
+    )
+
+    imgs = torch.clamp(wp.warp_batch_u8(images_u8, masks_u8, coords)[0], 0, 1)
+    clips = inten["clip"].float().contiguous()
+    apply = torch.tensor([1, 0, 1, 1, 0, 1, 0, 1, 1, 0, 1, 0], dtype=torch.int32,
+                         device=dev)
+    on = apply.bool()
+    n_on = int(on.sum())
+    luts = cl.clahe_luts(imgs, clips, apply)
+    ref_luts = cl.clahe_luts_plain(imgs, clips)
+    torch.cuda.synchronize()
+    lut_err = (luts[on].int() - ref_luts[on].int()).abs().max().item()
+    results["K2"] = dict(
+        max_abs_err=float(lut_err), tolerance=0.0, ok=lut_err == 0,
+        kernel_ms=time_ms(lambda: cl.clahe_luts(imgs, clips, apply)),
+        plain_ms=time_ms(lambda: cl.clahe_luts_plain(imgs, clips)),
+        bytes=n_on * S * S * 4 + N * 8 + n_on * 64 * 256,
+    )
+
+    out = cl.clahe_blend(imgs, apply, luts)
+    ref = cl.clahe_blend_plain(imgs, apply, ref_luts)
+    torch.cuda.synchronize()
+    blend_err = (out - ref).abs().max().item()
+    skipped_equal = bool(torch.equal(out[~on], imgs[~on]))
+    results["K3"] = dict(
+        max_abs_err=blend_err, skipped_bit_exact=skipped_equal, tolerance=1e-6,
+        ok=blend_err <= 1e-6 and skipped_equal,
+        kernel_ms=time_ms(lambda: cl.clahe_blend(imgs, apply, luts)),
+        plain_ms=time_ms(lambda: cl.clahe_blend_plain(imgs, apply, ref_luts)),
+        bytes=N * S * S * 4 * 2 + N * 4 + n_on * 64 * 256,
+    )
+    for (name, r), (_, _, entry, _, _) in zip(results.items(), KERNELS):
+        r["bound_ms"] = r["bytes"] / bw * 1e3
+        r["launches"] = kernels.LAUNCHES[entry]  # comparisons and timing only
+        print(json.dumps({"phase": "kernel", "kernel": name, **r,
+                          "library_ms": None, "library_note": NO_LIBRARY}),
+              flush=True)
+    return results
+
+
+def slice_phase(dev):
+    from volume_segmantics_tpu_torch.model import VolSeg2dTrainer
+    from volume_segmantics_tpu_torch.model.model_2d import create_model_from_file
+    from volume_segmantics_tpu_torch.models.checkpoint import load_checkpoint
+    from volume_segmantics_tpu_torch.ops import kernels
+
+    class CheckedTrainer(VolSeg2dTrainer):
+        """Records the encoder parameters of every model it creates."""
+
+        def _create_model_and_optimiser(self, learning_rate, frozen=False):
+            super()._create_model_and_optimiser(learning_rate, frozen)
+            self.encoder_at_create = {
+                n: p.detach().clone() for n, p in self.model.named_parameters()
+                if n.startswith("encoder.")
+            }
+
+    t0 = time.perf_counter()
+    data, labels = make_vessel_volume((64, S, S))
+    settings = training_settings()
+    trainer = CheckedTrainer(three_axis_slices(data), three_axis_slices(labels),
+                             2, settings, device=dev)
+    setup_s = time.perf_counter() - t0
+    failures = []
+    with tempfile.TemporaryDirectory() as tmp:
+        model_out = Path(tmp) / "vessels_U_Net_trained_2d_model.pytorch"
+        kernels.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        trainer.train_model(model_out, settings.num_cyc_frozen,
+                            settings.patience, create=True, frozen=True)
+        changed = [n for n, p in trainer.model.named_parameters()
+                   if n.startswith("encoder.")
+                   and not torch.equal(p.detach(), trainer.encoder_at_create[n])]
+        if changed:
+            failures.append(f"frozen encoder parameters changed: {changed[:3]}")
+        trainer.train_model(model_out, settings.num_cyc_unfrozen,
+                            settings.patience, create=False, frozen=False)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated(dev)
+
+        ckpt = load_checkpoint(model_out)
+        model, _, _ = create_model_from_file(model_out, device=dev)
+        x = torch.randn(2, 1, S, S, generator=torch.Generator().manual_seed(0))
+        model.eval()
+        trainer.model.eval()
+        with torch.no_grad():
+            reload_equal = torch.equal(model(x.to(dev)), trainer.model(x.to(dev)))
+            # The trained model on the card (float32, TF32 off) against the
+            # same weights on the CPU: the port's plain reference path.
+            cpu_model = create_model_from_file(model_out, device="cpu")[0].eval()
+            small = x[:, :, :64, :64]
+            ref = cpu_model(small)
+            gpu_err = (model(small.to(dev)).cpu() - ref).abs().max().item()
+        if not reload_equal:
+            failures.append("checkpoint reload changed the model's forward")
+        if set(ckpt) != {"model_state_dict", "model_struc_dict",
+                         "optimizer_state_dict", "loss_val", "label_codes"}:
+            failures.append(f"checkpoint keys {sorted(ckpt)}")
+        ref_scale = max(1.0, ref.abs().max().item())
+        if not gpu_err <= 1e-3 * ref_scale:
+            failures.append(f"GPU forward differs from CPU by {gpu_err}")
+
+    losses = trainer.avg_train_losses + trainer.avg_valid_losses
+    if not all(np.isfinite(losses)):
+        failures.append(f"non-finite losses {losses}")
+    for name, count in launches.items():
+        if count != trainer.train_steps:
+            failures.append(f"{name} launched {count} times in "
+                            f"{trainer.train_steps} train steps")
+    epoch_samples = sum(trainer.epoch_train_steps) * N
+    summary = {
+        "phase": "slice",
+        "slices": len(trainer.training_loader.images),
+        "train_batches_per_epoch": len(trainer.training_loader),
+        "train_steps": trainer.train_steps,
+        "median_step_ms": 1e3 * statistics.median(trainer.lr_find_step_seconds),
+        "epoch_samples_per_s": epoch_samples / sum(trainer.epoch_train_seconds),
+        "peak_memory_gib": peak / 2**30,
+        "avg_train_losses": trainer.avg_train_losses,
+        "final_valid_loss": trainer.avg_valid_losses[-1],
+        "final_mean_iou": trainer.avg_eval_scores[-1],
+        "setup_s": setup_s,
+        "train_s": train_s,
+        "gpu_vs_cpu_forward_max_abs_err": gpu_err,
+        "launches": launches,
+        "failures": failures,
+    }
+    print(json.dumps(summary), flush=True)
+    return summary
+
+
+KERNELS = (
+    ("K1", "warp_u8", "volseg_warp_u8", "volume_segmantics_tpu_torch/ops/csrc/warp.cu",
+     "volume_segmantics_tpu/ops/warp.py:420"),
+    ("K2", "clahe_luts", "volseg_clahe_luts",
+     "volume_segmantics_tpu_torch/ops/csrc/clahe.cu",
+     "volume_segmantics_tpu/ops/clahe.py:346"),
+    ("K3", "clahe_blend", "volseg_clahe_blend",
+     "volume_segmantics_tpu_torch/ops/csrc/clahe.cu",
+     "volume_segmantics_tpu/ops/clahe.py:367"),
+)
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--out-dir", default="chip_smoke_out")
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from volume_segmantics_tpu_torch.ops import kernels
+
+    out_dir = Path(args.out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    logging.basicConfig(filename=out_dir / "chip_smoke.log", level=logging.INFO,
+                        format="%(asctime)s %(levelname)s %(message)s")
+    dev = torch.device("cuda")
+    smi = nvidia_smi_line()
+    print(smi, flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(json.dumps({
+        "phase": "preflight", "torch": torch.__version__,
+        "cuda": torch.version.cuda, "device": torch.cuda.get_device_name(0),
+        "matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+        "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
+    }), flush=True)
+
+    t0 = time.perf_counter()
+    kernels.build(verbose=True)
+    kernels.library()
+    print(json.dumps({"phase": "build", "seconds": time.perf_counter() - t0,
+                      "library": str(kernels.build_dir())}), flush=True)
+
+    data, labels = make_vessel_volume((64, S, S), seed=1)
+    images = torch.from_numpy(data[:N].copy()).to(dev)  # N Z slices, S x S
+    masks = torch.from_numpy(labels[:N].copy()).to(dev)
+    bw = bandwidth(torch.cuda.get_device_name(0))
+    kres = kernel_phase(images, masks, bw, dev)
+
+    summary = slice_phase(dev)
+    kernels_line = {"kernels": [
+        {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+         "launches": summary["launches"][entry],
+         "max_abs_err": kres[k]["max_abs_err"], "ms": kres[k]["kernel_ms"],
+         "plain_ms": kres[k]["plain_ms"], "bound_ms": kres[k]["bound_ms"],
+         "bound_by": "bytes", "library_ms": None}
+        for k, name, entry, source, replaces in KERNELS
+    ]}
+    failed = [k for k in kres if not kres[k]["ok"]] + summary["failures"]
+    if failed:
+        print(json.dumps({"failed": failed}), file=sys.stderr)
+        return 1
+    print(json.dumps(kernels_line), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

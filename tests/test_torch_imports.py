@@ -1,0 +1,62 @@
+"""The PyTorch port stands alone: no module of the package, nor
+`chip_smoke.py`, imports JAX, flax, optax, the JAX package, or the host
+libraries the card machine lacks (cv2, h5py, yaml, matplotlib, tqdm). The
+package imports where there is no triton and no nvcc, and builds its
+kernels only at the first CUDA call."""
+
+import ast
+import importlib
+import pkgutil
+from pathlib import Path
+
+import pytest
+
+import volume_segmantics_tpu_torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PACKAGE = Path(volume_segmantics_tpu_torch.__file__).parent
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "volume_segmantics_tpu", "cv2",
+             "h5py", "yaml", "matplotlib", "tqdm", "triton"}
+SOURCES = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_forbidden_imports(path):
+    assert path.exists(), path
+    assert not set(imported_roots(path)) & FORBIDDEN
+
+
+def test_every_module_imports_and_no_kernel_is_built():
+    from volume_segmantics_tpu_torch.ops import kernels
+
+    names = [m.name for m in pkgutil.walk_packages(
+        [str(PACKAGE)], prefix="volume_segmantics_tpu_torch.")]
+    assert "volume_segmantics_tpu_torch.ops.augment" in names
+    for name in names:
+        importlib.import_module(name)
+    assert kernels._lib is None
+
+
+def test_kernel_sources_and_build_dir():
+    from volume_segmantics_tpu_torch.ops import kernels
+
+    for name in kernels.SOURCES:
+        text = (kernels.CSRC / name).read_text()
+        assert "volume_segmantics_tpu/ops/" in text  # names the TPU kernel it replaces
+        assert "cudaGetLastError" in text
+    for fn in kernels.SIGNATURES:
+        assert any(f'extern "C" int {fn}(' in (kernels.CSRC / s).read_text()
+                   for s in kernels.SOURCES), fn
+    assert "arch=compute_90a,code=sm_90a" in kernels.NVCC_FLAGS
+    build = kernels.build_dir()
+    assert build.parent == ROOT / "build" / "volseg_kernels"

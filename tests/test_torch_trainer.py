@@ -1,0 +1,137 @@
+"""The PyTorch `VolSeg2dTrainer` end to end on the CPU on a tiny synthetic
+volume: the two-phase run of `model-train-2d` (frozen, then unfrozen from
+the checkpoint), the reference-format checkpoint, and the JAX package
+loading that checkpoint with the same forward. The LR finder and
+schedule math against the JAX trainer's."""
+
+import math
+from types import SimpleNamespace
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from volume_segmantics_tpu.model.model_2d import (
+    create_model_from_file as jax_create_model_from_file,
+)
+from volume_segmantics_tpu.model.operations.vol_seg_2d_trainer import (
+    VolSeg2dTrainer as JaxTrainer,
+)
+from volume_segmantics_tpu.data.augmentations import PadIfNeeded as JaxPadIfNeeded
+from volume_segmantics_tpu_torch.data.augmentations import (
+    LongestMaxSize,
+    PadIfNeeded,
+)
+from volume_segmantics_tpu_torch.model import VolSeg2dTrainer
+from volume_segmantics_tpu_torch.model.model_2d import create_model_from_file
+from volume_segmantics_tpu_torch.models.checkpoint import load_checkpoint
+from volume_segmantics_tpu_torch.utils import config as cfg
+
+torch.set_num_threads(1)
+
+
+def tiny_volume(seed=0, shape=(16, 64, 64)):
+    """Bright blobs on a noisy background, labels 0/1."""
+    rng = np.random.default_rng(seed)
+    z, y, x = np.meshgrid(*(np.arange(s) for s in shape), indexing="ij")
+    labels = np.zeros(shape, np.uint8)
+    for _ in range(6):
+        c = rng.uniform(0, 1, 3) * np.array(shape)
+        r = rng.uniform(4, 10)
+        labels |= (((z - c[0]) / 2) ** 2 + (y - c[1]) ** 2 + (x - c[2]) ** 2
+                   <= r * r).astype(np.uint8)
+    data = np.where(labels > 0, rng.normal(170, 12, shape), rng.normal(90, 18, shape))
+    return np.clip(data, 0, 255).astype(np.uint8), labels
+
+
+@pytest.fixture()
+def settings(training_settings):
+    training_settings.batch_size = 4
+    training_settings.num_cyc_frozen = 1
+    training_settings.num_cyc_unfrozen = 1
+    training_settings.patience = 2
+    training_settings.seed = 3
+    training_settings.model = dict(training_settings.model, encoder_weights=None)
+    return training_settings
+
+
+def test_two_phase_training_writes_checkpoint_jax_can_load(settings, tmp_path,
+                                                           monkeypatch):
+    # A short LR sweep keeps the CPU run small (the card runs the full one).
+    monkeypatch.setattr(cfg, "MIN_LR_FIND_STEPS", 6)
+    data, labels = tiny_volume()
+    # Z slices, plus Y slices (16 x 64) that get reflect-padded to 64 x 64.
+    data_slices = list(data) + list(data[:, :4].swapaxes(0, 1))
+    label_slices = list(labels) + list(labels[:, :4].swapaxes(0, 1))
+    trainer = VolSeg2dTrainer(data_slices, label_slices, 2, settings,
+                              device="cpu")
+    assert len(trainer.training_loader) == 4 and len(trainer.validation_loader) == 1
+    out = tmp_path / "model.pytorch"
+    trainer.train_model(out, 1, settings.patience, create=True, frozen=True)
+    trainer.train_model(out, 1, settings.patience, create=False, frozen=False)
+    assert len(trainer.avg_train_losses) == 2
+    assert all(np.isfinite(trainer.avg_train_losses + trainer.avg_valid_losses))
+    # 2 phases x (2-epoch LR sweep + 1 epoch) x 4 steps
+    assert trainer.train_steps == 24
+
+    ckpt = load_checkpoint(out)
+    assert set(ckpt) == {"model_state_dict", "model_struc_dict",
+                         "optimizer_state_dict", "loss_val", "label_codes"}
+    assert set(ckpt["model_state_dict"]) == set(trainer.model.state_dict())
+    assert ckpt["model_struc_dict"]["classes"] == 2
+
+    x = np.random.default_rng(1).normal(size=(2, 1, 64, 64)).astype(np.float32)
+    model, classes, _ = create_model_from_file(out, device="cpu")
+    model.eval()
+    with torch.no_grad():
+        ours = model(torch.from_numpy(x)).numpy()
+        np.testing.assert_array_equal(
+            ours, trainer.model.eval()(torch.from_numpy(x)).numpy())
+    bundle, jax_classes, _ = jax_create_model_from_file(out)
+    assert jax_classes == classes == 2
+    ref = np.asarray(bundle.module.apply(
+        bundle.variables, jnp.asarray(x.transpose(0, 2, 3, 1)), train=False))
+    np.testing.assert_allclose(ours.transpose(0, 2, 3, 1), ref, atol=1e-4, rtol=0)
+
+
+def test_lr_finder_and_schedule_math_match_jax():
+    fake = SimpleNamespace(
+        starting_lr=1e-6, end_lr=50.0, log_lr_ratio=math.log(50.0 / 1e-6),
+        training_loader=[None] * 38, lr_find_epochs=1,
+        settings=SimpleNamespace(pct_lr_inc=0.3),
+    )
+    for step in (0, 1, 17, 40, 75):
+        assert VolSeg2dTrainer._lr_exp_stepper(fake, step, 2) == \
+            JaxTrainer._lr_exp_stepper(fake, step, 2)
+    ours = VolSeg2dTrainer._create_oc_lr_schedule(fake, 3, 2e-3)
+    ref = JaxTrainer._create_oc_lr_schedule(fake, 3, 2e-3)
+    for step in range(0, 120, 7):
+        assert ours(step) == ref(step)
+    lrs = [10 ** (-6 + i * 0.1) for i in range(60)]
+    losses = [1.0 - 0.5 * np.exp(-((i - 40) ** 2) / 20) for i in range(60)]
+    assert VolSeg2dTrainer._find_lr_from_graph(losses, lrs) == \
+        JaxTrainer._find_lr_from_graph(losses, lrs)
+    rising = [0.1 * i for i in range(10)]
+    assert VolSeg2dTrainer._find_lr_from_graph(rising, lrs[:10]) == \
+        JaxTrainer._find_lr_from_graph(rising, lrs[:10]) == cfg.DEFAULT_MIN_LR
+    assert VolSeg2dTrainer._find_lr_from_graph([0.5], [1e-3]) == \
+        JaxTrainer._find_lr_from_graph([0.5], [1e-3])
+
+
+@pytest.mark.parametrize("shape", [(10, 64), (64, 33), (63, 64), (64, 64)])
+def test_pad_matches_opencv_reflect101(shape):
+    """np.pad(mode="reflect") == cv2 BORDER_REFLECT_101, also where the pad
+    exceeds the slice and reflection repeats."""
+    img = np.random.default_rng(0).integers(0, 256, shape, dtype=np.uint8)
+    ours = PadIfNeeded(64, 64)(image=img, mask=img)
+    ref = JaxPadIfNeeded(64, 64)(image=img, mask=img)
+    np.testing.assert_array_equal(ours["image"], ref["image"])
+    np.testing.assert_array_equal(ours["mask"], ref["mask"])
+
+
+def test_longest_max_size_only_passes_through():
+    img = np.zeros((16, 64), np.uint8)
+    assert LongestMaxSize(64)(image=img, mask=img)["image"] is img
+    with pytest.raises(NotImplementedError):
+        LongestMaxSize(128)(image=img, mask=img)

@@ -1,0 +1,141 @@
+"""Batch iterators over in-memory slice arrays (port of the JAX package's
+`data/dataloaders.py`, in-memory slice lists only).
+
+Slices are preprocessed once into contiguous uint8 arrays; a batch is numpy
+indexing on the host, then one pinned, non-blocking copy to the device.
+Augmentation runs on the device (`ops/augment.py`). Every random choice
+(split, epoch order) comes from an explicit `np.random.Generator`.
+"""
+
+import logging
+from types import SimpleNamespace
+from typing import Tuple
+
+import numpy as np
+import torch
+
+import volume_segmantics_tpu_torch.utils.base_data_utils as utils
+import volume_segmantics_tpu_torch.utils.config as cfg
+from volume_segmantics_tpu_torch.data.augmentations import get_train_preprocess_augs
+
+
+class ArrayBatcher:
+    """Iterates fixed-size (images, masks, n_valid) numpy batches.
+
+    Always emits full `batch_size` batches: a short remainder batch is
+    padded by wrapping around, with `n_valid` marking how many leading
+    samples are real (the eval step masks the rest).
+    """
+
+    def __init__(self, images, masks, indices, batch_size, shuffle, drop_last,
+                 rng: np.random.Generator):
+        self.images = images
+        self.masks = masks
+        self.indices = np.asarray(indices, dtype=np.int64)
+        self.batch_size = int(batch_size)
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self._rng = rng
+
+    def __len__(self):
+        n = len(self.indices)
+        if self.drop_last:
+            return n // self.batch_size
+        return int(np.ceil(n / self.batch_size))
+
+    def __iter__(self):
+        order = self.indices
+        if self.shuffle:
+            order = self._rng.permutation(order)
+        bs = self.batch_size
+        for b in range(len(self)):
+            chunk = order[b * bs : (b + 1) * bs]
+            n_valid = len(chunk)
+            if n_valid < bs:
+                # Tile so even an index set smaller than half the batch
+                # fills it completely.
+                reps = -(-(bs - n_valid) // len(order))
+                pad = np.tile(order, reps)[: bs - n_valid]
+                chunk = np.concatenate([chunk, pad])
+            yield self.images[chunk], self.masks[chunk], n_valid
+
+
+def to_device_batches(loader, device: torch.device):
+    """Yield a batcher's batches as device tensors: each numpy batch is
+    copied into pinned host memory and sent with a non-blocking copy, so
+    the upload overlaps the device's work on the previous step."""
+    pin = device.type == "cuda"
+    for images, masks, n_valid in loader:
+        tensors = []
+        for arr in (images, masks):
+            t = torch.from_numpy(np.ascontiguousarray(arr))
+            if pin:
+                t = t.pin_memory()
+            tensors.append(t.to(device, non_blocking=pin))
+        yield tensors[0], tensors[1], n_valid
+
+
+def _preprocess_slice_lists(data_slices, label_slices, image_size):
+    """Pad in-memory slice lists to the square training size and stack."""
+    pre = get_train_preprocess_augs(image_size)
+    images, masks = [], []
+    for img, msk in zip(data_slices, label_slices):
+        sample = pre(image=np.asarray(img), mask=np.asarray(msk))
+        images.append(sample["image"])
+        masks.append(sample["mask"])
+    return np.stack(images).astype(np.uint8), np.stack(masks).astype(np.uint8)
+
+
+def get_2d_training_dataloaders(
+    data_slices, label_slices, settings: SimpleNamespace, device="cuda",
+    rng: np.random.Generator = None,
+) -> Tuple[ArrayBatcher, ArrayBatcher]:
+    """Train/validation batchers over in-memory slice lists with a random
+    permutation split at `training_set_proportion` (reference
+    dataloaders.py:15-56). `rng` defaults to one seeded from
+    `settings.seed`."""
+    if rng is None:
+        rng = np.random.default_rng(int(getattr(settings, "seed", 0)))
+    training_set_prop = settings.training_set_proportion
+    batch_size = utils.get_batch_size(settings, device)
+
+    images, masks = _preprocess_slice_lists(
+        data_slices, label_slices, int(settings.image_size)
+    )
+    dset_length = images.shape[0]
+    indices = rng.permutation(dset_length)
+    split = int(dset_length * training_set_prop)
+    train_idx, validate_idx = indices[:split], indices[split:]
+
+    # `performance_profile: throughput` clamps its large batch so an epoch
+    # keeps at least cfg.MIN_TRAIN_STEPS_PER_EPOCH optimizer/BatchNorm steps
+    # on small datasets; explicit `batch_size` settings are not clamped.
+    profile = getattr(settings, "performance_profile", None) or "parity"
+    explicit = bool(getattr(settings, "batch_size", None))
+    if profile == "throughput" and not explicit:
+        cap = max(len(train_idx) // cfg.MIN_TRAIN_STEPS_PER_EPOCH,
+                  cfg.BIG_TRAIN_BATCH)
+        if batch_size > cap:
+            logging.info(
+                f"Clamping throughput-profile batch {batch_size} -> {cap} "
+                f"so {len(train_idx)} training slices keep >= "
+                f"{cfg.MIN_TRAIN_STEPS_PER_EPOCH} steps per epoch."
+            )
+            batch_size = cap
+    if len(train_idx) == 0 or len(validate_idx) == 0:
+        raise ValueError(
+            f"Cannot split {dset_length} slices into non-empty training and "
+            f"validation sets at training_set_proportion="
+            f"{training_set_prop}; provide more slices or adjust the "
+            "proportion."
+        )
+
+    training_batcher = ArrayBatcher(
+        images, masks, train_idx, batch_size, shuffle=True, drop_last=True,
+        rng=rng,
+    )
+    validation_batcher = ArrayBatcher(
+        images, masks, validate_idx, batch_size, shuffle=False,
+        drop_last=False, rng=rng,
+    )
+    return training_batcher, validation_batcher

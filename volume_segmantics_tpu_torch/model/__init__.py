@@ -1,0 +1,5 @@
+__all__ = ["VolSeg2dTrainer"]
+
+from volume_segmantics_tpu_torch.model.operations.vol_seg_2d_trainer import (
+    VolSeg2dTrainer,
+)

@@ -1,0 +1,401 @@
+"""2D segmentation trainer: LR finder, OneCycle schedule, encoder freezing,
+early stopping (port of the JAX package's
+`model/operations/vol_seg_2d_trainer.py`, reference
+volume_segmantics/model/operations/vol_seg_2d_trainer.py:35-535).
+
+The train step fuses augmentation, normalisation, forward, loss, backward
+and AdamW (`parallel/train.py`). The learning rate is an argument of the
+step, so the LR finder and OneCycle schedule only change a number.
+Freezing follows the JAX package's mask: every leaf whose path holds
+"encoder" and "conv" is frozen, and in its ResNet every encoder module is a
+`stem_conv`, `convbn*` or `conv_down`, so the whole encoder is frozen,
+BatchNorm scale and bias included. Running statistics still update.
+
+Left out of this port: autosave/resume, profiling, the loss/prediction
+figures and CSV, and `from_slicer`.
+"""
+
+import logging
+import math
+import time
+from pathlib import Path
+from types import SimpleNamespace
+from typing import Optional, Union
+
+import numpy as np
+import torch
+
+import volume_segmantics_tpu_torch.utils.base_data_utils as utils
+import volume_segmantics_tpu_torch.utils.config as cfg
+from volume_segmantics_tpu_torch.data.dataloaders import (
+    get_2d_training_dataloaders,
+    to_device_batches,
+)
+from volume_segmantics_tpu_torch.data.losses import get_loss_fn
+from volume_segmantics_tpu_torch.data.metrics import get_eval_metric_fn
+from volume_segmantics_tpu_torch.model.model_2d import create_model_on_device
+from volume_segmantics_tpu_torch.models.checkpoint import load_checkpoint
+from volume_segmantics_tpu_torch.parallel.train import (
+    build_eval_step,
+    build_train_step,
+    make_base_optimizer,
+)
+from volume_segmantics_tpu_torch.utils.device import resolve_device
+from volume_segmantics_tpu_torch.utils.early_stopping import EarlyStopping
+
+
+def is_frozen_parameter(name: str) -> bool:
+    """The JAX package freezes every encoder parameter (see module doc)."""
+    return name.startswith("encoder.")
+
+
+class VolSeg2dTrainer:
+    """Trains a 2d model on in-memory slice lists."""
+
+    # Keys the training flow reads without defaults.
+    REQUIRED_SETTINGS = (
+        "image_size", "training_set_proportion", "loss_criterion",
+        "eval_metric", "starting_lr", "end_lr", "lr_find_epochs",
+        "lr_reduce_factor", "patience", "model", "pct_lr_inc",
+    )
+
+    def __init__(self, data_slices, label_slices, labels: Union[int, dict],
+                 settings: SimpleNamespace, device=None):
+        missing = [k for k in self.REQUIRED_SETTINGS if not hasattr(settings, k)]
+        if missing:
+            raise ValueError(
+                f"training settings are missing required key(s): {missing}"
+            )
+        self.device = resolve_device(device)
+        # One seed, three independent streams: data split and order, model
+        # initialisation, and on-device augmentation.
+        seed = int(getattr(settings, "seed", 0))
+        data_ss, init_ss, aug_ss = np.random.SeedSequence(seed).spawn(3)
+        self.training_loader, self.validation_loader = get_2d_training_dataloaders(
+            data_slices, label_slices, settings, self.device,
+            rng=np.random.default_rng(data_ss),
+        )
+        self._init_gen = torch.Generator().manual_seed(
+            int(init_ss.generate_state(1)[0])
+        )
+        self._aug_gen = torch.Generator(self.device).manual_seed(
+            int(aug_ss.generate_state(1)[0])
+        )
+        self.label_no = labels if isinstance(labels, int) else len(labels)
+        self.codes = labels if isinstance(labels, dict) else {}
+        self.settings = settings
+        # Params for learning rate finder (reference trainer :62-67)
+        self.starting_lr = float(settings.starting_lr)
+        self.end_lr = float(settings.end_lr)
+        self.log_lr_ratio = self._calculate_log_lr_ratio()
+        self.lr_find_epochs = settings.lr_find_epochs
+        self.lr_reduce_factor = settings.lr_reduce_factor
+        self.patience = settings.patience
+        self.loss_fn = get_loss_fn(settings)
+        self.eval_metric_fn = get_eval_metric_fn(settings)
+        self.model_struc_dict = self._get_model_struc_dict(settings)
+        self.image_size = int(settings.image_size)
+        self.compute_dtype = getattr(
+            torch, str(getattr(settings, "compute_dtype", cfg.COMPUTE_DTYPE))
+        )
+        self.augment_on_device = bool(getattr(settings, "augment", True))
+        self._weight_decay = float(getattr(settings, "weight_decay", 0.01))
+        self.avg_train_losses = []
+        self.avg_valid_losses = []
+        self.avg_eval_scores = []
+        self.model: Optional[torch.nn.Module] = None
+        self.optimizer: Optional[torch.optim.Optimizer] = None
+        self._frozen = False
+        self._train_step = None
+        self._eval_step = None
+        # Train steps taken; host seconds of each synchronised LR-finder step
+        # (each ends reading its loss); per epoch, the seconds and steps of
+        # its training loop (ending when its losses reach the host).
+        self.train_steps = 0
+        self.lr_find_step_seconds = []
+        self.epoch_train_seconds = []
+        self.epoch_train_steps = []
+
+    # ------------------------------------------------------------------
+    # Setup
+    # ------------------------------------------------------------------
+
+    def _get_model_struc_dict(self, settings):
+        model_struc_dict = dict(settings.model)
+        model_struc_dict["type"] = utils.get_model_type(settings)
+        model_struc_dict["in_channels"] = cfg.MODEL_INPUT_CHANNELS
+        model_struc_dict["classes"] = self.label_no
+        return model_struc_dict
+
+    def _calculate_log_lr_ratio(self):
+        return math.log(self.end_lr / self.starting_lr)
+
+    def _create_model_and_optimiser(self, learning_rate, frozen=False):
+        logging.info("Setting up the model on device.")
+        self.model = create_model_on_device(
+            self.device, self.model_struc_dict, generator=self._init_gen
+        )
+        self._set_frozen(frozen)
+        logging.info(
+            f"Model has {self._count_trainable_parameters()} trainable "
+            f"parameters, {self._count_parameters()} total parameters."
+        )
+        if frozen:
+            logging.warning(
+                "Training with a FROZEN encoder that has RANDOM weights: the "
+                "frozen phase will learn poorly. Converted pretrained encoder "
+                "weights are not available to the PyTorch port yet; set "
+                "num_cyc_frozen: 0 to train unfrozen."
+            )
+        logging.info("Trainer created.")
+
+    def _set_frozen(self, frozen: bool):
+        """Freeze (or unfreeze) the encoder structurally and rebuild the
+        optimizer over the trainable parameters and the steps around it."""
+        self._frozen = frozen
+        trainable = []
+        for name, p in self.model.named_parameters():
+            p.requires_grad_(not (frozen and is_frozen_parameter(name)))
+            if p.requires_grad:
+                trainable.append(p)
+        self.optimizer = make_base_optimizer(trainable, self._weight_decay)
+        self._train_step = build_train_step(
+            self.model, self.loss_fn, self.optimizer,
+            num_labels=self.label_no, image_size=self.image_size,
+            compute_dtype=self.compute_dtype, augment=self.augment_on_device,
+            generator=self._aug_gen,
+        )
+        self._eval_step = build_eval_step(
+            self.model, self.loss_fn, self.eval_metric_fn,
+            num_labels=self.label_no, compute_dtype=self.compute_dtype,
+        )
+
+    def _count_parameters(self) -> int:
+        return sum(p.numel() for p in self.model.parameters())
+
+    def _count_trainable_parameters(self, frozen: Optional[bool] = None) -> int:
+        """Parameters receiving updates under the freeze rule (reference
+        trainer :118-119)."""
+        if frozen is None:
+            frozen = self._frozen
+        return sum(
+            p.numel() for name, p in self.model.named_parameters()
+            if not (frozen and is_frozen_parameter(name))
+        )
+
+    # ------------------------------------------------------------------
+    # Training
+    # ------------------------------------------------------------------
+
+    def train_model(self, output_path: Path, num_epochs: int, patience: int,
+                    create: bool = True, frozen: bool = False) -> None:
+        """Train for `num_epochs` with an automatically determined learning
+        rate (reference trainer :163-274)."""
+        if create:
+            self._create_model_and_optimiser(self.starting_lr, frozen=frozen)
+            lr_to_use = self._run_lr_finder()
+            self._create_model_and_optimiser(lr_to_use, frozen=frozen)
+            early_stopping = self._create_early_stopping(output_path, patience)
+        else:
+            # Model already partially trained: reduce LR bounds and reload
+            self.starting_lr /= self.lr_reduce_factor
+            self.end_lr /= self.lr_reduce_factor
+            self.log_lr_ratio = self._calculate_log_lr_ratio()
+            self._load_in_model_and_optimizer(
+                self.starting_lr, output_path, frozen=frozen
+            )
+            lr_to_use = self._run_lr_finder()
+            min_loss = self._load_in_model_and_optimizer(
+                self.starting_lr, output_path, frozen=frozen
+            )
+            early_stopping = self._create_early_stopping(
+                output_path, patience, best_score=-min_loss
+            )
+
+        lr_schedule = self._create_oc_lr_schedule(num_epochs, lr_to_use)
+        global_step = 0
+        for epoch in range(1, num_epochs + 1):
+            tic = time.perf_counter()
+            logging.info(f"Epoch {epoch} of {num_epochs}")
+            train_losses = []
+            train = to_device_batches(self.training_loader, self.device)
+            for images, masks, _ in train:
+                lr = float(lr_schedule(global_step))
+                train_losses.append(self._train_one_batch_async(images, masks, lr))
+                global_step += 1
+            # Pull the epoch's losses in one device round trip.
+            train_losses = torch.stack(train_losses).cpu().numpy()
+            self.epoch_train_seconds.append(time.perf_counter() - tic)
+            self.epoch_train_steps.append(len(train_losses))
+
+            valid_losses, eval_scores, valid_weights = [], [], []
+            valid = to_device_batches(self.validation_loader, self.device)
+            for images, masks, n_valid in valid:
+                loss, score = self._eval_step(images, masks, n_valid)
+                valid_losses.append(loss)
+                eval_scores.append(score)
+                valid_weights.append(n_valid)
+
+            valid_losses = torch.stack(valid_losses).cpu().numpy()
+            eval_scores = torch.stack(eval_scores).cpu().numpy()
+            toc = time.perf_counter()
+            self.avg_train_losses.append(float(np.average(train_losses)))
+            # Weight per-batch validation stats by their real sample counts
+            # so the padded remainder batch does not bias the epoch average.
+            self.avg_valid_losses.append(
+                float(np.average(valid_losses, weights=valid_weights))
+            )
+            self.avg_eval_scores.append(
+                float(np.average(eval_scores, weights=valid_weights))
+            )
+            logging.info(
+                f"Epoch {epoch}. Training loss: {self.avg_train_losses[-1]}, "
+                f"Validation Loss: {self.avg_valid_losses[-1]}. "
+                f"{self.settings.eval_metric}: {self.avg_eval_scores[-1]}"
+            )
+            logging.info(f"Time taken for epoch {epoch}: {toc - tic:0.2f} seconds")
+            early_stopping(self.avg_valid_losses[-1], self.model,
+                           self.optimizer, self.codes)
+            if early_stopping.early_stop:
+                logging.info("Early stopping")
+                break
+        self._load_in_weights(output_path)
+
+    def _train_one_batch_async(self, images, masks, lr):
+        """One train step; returns the loss as a device scalar without
+        waiting for it."""
+        self.train_steps += 1
+        return self._train_step(images, masks, lr)
+
+    def _train_one_batch(self, images, masks, lr) -> float:
+        return float(self._train_one_batch_async(images, masks, lr))
+
+    # ------------------------------------------------------------------
+    # Checkpoint load
+    # ------------------------------------------------------------------
+
+    def _load_in_model_and_optimizer(self, learning_rate, output_path,
+                                     frozen=False):
+        self._create_model_and_optimiser(learning_rate, frozen=frozen)
+        logging.info("Loading in weights from saved checkpoint.")
+        return self._load_in_weights(output_path)
+
+    def _load_in_weights(self, output_path):
+        ckpt = load_checkpoint(output_path)
+        logging.info("Loading model weights.")
+        self.model.load_state_dict(ckpt["model_state_dict"])
+        return ckpt.get("loss_val", np.inf)
+
+    # ------------------------------------------------------------------
+    # LR finder (reference trainer :298-383)
+    # ------------------------------------------------------------------
+
+    def _run_lr_finder(self):
+        logging.info("Finding learning rate for model.")
+        lr_find_loss, lr_find_lr = self._lr_finder()
+        lr_to_use = self._find_lr_from_graph(lr_find_loss, lr_find_lr)
+        logging.info(f"LR to use {lr_to_use}")
+        return lr_to_use
+
+    def _lr_find_epochs_effective(self) -> int:
+        """Finder epochs, raised so the exponential sweep covers at least
+        cfg.MIN_LR_FIND_STEPS steps."""
+        steps_per_epoch = max(len(self.training_loader), 1)
+        need = -(-cfg.MIN_LR_FIND_STEPS // steps_per_epoch)  # ceil
+        return max(self.lr_find_epochs, need)
+
+    def _lr_exp_stepper(self, step, find_epochs=None):
+        """Exponentially increase LR from starting_lr towards end_lr over
+        the finder epochs (reference trainer :385-393)."""
+        if find_epochs is None:
+            find_epochs = self._lr_find_epochs_effective()
+        total = find_epochs * max(len(self.training_loader), 1)
+        return self.starting_lr * math.exp(step * self.log_lr_ratio / total)
+
+    def _lr_finder(self, smoothing=0.05):
+        lr_find_loss = []
+        lr_find_lr = []
+        iters = 0
+        find_epochs = self._lr_find_epochs_effective()
+        if find_epochs != self.lr_find_epochs:
+            logging.info(
+                f"Raising LR-finder epochs {self.lr_find_epochs} -> "
+                f"{find_epochs} so the sweep has >= "
+                f"{cfg.MIN_LR_FIND_STEPS} steps at this batch size."
+            )
+        total_steps = find_epochs * max(len(self.training_loader), 1)
+        for _ in range(find_epochs):
+            train = to_device_batches(self.training_loader, self.device)
+            for images, masks, _ in train:
+                lr_step = self._lr_exp_stepper(iters)
+                tic = time.perf_counter()
+                loss = self._train_one_batch(images, masks, lr_step)
+                self.lr_find_step_seconds.append(time.perf_counter() - tic)
+                lr_find_lr.append(lr_step)
+                if iters == 0:
+                    lr_find_loss.append(loss)
+                else:
+                    loss = smoothing * loss + (1 - smoothing) * lr_find_loss[-1]
+                    lr_find_loss.append(loss)
+                # Abort once the loss exceeds 1 past ~75% of the whole sweep.
+                if loss > 1 and iters > total_steps // 1.333:
+                    return lr_find_loss, lr_find_lr
+                iters += 1
+        return lr_find_loss, lr_find_lr
+
+    @staticmethod
+    def _find_lr_from_graph(lr_find_loss, lr_find_lr) -> float:
+        """LR at the steepest loss descent / LR_DIVISOR, with a default
+        fallback (reference trainer :347-383)."""
+        default_min_lr = cfg.DEFAULT_MIN_LR
+        losses = np.array([float(x) for x in lr_find_loss])
+        try:
+            gradients = np.gradient(losses)
+            min_gradient = gradients.min()
+            if min_gradient < 0:
+                min_loss_grad_idx = gradients.argmin()
+            else:
+                logging.info(
+                    f"Minimum gradient: {min_gradient} was positive, "
+                    "returning default value instead."
+                )
+                return default_min_lr
+        except ValueError as e:
+            logging.info(f"Failed to compute gradients, returning default value. {e}")
+            return default_min_lr
+        min_lr = lr_find_lr[min_loss_grad_idx]
+        return min_lr / cfg.LR_DIVISOR
+
+    # ------------------------------------------------------------------
+    # Schedules / early stopping
+    # ------------------------------------------------------------------
+
+    def _create_oc_lr_schedule(self, num_epochs, lr_to_use):
+        """OneCycle (cosine) schedule with torch OneCycleLR defaults
+        (div_factor=25, final_div_factor=1e4), reference trainer :401-408."""
+        total_steps = max(num_epochs * max(len(self.training_loader), 1), 1)
+        pct_start = float(self.settings.pct_lr_inc)
+        initial_lr = lr_to_use / 25.0
+        min_lr = initial_lr / 1e4
+        warm_steps = pct_start * total_steps
+
+        def schedule(step):
+            if step < warm_steps:
+                frac = step / max(warm_steps, 1.0)
+                return initial_lr + (lr_to_use - initial_lr) * (
+                    1 - math.cos(math.pi * frac)
+                ) / 2.0
+            frac = (step - warm_steps) / max(total_steps - warm_steps, 1.0)
+            frac = min(frac, 1.0)
+            return min_lr + (lr_to_use - min_lr) * (1 + math.cos(math.pi * frac)) / 2.0
+
+        return schedule
+
+    def _create_early_stopping(self, output_path, patience, best_score=None):
+        return EarlyStopping(
+            patience=patience,
+            verbose=True,
+            path=output_path,
+            model_dict=self.model_struc_dict,
+            best_score=best_score,
+        )

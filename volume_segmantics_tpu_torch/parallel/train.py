@@ -1,0 +1,103 @@
+"""Single-GPU train and eval steps (port of the JAX package's
+`parallel/train.py` for one device).
+
+The train step is: uint8 batch -> on-device augmentation -> ImageNet
+normalisation -> forward under bf16 autocast -> NCHW one-hot targets ->
+loss -> backward -> AdamW. Freezing is structural: frozen parameters have
+`requires_grad=False` and are left out of the optimizer, so autograd builds
+no backward for them and they get no update and no weight decay. BatchNorm
+running statistics still update in training mode.
+"""
+
+from typing import Callable, Iterable
+
+import torch
+import torch.nn.functional as F
+
+import volume_segmantics_tpu_torch.utils.config as cfg
+from volume_segmantics_tpu_torch.ops.augment import augment_batch_u8
+
+
+def make_base_optimizer(params: Iterable[torch.nn.Parameter],
+                        weight_decay: float = 0.01) -> torch.optim.AdamW:
+    """AdamW equal to the JAX package's `make_base_optimizer` followed by
+    `-lr * update`: Adam (b1 0.9, b2 0.999, eps 1e-8) plus decoupled weight
+    decay. The step sets the learning rate of every group before updating."""
+    return torch.optim.AdamW(
+        params, lr=1e-3, betas=(0.9, 0.999), eps=1e-8,
+        weight_decay=weight_decay,
+    )
+
+
+def _normalise(imgs: torch.Tensor) -> torch.Tensor:
+    return ((imgs - cfg.IMAGENET_MEAN) / cfg.IMAGENET_STD)[:, None]
+
+
+def _one_hot_nchw(masks: torch.Tensor, num_labels: int, dtype) -> torch.Tensor:
+    return F.one_hot(masks.long(), num_labels).permute(0, 3, 1, 2).to(dtype)
+
+
+def _autocast(device: torch.device, compute_dtype: torch.dtype):
+    return torch.autocast(
+        device.type, dtype=compute_dtype,
+        enabled=compute_dtype != torch.float32,
+    )
+
+
+def build_train_step(model: torch.nn.Module, loss_fn: Callable,
+                     optimizer: torch.optim.Optimizer, num_labels: int = 2,
+                     image_size: int = 256,
+                     compute_dtype: torch.dtype = torch.bfloat16,
+                     augment: bool = True,
+                     generator: torch.Generator = None) -> Callable:
+    """Returns step(images_u8, masks_u8, lr) -> loss (a device scalar;
+    reading it waits for the step). `generator` draws the augmentation and
+    must live on the batch's device."""
+
+    def step(images_u8: torch.Tensor, masks_u8: torch.Tensor, lr: float):
+        device = images_u8.device
+        model.train()
+        if augment:
+            imgs, msks = augment_batch_u8(generator, images_u8, masks_u8,
+                                          image_size)
+        else:
+            imgs, msks = images_u8.float() / 255.0, masks_u8
+        x = _normalise(imgs)
+        targets = _one_hot_nchw(msks, num_labels, compute_dtype)
+        with _autocast(device, compute_dtype):
+            logits = model(x)
+        loss = loss_fn(logits.float(), targets)
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        for group in optimizer.param_groups:
+            group["lr"] = lr
+        optimizer.step()
+        return loss.detach()
+
+    return step
+
+
+def build_eval_step(model: torch.nn.Module, loss_fn: Callable,
+                    eval_fn: Callable, num_labels: int,
+                    compute_dtype: torch.dtype = torch.bfloat16) -> Callable:
+    """Returns step(images_u8, masks_u8, n_valid) -> (loss, score) as device
+    scalars. `n_valid` marks how many leading batch entries are real; the
+    padded tail contributes nothing to the loss or the metric."""
+
+    @torch.no_grad()
+    def step(images_u8: torch.Tensor, masks_u8: torch.Tensor, n_valid: int):
+        device = images_u8.device
+        model.eval()
+        x = _normalise(images_u8.float() / 255.0)
+        targets = _one_hot_nchw(masks_u8, num_labels, compute_dtype)
+        with _autocast(device, compute_dtype):
+            logits = model(x).float()
+        sample_weights = (
+            torch.arange(images_u8.shape[0], device=device) < n_valid
+        ).float()
+        loss = loss_fn(logits, targets, sample_weights=sample_weights)
+        probs = torch.softmax(logits, dim=1)
+        score = eval_fn(probs, targets, sample_weights=sample_weights)
+        return loss, score
+
+    return step
