@@ -10,8 +10,13 @@
    K1 (warp), K2 (CLAHE LUTs), K3 (CLAHE blend) against its plain PyTorch
    version on the same inputs (coordinates from the port's own augmentation
    draws plus out-of-range, half-integer and exact-.5 ones; CLAHE apply
-   flags mixing 0 and 1), and timed with CUDA events, the L2 cache flushed
-   before every launch. Fails on any excess over the stated tolerance.
+   flags mixing 0 and 1). Fails on any excess over the stated tolerance.
+   Each kernel and plain version is then timed over runs of >= 64 calls
+   (`time_ms`): CUDA events around a run that cycles through k >= 8
+   copies of the inputs, k * bytes >= twice the 50 MB L2, so every call
+   reads its inputs from HBM as the bound counts them; a GPU spin ahead of
+   the run hides the host's dispatch. The time is run time / calls,
+   median of 5 runs.
 4. Slice phase: `VolSeg2dTrainer` trains U-Net/ResNet-34 (random init) at
    256x256, batch 12, bf16 on a 64x256x256 synthetic vessels volume sliced
    along all three axes: LR finder, frozen epoch, LR finder, unfrozen epoch,
@@ -25,8 +30,10 @@ repository (the package is imported from beside this file).
 """
 
 import argparse
+import functools
 import json
 import logging
+import math
 import statistics
 import subprocess
 import sys
@@ -43,6 +50,9 @@ GPU_BANDWIDTH = (  # bytes/s by card name (NVIDIA data sheets)
     ("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12), ("H200", 4.8e12),
     ("H100", 3.35e12),
 )
+L2_BYTES = 50e6  # H100 and H200 L2 cache (NVIDIA data sheets)
+MIN_SETS, MIN_LAUNCHES = 8, 64  # rotating input sets and calls per timed run
+MAX_SPIN_MS = 200.0  # longest GPU spin ahead of a timed run
 NO_LIBRARY = ("no single PyTorch call computes the same function "
               "(grid_sample has no reflect-101 border mode; no CLAHE op)")
 
@@ -59,26 +69,69 @@ def bandwidth(name: str) -> float:
     return next(bw for key, bw in GPU_BANDWIDTH if key in name)
 
 
-def time_ms(fn, iters=30, warmup=3) -> float:
-    """Median CUDA-event device time of `fn`. Before each call a 64 MB write
-    evicts its inputs from the 50 MB L2, and a ~1 ms spin keeps the GPU busy
-    while the host enqueues `fn`'s launches, so the interval between the
-    events holds device work only, not host dispatch."""
-    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(iters):
-        flush.zero_()
-        torch.cuda._sleep(2_000_000)
+def rotating_sets(args, bytes_per_call):
+    """k copies of a call's tensor arguments, k >= 8 and k * bytes_per_call
+    >= twice the L2, so that a run cycling through them finds every call's
+    inputs out of L2, as the bound counts them (read once from HBM)."""
+    k = max(MIN_SETS, math.ceil(2 * L2_BYTES / bytes_per_call))
+    return [tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args)
+            for _ in range(k)]
+
+
+@functools.cache
+def sleep_cycles_per_ms() -> float:
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(20_000_000)
+    end.record()
+    end.synchronize()
+    return 20_000_000 / start.elapsed_time(end)
+
+
+def time_ms(fn, arg_sets, repeats=5):
+    """Device time of one call of `fn`: (median over `repeats` runs of the
+    CUDA-event time of a run) / (calls in a run), and whether every run's
+    timed interval held device work only.
+
+    A run calls `fn` on each of the k argument sets in turn, r rounds,
+    k * r >= MIN_LAUNCHES, keeping the last result of each set alive, so
+    outputs rotate through k + 1 buffers as the inputs rotate through k.
+    Before the start event a spin keeps the GPU busy for twice the host's
+    enqueue time of a run (measured after a warm-up run; at most
+    MAX_SPIN_MS), so the launches queue up behind it. If the start event
+    has not completed when the host has queued the whole run, the interval
+    holds no host dispatch; otherwise (a run of thousands of small launches
+    can fill the launch queue and hold the host back) the time includes
+    host waits, and the second value is False."""
+    k = len(arg_sets)
+    rounds = math.ceil(MIN_LAUNCHES / k)
+    outs = [None] * k
+
+    def run():
+        for _ in range(rounds):
+            for i, args in enumerate(arg_sets):
+                outs[i] = fn(*args)
+
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    spin = int(sleep_cycles_per_ms() * min(2 * host_ms + 1.0, MAX_SPIN_MS))
+    times, hidden = [], True
+    for _ in range(repeats):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin)
         start.record()
-        fn()
+        run()
         end.record()
+        hidden &= not start.query()
         end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+        times.append(start.elapsed_time(end) / (k * rounds))
+    return statistics.median(times), hidden
 
 
 def make_vessel_volume(shape, n_vessels=40, seed=0):
@@ -167,7 +220,7 @@ def kernel_phase(images_u8, masks_u8, bw, dev):
         "augment": aug.geometric_coords(geo, S).contiguous(),
         "adversarial": adversarial_coords(np.random.default_rng(2), dev),
     }
-    results = {}
+    results, timed = {}, {}
 
     img_err, msk_bad = 0.0, 0
     for coords in coord_sets.values():
@@ -180,10 +233,10 @@ def kernel_phase(images_u8, masks_u8, bw, dev):
     results["K1"] = dict(
         max_abs_err=img_err, mask_mismatches=msk_bad, tolerance=2e-7,
         ok=img_err <= 2e-7 and msk_bad == 0,
-        kernel_ms=time_ms(lambda: wp.warp_batch_u8(images_u8, masks_u8, coords)),
-        plain_ms=time_ms(lambda: wp.warp_pair_u8(images_u8, masks_u8, coords)),
         bytes=N * S * S * (1 + 1 + 8 + 4 + 1),
     )
+    timed["K1"] = (wp.warp_batch_u8, wp.warp_pair_u8,
+                   (images_u8, masks_u8, coords))
 
     imgs = torch.clamp(wp.warp_batch_u8(images_u8, masks_u8, coords)[0], 0, 1)
     clips = inten["clip"].float().contiguous()
@@ -197,10 +250,10 @@ def kernel_phase(images_u8, masks_u8, bw, dev):
     lut_err = (luts[on].int() - ref_luts[on].int()).abs().max().item()
     results["K2"] = dict(
         max_abs_err=float(lut_err), tolerance=0.0, ok=lut_err == 0,
-        kernel_ms=time_ms(lambda: cl.clahe_luts(imgs, clips, apply)),
-        plain_ms=time_ms(lambda: cl.clahe_luts_plain(imgs, clips)),
         bytes=n_on * S * S * 4 + N * 8 + n_on * 64 * 256,
     )
+    timed["K2"] = (cl.clahe_luts, lambda im, c, _a: cl.clahe_luts_plain(im, c),
+                   (imgs, clips, apply))
 
     out = cl.clahe_blend(imgs, apply, luts)
     ref = cl.clahe_blend_plain(imgs, apply, ref_luts)
@@ -210,11 +263,27 @@ def kernel_phase(images_u8, masks_u8, bw, dev):
     results["K3"] = dict(
         max_abs_err=blend_err, skipped_bit_exact=skipped_equal, tolerance=1e-6,
         ok=blend_err <= 1e-6 and skipped_equal,
-        kernel_ms=time_ms(lambda: cl.clahe_blend(imgs, apply, luts)),
-        plain_ms=time_ms(lambda: cl.clahe_blend_plain(imgs, apply, ref_luts)),
         bytes=N * S * S * 4 * 2 + N * 4 + n_on * 64 * 256,
     )
+    timed["K3"] = (cl.clahe_blend, cl.clahe_blend_plain, (imgs, apply, ref_luts))
+
     for (name, r), (_, _, entry, _, _) in zip(results.items(), KERNELS):
+        kernel_fn, plain_fn, args = timed[name]
+        sets = rotating_sets(args, r["bytes"])
+        r["kernel_ms"], r["kernel_device_only"] = time_ms(kernel_fn, sets)
+        r["plain_ms"], r["plain_device_only"] = time_ms(plain_fn, sets)
+        r["timed_sets"] = len(sets)
+        r["timed_calls"] = math.ceil(MIN_LAUNCHES / len(sets)) * len(sets)
+        # Yardstick, not a library call for the same function: PyTorch's copy
+        # of a tensor that moves the kernel's bytes (read once, written once,
+        # rounded down to whole 64-byte lines: a copy of a size that is not a
+        # multiple of 16 bytes takes a slower path), launched and timed the
+        # same way: what one launch of this size costs on this timer.
+        blob = torch.empty(r["bytes"] // 128 * 16, dtype=torch.float32,
+                           device=dev)
+        sets = rotating_sets((blob,), r["bytes"])
+        r["copy_same_bytes_ms"] = time_ms(torch.clone, sets)[0]
+        del sets, blob
         r["bound_ms"] = r["bytes"] / bw * 1e3
         r["launches"] = kernels.LAUNCHES[entry]  # comparisons and timing only
         print(json.dumps({"phase": "kernel", "kernel": name, **r,

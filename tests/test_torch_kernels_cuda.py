@@ -30,25 +30,37 @@ def cuda():
     return torch.device("cuda")
 
 
-def _coords(rng, b, s):
-    """Out of range by more than one reflect period, half-integer, exact .5
-    fractions, and an in-range random field."""
-    c = np.empty((b, 2, s, s), np.float32)
-    period = 2 * (s - 1)
-    c[0] = rng.uniform(-2.5 * period, 2.5 * period, (2, s, s))
-    c[1] = rng.integers(-3 * s, 4 * s, (2, s, s)) + 0.5
-    c[2, 0] = rng.integers(0, s, (s, s)) + 0.5
-    c[2, 1] = rng.uniform(-5.0, s + 4.0, (s, s))
-    c[3] = rng.uniform(-5.0, s + 4.0, (2, s, s))
+def _coords(rng, b, h, w=None):
+    """Sample i % 4: out of range by more than one reflect period,
+    half-integer, exact .5 fractions, or an in-range random field."""
+    w = h if w is None else w
+    c = np.empty((b, 2, h, w), np.float32)
+    hi = np.array([h, w], np.float32)[:, None, None]
+    for i in range(b):
+        kind = i % 4
+        if kind == 0:
+            period = 2 * (hi - 1)
+            c[i] = rng.uniform(-2.5, 2.5, (2, h, w)) * period
+        elif kind == 1:
+            c[i] = np.floor(rng.uniform(-3, 4, (2, h, w)) * hi) + 0.5
+        elif kind == 2:
+            c[i, 0] = rng.integers(0, h, (h, w)) + 0.5
+            c[i, 1] = rng.uniform(-5.0, w + 4.0, (h, w))
+        else:
+            c[i] = rng.uniform(-5.0, 4.0, (2, h, w)) + rng.uniform(0, 1, (2, h, w)) * hi
     return c
 
 
-@pytest.mark.parametrize("s", [32, 96, 256])
-def test_warp_kernel_matches_plain(cuda, s):
-    rng = np.random.default_rng(5)
-    imgs = torch.from_numpy(rng.integers(0, 256, (4, s, s), dtype=np.uint8)).to(cuda)
-    msks = torch.from_numpy(rng.integers(0, 4, (4, s, s), dtype=np.uint8)).to(cuda)
-    coords = torch.from_numpy(_coords(rng, 4, s)).to(cuda)
+def _misaligned(t):
+    """A contiguous copy of `t` whose data starts one element past a
+    16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _check_warp(imgs, msks, coords):
     before = kernels.LAUNCHES["volseg_warp_u8"]
     got = warp_batch_u8(imgs, msks, coords)
     ref = warp_pair_u8(imgs, msks, coords)
@@ -59,12 +71,39 @@ def test_warp_kernel_matches_plain(cuda, s):
     assert (got[0] - ref[0]).abs().max().item() <= 2e-7
 
 
-@pytest.mark.parametrize("s", [64, 96, 256])
-def test_clahe_kernels_match_plain(cuda, s):
-    rng = np.random.default_rng(6)
-    imgs = torch.from_numpy((rng.random((4, s, s)) ** 2).astype(np.float32)).to(cuda)
-    clips = torch.tensor([1.0, 2.5, 4.0, 3.0], device=cuda)
-    apply = torch.tensor([1, 0, 1, 1], dtype=torch.int32, device=cuda)
+def _warp_inputs(rng, dev, n, h, w):
+    imgs = torch.from_numpy(rng.integers(0, 256, (n, h, w), dtype=np.uint8)).to(dev)
+    msks = torch.from_numpy(rng.integers(0, 4, (n, h, w), dtype=np.uint8)).to(dev)
+    return imgs, msks, torch.from_numpy(_coords(rng, n, h, w)).to(dev)
+
+
+@pytest.mark.parametrize("s", [32, 96, 256])
+def test_warp_kernel_matches_plain(cuda, s):
+    _check_warp(*_warp_inputs(np.random.default_rng(5), cuda, 4, s, s))
+
+
+# Widths that are not a multiple of 4 nor of the kernel's 32-pixel tile,
+# heights that are not a multiple of its 8-row tile, non-square images, and
+# a batch of one.
+@pytest.mark.parametrize("n,h,w", [(4, 30, 30), (4, 97, 97), (4, 40, 70),
+                                   (5, 70, 33), (1, 256, 256)])
+def test_warp_kernel_other_shapes(cuda, n, h, w):
+    _check_warp(*_warp_inputs(np.random.default_rng(7), cuda, n, h, w))
+
+
+def test_warp_kernel_misaligned_pointers(cuda):
+    imgs, msks, coords = _warp_inputs(np.random.default_rng(8), cuda, 4, 64, 64)
+    _check_warp(_misaligned(imgs), _misaligned(msks), _misaligned(coords))
+
+
+def _clahe_inputs(rng, dev, s, apply):
+    n = len(apply)
+    imgs = torch.from_numpy((rng.random((n, s, s)) ** 2).astype(np.float32)).to(dev)
+    clips = torch.from_numpy(rng.uniform(1.0, 4.0, n).astype(np.float32)).to(dev)
+    return imgs, clips, torch.tensor(apply, dtype=torch.int32, device=dev)
+
+
+def _check_clahe(imgs, clips, apply):
     on = apply.bool()
     luts = clahe_luts(imgs, clips, apply)
     ref_luts = clahe_luts_plain(imgs, clips)
@@ -74,6 +113,36 @@ def test_clahe_kernels_match_plain(cuda, s):
     assert torch.equal(luts[on], ref_luts[on])
     assert torch.equal(out[~on], imgs[~on])
     assert (out - ref).abs().max().item() <= 1e-6
+
+
+@pytest.mark.parametrize("s", [64, 96, 256, 512])
+def test_clahe_kernels_match_plain(cuda, s):
+    _check_clahe(*_clahe_inputs(np.random.default_rng(6), cuda, s, [1, 0, 1, 1]))
+
+
+@pytest.mark.parametrize("apply", [[1] * 6, [0] * 6], ids=["all", "none"])
+def test_clahe_blend_apply_flags(cuda, apply):
+    _check_clahe(*_clahe_inputs(np.random.default_rng(9), cuda, 256, apply))
+
+
+def test_clahe_blend_misaligned_and_scalar_rows(cuda):
+    """Images off a 16-byte boundary, and S=48 with a 3x3 grid (rows of 48
+    pixels, band of 8 rows) through the 16-byte path and S=30 with a 3x3
+    grid (rows not whole float4 groups) through the scalar one."""
+    rng = np.random.default_rng(10)
+    imgs, clips, apply = _clahe_inputs(rng, cuda, 64, [1, 0, 1])
+    imgs = _misaligned(imgs)
+    ref = clahe_blend_plain(imgs, apply, clahe_luts_plain(imgs, clips))
+    assert (clahe_blend(imgs, apply, clahe_luts(imgs, clips, apply)) - ref
+            ).abs().max().item() <= 1e-6
+    for s in (48, 30):
+        imgs, clips, apply = _clahe_inputs(rng, cuda, s, [1, 0, 1])
+        luts = clahe_luts(imgs, clips, apply, 3, 3)
+        out = clahe_blend(imgs, apply, luts, 3, 3)
+        ref = clahe_blend_plain(imgs, apply, clahe_luts_plain(imgs, clips, 3, 3), 3, 3)
+        torch.cuda.synchronize()
+        assert torch.equal(out[1], imgs[1])
+        assert (out - ref).abs().max().item() <= 1e-6
 
 
 def test_augment_batch_runs_each_kernel_once(cuda):

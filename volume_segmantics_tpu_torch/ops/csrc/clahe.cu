@@ -9,8 +9,9 @@
 //
 // What bounds them on an H100: bytes. K2 reads each applied image once
 // (4 B/pixel) and writes 16 KB of LUTs per sample; K3 reads and writes each
-// image once (8 B/pixel) plus 4 KB of LUTs per block. Both do a handful of
-// integer or f32 operations per pixel.
+// image once (8 B/pixel) and reads the LUTs (16 KB per applied sample; the
+// 196 KB of a batch stay in L2, so restaging them per block costs L2 reads,
+// not HBM bytes). Both do a handful of integer or f32 operations per pixel.
 //
 // K2 design: one block of 256 threads per (sample, tile), one thread per
 // histogram bin. The tile's histogram of clip(rint(px*255), 0, 255) is built
@@ -21,18 +22,39 @@
 // rintf rounds half to even, as jnp.rint and torch.round do. Samples whose
 // `apply` flag is 0 are skipped (their LUT rows are left unwritten).
 //
-// K3 design: one block per (sample, half-tile row band). Every row of a
-// band blends the same two tile rows, so the block stages those 2 x grid_w
-// LUTs (4 KB for an 8x8 grid) in shared memory and then walks the band's
-// pixels, one thread per pixel, computing the OpenCV bilinear weights in
-// the kernel (fraction taken before clamping, the two neighbour indices
-// clamped separately): (v00*(1-fx) + v01*fx)*(1-fy) + (v10*(1-fx) + v11*fx)*fy,
-// then /255, with explicitly rounded f32 operations (no FMA contraction).
-// The TPU kernel's static (n_bands, 64, band_h*S) weight tensor is not
-// needed. Samples whose `apply` flag is 0 are copied through bit-exact.
+// K3 design: many small blocks, 16-byte accesses, taps computed once. A
+// block takes `rows` rows of one half-tile band of one sample (at S=256:
+// 4 rows of 64 float4 column groups, 256 threads, one float4 a thread;
+// 768 blocks for a batch of 12, against the ~5 of 256 threads that fit on
+// each of the 132 SMs). Every row of a band blends the same two tile rows,
+// so the block stages only those 2 x grid_w LUTs (4 KB for an 8x8 grid) in
+// shared memory with 16-byte loads, after it has started its own image
+// loads so the two are in flight together. Beside them it computes each
+// column's OpenCV taps once (tx0, tx1, fx: fraction taken before clamping,
+// neighbours clamped separately), which a thread then reads for its 4
+// columns with two 16-byte shared loads; each row's fy is computed once a
+// row, all with the same tile_coord arithmetic as the plain version. Per
+// pixel: bin, four shared-memory byte lookups,
+// (v00*(1-fx) + v01*fx)*(1-fy) + (v10*(1-fx) + v11*fx)*fy, /255, with
+// explicitly rounded f32 operations (no FMA contraction) in the same order
+// as the one-block-per-band design before it, so the two are bit-equal.
+// Samples whose `apply` flag is 0 are a float4 copy, bit-exact. Rows that
+// are not whole float4 groups, or images that are not 16-byte aligned,
+// take a scalar instance of the same kernel (one pixel a thread). The TPU
+// kernel's static (n_bands, 64, band_h*S) weight tensor is not needed.
+//
+// The one-block-per-band design took one block per band (192 blocks of 256
+// threads, ~18% of the card's thread slots), each thread walking 16 pixels
+// with 4-byte accesses, two integer and two IEEE divisions a pixel, and
+// staged the LUTs a byte at a time. Measured and dropped (PERF.md): the
+// LUTs laid out [row][bin][tile] for one 8-byte lookup a row (its staging
+// costs more than it saves), 6 blocks an SM forced by launch bounds (it
+// spills), and two float4 a thread.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -113,50 +135,153 @@ __device__ __forceinline__ float tile_coord(int pos, int tile) {
   return __fsub_rn(__fdiv_rn((float)pos, (float)tile), 0.5f);
 }
 
-__global__ void clahe_blend_kernel(const float* __restrict__ imgs,
-                                   const int* __restrict__ apply,
-                                   const uint8_t* __restrict__ luts,
-                                   float* __restrict__ out, int s, int grid_h,
-                                   int grid_w) {
-  extern __shared__ uint8_t lut_sh[];  // [2][grid_w][kBins]
-  const int b = blockIdx.y;
+constexpr int kBlendThreads = 256;
+
+// V neighbouring pixels: one 16-byte access for V == 4.
+template <int V>
+__device__ __forceinline__ void load_px(const float* p, float (&v)[V]) {
+  if constexpr (V == 4) {
+    const float4 t = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
+  } else {
+    v[0] = __ldg(p);
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void store_px(float* p, const float (&v)[V]) {
+  if constexpr (V == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+    p[0] = v[0];
+  }
+}
+
+template <typename T> struct Vec4;
+template <> struct Vec4<int> { using type = int4; };
+template <> struct Vec4<float> { using type = float4; };
+
+template <int V, typename T>
+__device__ __forceinline__ void load_shared(const T* p, T (&v)[V]) {
+  if constexpr (V == 4) {
+    const auto t = *reinterpret_cast<const typename Vec4<T>::type*>(p);
+    v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
+  } else {
+    v[0] = p[0];
+  }
+}
+
+// One pixel's blend from the two staged tile rows of LUTs; `taps` holds
+// the byte offsets (tile * kBins) of its column's two tiles, o0 | o1 << 16.
+__device__ __forceinline__ float blend_px(const uint8_t* lut_sh, int row_bytes,
+                                          float px, int taps, float fx,
+                                          float fy) {
+  const int bin = bin_of(px), o0 = taps & 0xffff, o1 = taps >> 16;
+  const float v00 = lut_sh[o0 + bin];
+  const float v01 = lut_sh[o1 + bin];
+  const float v10 = lut_sh[row_bytes + o0 + bin];
+  const float v11 = lut_sh[row_bytes + o1 + bin];
+  const float ox = __fsub_rn(1.f, fx), oy = __fsub_rn(1.f, fy);
+  const float top = __fadd_rn(__fmul_rn(v00, ox), __fmul_rn(v01, fx));
+  const float bot = __fadd_rn(__fmul_rn(v10, ox), __fmul_rn(v11, fx));
+  return __fdiv_rn(__fadd_rn(__fmul_rn(top, oy), __fmul_rn(bot, fy)), 255.f);
+}
+
+// Block (bx, by) = (column groups of V pixels, rows); blockIdx.x = (half-tile
+// band, split of `rows` rows of it); blockIdx.y strides over samples.
+// Dynamic shared memory: the band's two LUT rows [2][grid_w][kBins], then
+// each column's taps (int, o0 | o1 << 16) and fraction (float), [s] each.
+template <int V>
+__global__ void __launch_bounds__(kBlendThreads)
+    clahe_blend_kernel(const float* __restrict__ imgs,
+                       const int* __restrict__ apply,
+                       const uint8_t* __restrict__ luts, float* __restrict__ out,
+                       int n, int s, int grid_h, int grid_w, int rows,
+                       int splits) {
+  extern __shared__ __align__(16) uint8_t smem[];
   const int th = s / grid_h, tw = s / grid_w, band_h = th / 2;
-  const int y_start = blockIdx.x * band_h;
-  const size_t off = (size_t)b * s * s + (size_t)y_start * s;
-  const int npx = band_h * s;
-  if (apply[b] == 0) {
-    for (int i = threadIdx.x; i < npx; i += blockDim.x) out[off + i] = imgs[off + i];
-    return;
-  }
-  const int ty0f = (int)floorf(tile_coord(y_start, th));
-  const int ty0 = min(max(ty0f, 0), grid_h - 1);
-  const int ty1 = min(max(ty0f + 1, 0), grid_h - 1);
-  const int row_bytes = grid_w * kBins;
-  const uint8_t* L = luts + (size_t)b * grid_h * row_bytes;
-  for (int i = threadIdx.x; i < row_bytes; i += blockDim.x) {
-    lut_sh[i] = L[(size_t)ty0 * row_bytes + i];
-    lut_sh[row_bytes + i] = L[(size_t)ty1 * row_bytes + i];
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < npx; i += blockDim.x) {
-    const int yy = y_start + i / s, x = i - (i / s) * s;
-    const int bin = bin_of(imgs[off + i]);
-    const float tyv = tile_coord(yy, th);
-    const float fy = __fsub_rn(tyv, floorf(tyv));
-    const float txv = tile_coord(x, tw);
-    const float txf = floorf(txv);
-    const float fx = __fsub_rn(txv, txf);
-    const int tx0 = min(max((int)txf, 0), grid_w - 1);
-    const int tx1 = min(max((int)txf + 1, 0), grid_w - 1);
-    const float v00 = lut_sh[tx0 * kBins + bin];
-    const float v01 = lut_sh[tx1 * kBins + bin];
-    const float v10 = lut_sh[row_bytes + tx0 * kBins + bin];
-    const float v11 = lut_sh[row_bytes + tx1 * kBins + bin];
-    const float ox = __fsub_rn(1.f, fx), oy = __fsub_rn(1.f, fy);
-    const float top = __fadd_rn(__fmul_rn(v00, ox), __fmul_rn(v01, fx));
-    const float bot = __fadd_rn(__fmul_rn(v10, ox), __fmul_rn(v11, fx));
-    out[off + i] =
-        __fdiv_rn(__fadd_rn(__fmul_rn(top, oy), __fmul_rn(bot, fy)), 255.f);
+  const int band = blockIdx.x / splits;
+  const int r0 = (blockIdx.x - band * splits) * rows;
+  const int y_band = band * band_h, nrows = min(rows, band_h - r0);
+  const int nq = s / V, row_bytes = grid_w * kBins;
+  uint8_t* lut_sh = smem;
+  int* col_taps = reinterpret_cast<int*>(smem + 2 * row_bytes);
+  float* col_fx = reinterpret_cast<float*>(col_taps + s);
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int tid = ty * blockDim.x + tx, nthreads = blockDim.x * blockDim.y;
+  // Every row of a half-tile band blends the same two tile rows.
+  const int tyf = (int)floorf(tile_coord(y_band, th));
+  const int ty0 = min(max(tyf, 0), grid_h - 1);
+  const int ty1 = min(max(tyf + 1, 0), grid_h - 1);
+  for (int b = blockIdx.y; b < n; b += gridDim.y) {
+    const size_t base = ((size_t)b * s + y_band + r0) * s;
+    const float* src = imgs + base;
+    float* dst = out + base;
+    // The thread's first pixels are loaded before the LUT staging, so the
+    // two loads are in flight together.
+    const bool has_first = tx < nq && ty < nrows;
+    float first[V];
+    if (has_first) load_px<V>(src + (size_t)ty * s + tx * V, first);
+    if (apply[b] == 0) {  // pass through, bit-exact (uniform per block)
+      for (int q = tx; q < nq; q += blockDim.x) {
+        for (int r = ty; r < nrows; r += blockDim.y) {
+          float v[V];
+          if (q == tx && r == ty) {
+#pragma unroll
+            for (int j = 0; j < V; ++j) v[j] = first[j];
+          } else {
+            load_px<V>(src + (size_t)r * s + q * V, v);
+          }
+          store_px<V>(dst + (size_t)r * s + q * V, v);
+        }
+      }
+      continue;
+    }
+    const uint8_t* L = luts + (size_t)b * grid_h * row_bytes;
+    const uint8_t* L0 = L + (size_t)ty0 * row_bytes;
+    const uint8_t* L1 = L + (size_t)ty1 * row_bytes;
+    if ((reinterpret_cast<uintptr_t>(luts) & 15) == 0) {
+      const int row16 = row_bytes / 16;  // row_bytes is a multiple of 256
+      for (int i = tid; i < 2 * row16; i += nthreads) {
+        const uint4* row = reinterpret_cast<const uint4*>(i < row16 ? L0 : L1);
+        reinterpret_cast<uint4*>(lut_sh)[i] = __ldg(row + i % row16);
+      }
+    } else {
+      for (int i = tid; i < 2 * row_bytes; i += nthreads)
+        lut_sh[i] = (i < row_bytes ? L0 : L1)[i % row_bytes];
+    }
+    // Each column's OpenCV taps, once per block: fraction taken before
+    // clamping, the two neighbours clamped separately.
+    for (int x = tid; x < s; x += nthreads) {
+      const float txv = tile_coord(x, tw);
+      const float txf = floorf(txv);
+      col_fx[x] = __fsub_rn(txv, txf);
+      col_taps[x] = (min(max((int)txf, 0), grid_w - 1) * kBins) |
+                    (min(max((int)txf + 1, 0), grid_w - 1) * kBins) << 16;
+    }
+    __syncthreads();
+    for (int q = tx; q < nq; q += blockDim.x) {
+      for (int r = ty; r < nrows; r += blockDim.y) {
+        float v[V];
+        if (q == tx && r == ty) {
+#pragma unroll
+          for (int j = 0; j < V; ++j) v[j] = first[j];
+        } else {
+          load_px<V>(src + (size_t)r * s + q * V, v);
+        }
+        const float tyv = tile_coord(y_band + r0 + r, th);
+        const float fy = __fsub_rn(tyv, floorf(tyv));
+        int taps[V];
+        float fx[V];
+        load_shared<V>(col_taps + q * V, taps);
+        load_shared<V>(col_fx + q * V, fx);
+#pragma unroll
+        for (int j = 0; j < V; ++j)
+          v[j] = blend_px(lut_sh, row_bytes, v[j], taps[j], fx[j], fy);
+        store_px<V>(dst + (size_t)r * s + q * V, v);
+      }
+    }
+    __syncthreads();  // lut_sh is restaged for the next sample
   }
 }
 
@@ -178,12 +303,28 @@ extern "C" int volseg_clahe_blend(const void* imgs, const void* apply,
                                   const void* luts, void* out, int n, int s,
                                   int grid_h, int grid_w, void* stream) {
   if (n > 0) {
-    const int band_h = (s / grid_h) / 2;
-    const dim3 grid(s / band_h, n);
-    const size_t smem = 2 * (size_t)grid_w * kBins;
-    clahe_blend_kernel<<<grid, 256, smem, (cudaStream_t)stream>>>(
-        (const float*)imgs, (const int*)apply, (const uint8_t*)luts,
-        (float*)out, s, grid_h, grid_w);
+    // float4 accesses where rows are whole 16-byte groups and both images
+    // are 16-byte aligned; one pixel a thread otherwise.
+    const bool vec = s % 4 == 0 &&
+                     (reinterpret_cast<uintptr_t>(imgs) & 15) == 0 &&
+                     (reinterpret_cast<uintptr_t>(out) & 15) == 0;
+    const int band_h = (s / grid_h) / 2, nq = vec ? s / 4 : s;
+    // One group of pixels a thread: a block is a row's column groups times
+    // as many rows of one band as fill kBlendThreads threads.
+    const int bx = std::min(nq, kBlendThreads);
+    const int rows = std::max(1, std::min(kBlendThreads / bx, band_h));
+    const int splits = (band_h + rows - 1) / rows;
+    const dim3 grid(2 * grid_h * splits, std::min(n, 65535)), block(bx, rows);
+    const size_t smem = 2 * (size_t)grid_w * kBins + 8 * (size_t)s;
+    const auto kernel = vec ? clahe_blend_kernel<4> : clahe_blend_kernel<1>;
+    if (smem > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return (int)err;
+    }
+    kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
+        (const float*)imgs, (const int*)apply, (const uint8_t*)luts, (float*)out,
+        n, s, grid_h, grid_w, rows, splits);
   }
   return (int)cudaGetLastError();
 }
