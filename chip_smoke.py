@@ -10,7 +10,10 @@
    K1 (warp), K2 (CLAHE LUTs), K3 (CLAHE blend) against its plain PyTorch
    version on the same inputs (coordinates from the port's own augmentation
    draws plus out-of-range, half-integer and exact-.5 ones; CLAHE apply
-   flags mixing 0 and 1). Fails on any excess over the stated tolerance.
+   flags mixing 0 and 1). K2 runs on a second batch too, `K2_saturated`:
+   the same images cut to a disc, as a micro-CT slice is outside its field
+   of view, so whole tiles fall in one bin. Fails on any excess over the
+   stated tolerance.
    Each kernel and plain version is then timed over runs of >= 64 calls
    (`time_ms`): CUDA events around a run that cycles through k >= 8
    copies of the inputs, k * bytes >= twice the 50 MB L2, so every call
@@ -205,14 +208,25 @@ def adversarial_coords(rng, dev):
     return torch.from_numpy(c).to(dev)
 
 
-def kernel_phase(images_u8, masks_u8, bw, dev):
-    """Each kernel against its plain version; returns per-kernel results."""
+def field_of_view_cut(imgs):
+    """Each sample with every pixel outside a centred disc of radius 0.45 S
+    set to 0.0, as a micro-CT slice is outside its reconstruction's field of
+    view after the data manager's st-dev clip: 36% of the pixels, and at
+    S=256 12 of the 64 CLAHE tiles wholly, fall in bin 0."""
+    s = imgs.shape[-1]
+    yx = torch.arange(s, dtype=torch.float32, device=imgs.device) - (s - 1) / 2
+    return imgs.masked_fill(yx[:, None] ** 2 + yx[None, :] ** 2 > (0.45 * s) ** 2,
+                            0.0)
+
+
+def kernel_inputs(images_u8, masks_u8, dev):
+    """The kernels' inputs at the training path's shapes: coordinate fields
+    from the port's augmentation draws and adversarial ones; the CLAHE batch
+    (the warped images, the draws' clip limits, apply flags mixing 0 and 1)
+    and the same batch cut to its field of view."""
     from volume_segmantics_tpu_torch.ops import augment as aug
-    from volume_segmantics_tpu_torch.ops import clahe as cl
-    from volume_segmantics_tpu_torch.ops import kernels
     from volume_segmantics_tpu_torch.ops import warp as wp
 
-    kernels.reset_launch_counts()
     gen = torch.Generator(dev).manual_seed(1)
     geo = aug.draw_geometric_params(gen, N, S, dev)
     inten = aug.draw_intensity_params(gen, N, dev)
@@ -220,40 +234,68 @@ def kernel_phase(images_u8, masks_u8, bw, dev):
         "augment": aug.geometric_coords(geo, S).contiguous(),
         "adversarial": adversarial_coords(np.random.default_rng(2), dev),
     }
+    imgs = torch.clamp(
+        wp.warp_batch_u8(images_u8, masks_u8, coord_sets["augment"])[0], 0, 1)
+    apply = torch.tensor([1, 0, 1, 1, 0, 1, 0, 1, 1, 0, 1, 0], dtype=torch.int32,
+                         device=dev)
+    n_on = int(apply.sum())
+    return SimpleNamespace(
+        coord_sets=coord_sets, imgs=imgs, saturated=field_of_view_cut(imgs),
+        clips=inten["clip"].float().contiguous(), apply=apply, n_on=n_on,
+        k2_bytes=n_on * S * S * 4 + N * 8 + n_on * 64 * 256,
+    )
+
+
+def copy_same_bytes_ms(nbytes, dev):
+    """Yardstick, not a library call for the same function: PyTorch's copy
+    of a float32 tensor that moves `nbytes` (read once, written once, rounded
+    down to whole 64-byte lines: a copy of a size that is not a multiple of
+    16 bytes takes a slower path), timed as the kernels are: what one launch
+    of this size costs on this timer."""
+    blob = torch.empty(nbytes // 128 * 16, dtype=torch.float32, device=dev)
+    return time_ms(torch.clone, rotating_sets((blob,), nbytes))[0]
+
+
+def kernel_phase(images_u8, masks_u8, bw, dev):
+    """Each kernel against its plain version; returns per-kernel results."""
+    from volume_segmantics_tpu_torch.ops import clahe as cl
+    from volume_segmantics_tpu_torch.ops import kernels
+    from volume_segmantics_tpu_torch.ops import warp as wp
+
+    kernels.reset_launch_counts()
+    inp = kernel_inputs(images_u8, masks_u8, dev)
+    entry = {k: e for k, _, e, _, _ in KERNELS}
     results, timed = {}, {}
 
     img_err, msk_bad = 0.0, 0
-    for coords in coord_sets.values():
+    for coords in inp.coord_sets.values():
         got = wp.warp_batch_u8(images_u8, masks_u8, coords)
         ref = wp.warp_pair_u8(images_u8, masks_u8, coords)
         torch.cuda.synchronize()
         img_err = max(img_err, (got[0] - ref[0]).abs().max().item())
         msk_bad += int((got[1] != ref[1]).sum())
-    coords = coord_sets["augment"]
     results["K1"] = dict(
         max_abs_err=img_err, mask_mismatches=msk_bad, tolerance=2e-7,
         ok=img_err <= 2e-7 and msk_bad == 0,
         bytes=N * S * S * (1 + 1 + 8 + 4 + 1),
     )
     timed["K1"] = (wp.warp_batch_u8, wp.warp_pair_u8,
-                   (images_u8, masks_u8, coords))
+                   (images_u8, masks_u8, inp.coord_sets["augment"]), entry["K1"])
 
-    imgs = torch.clamp(wp.warp_batch_u8(images_u8, masks_u8, coords)[0], 0, 1)
-    clips = inten["clip"].float().contiguous()
-    apply = torch.tensor([1, 0, 1, 1, 0, 1, 0, 1, 1, 0, 1, 0], dtype=torch.int32,
-                         device=dev)
+    imgs, clips, apply = inp.imgs, inp.clips, inp.apply
     on = apply.bool()
-    n_on = int(on.sum())
-    luts = cl.clahe_luts(imgs, clips, apply)
-    ref_luts = cl.clahe_luts_plain(imgs, clips)
-    torch.cuda.synchronize()
-    lut_err = (luts[on].int() - ref_luts[on].int()).abs().max().item()
-    results["K2"] = dict(
-        max_abs_err=float(lut_err), tolerance=0.0, ok=lut_err == 0,
-        bytes=n_on * S * S * 4 + N * 8 + n_on * 64 * 256,
-    )
-    timed["K2"] = (cl.clahe_luts, lambda im, c, _a: cl.clahe_luts_plain(im, c),
-                   (imgs, clips, apply))
+    for name, batch in (("K2", imgs), ("K2_saturated", inp.saturated)):
+        got = cl.clahe_luts(batch, clips, apply)
+        ref = cl.clahe_luts_plain(batch, clips)
+        torch.cuda.synchronize()
+        lut_err = (got[on].int() - ref[on].int()).abs().max().item()
+        results[name] = dict(max_abs_err=float(lut_err), tolerance=0.0,
+                             ok=lut_err == 0, bytes=inp.k2_bytes)
+        timed[name] = (cl.clahe_luts,
+                       lambda im, c, _a: cl.clahe_luts_plain(im, c),
+                       (batch, clips, apply), entry["K2"])
+        if name == "K2":
+            luts, ref_luts = got, ref
 
     out = cl.clahe_blend(imgs, apply, luts)
     ref = cl.clahe_blend_plain(imgs, apply, ref_luts)
@@ -263,29 +305,22 @@ def kernel_phase(images_u8, masks_u8, bw, dev):
     results["K3"] = dict(
         max_abs_err=blend_err, skipped_bit_exact=skipped_equal, tolerance=1e-6,
         ok=blend_err <= 1e-6 and skipped_equal,
-        bytes=N * S * S * 4 * 2 + N * 4 + n_on * 64 * 256,
+        bytes=N * S * S * 4 * 2 + N * 4 + inp.n_on * 64 * 256,
     )
-    timed["K3"] = (cl.clahe_blend, cl.clahe_blend_plain, (imgs, apply, ref_luts))
+    timed["K3"] = (cl.clahe_blend, cl.clahe_blend_plain, (imgs, apply, ref_luts),
+                   entry["K3"])
 
-    for (name, r), (_, _, entry, _, _) in zip(results.items(), KERNELS):
-        kernel_fn, plain_fn, args = timed[name]
+    for name, r in results.items():
+        kernel_fn, plain_fn, args, kernel_entry = timed[name]
         sets = rotating_sets(args, r["bytes"])
         r["kernel_ms"], r["kernel_device_only"] = time_ms(kernel_fn, sets)
         r["plain_ms"], r["plain_device_only"] = time_ms(plain_fn, sets)
         r["timed_sets"] = len(sets)
         r["timed_calls"] = math.ceil(MIN_LAUNCHES / len(sets)) * len(sets)
-        # Yardstick, not a library call for the same function: PyTorch's copy
-        # of a tensor that moves the kernel's bytes (read once, written once,
-        # rounded down to whole 64-byte lines: a copy of a size that is not a
-        # multiple of 16 bytes takes a slower path), launched and timed the
-        # same way: what one launch of this size costs on this timer.
-        blob = torch.empty(r["bytes"] // 128 * 16, dtype=torch.float32,
-                           device=dev)
-        sets = rotating_sets((blob,), r["bytes"])
-        r["copy_same_bytes_ms"] = time_ms(torch.clone, sets)[0]
-        del sets, blob
+        del sets
+        r["copy_same_bytes_ms"] = copy_same_bytes_ms(r["bytes"], dev)
         r["bound_ms"] = r["bytes"] / bw * 1e3
-        r["launches"] = kernels.LAUNCHES[entry]  # comparisons and timing only
+        r["launches"] = kernels.LAUNCHES[kernel_entry]  # comparisons and timing only
         print(json.dumps({"phase": "kernel", "kernel": name, **r,
                           "library_ms": None, "library_note": NO_LIBRARY}),
               flush=True)

@@ -88,6 +88,96 @@ def test_luts_are_exact_integers_of_opencv_rule():
     assert (luts[..., -1] == 255).all()
 
 
+def _one_scan_luts(imgs, clips, grid):
+    """Kernel K2's arithmetic (`csrc/clahe.cu`): one inclusive scan of the
+    clipped counts; the excess as area - their total; the redistribution's
+    prefix in closed form, min(t // step + 1, residual), with t // step
+    taken as the kernel takes it, floor((t + 0.5) * (1 / step)) in float32.
+    Returns the LUTs and each tile's residual."""
+    n, s, _ = imgs.shape
+    th = s // grid
+    area = th * th
+    bins = torch.clamp(torch.round(imgs * 255.0), 0, 255).to(torch.int64)
+    tiles = (bins.reshape(n, grid, th, grid, th).permute(0, 1, 3, 2, 4)
+             .reshape(n, grid * grid, area))
+    hist = torch.zeros(n, grid * grid, 256, dtype=torch.int64)
+    hist.scatter_add_(2, tiles, torch.ones_like(tiles))
+    limit = torch.clamp(torch.floor(clips * area / 256), min=1.0).to(torch.int64)
+    prefix = torch.cumsum(torch.minimum(hist, limit[:, None, None]), -1)
+    excess = area - prefix[..., -1:]
+    redist, residual = excess // 256, excess % 256
+    t = torch.arange(256)
+    step = 256 // torch.clamp(residual, min=1)
+    quot = ((t + 0.5) * (1.0 / step.to(torch.float32))).to(torch.int64)
+    cdf = prefix + redist * (t + 1) + torch.minimum(quot + 1, residual)
+    luts = torch.round(cdf.to(torch.float32) * (255 / area))
+    return torch.clamp(luts, 0, 255).to(torch.uint8), residual
+
+
+def test_reciprocal_floor_is_integer_division():
+    """Every (t, step) the kernel meets: floor((t + 0.5) * (1 / step)) in
+    float32 equals t // step."""
+    t = torch.arange(256)[:, None]
+    step = 256 // torch.arange(1, 256)[None, :]
+    quot = ((t + 0.5) * (1.0 / step.to(torch.float32))).to(torch.int64)
+    assert torch.equal(quot, t // step)
+
+
+def _tile_image(rng, s, grid, counts):
+    """An (s, s) image each of whose tiles holds bin b counts[b] times (a
+    {bin: count} dict summing to the tile's area), each in its own order."""
+    th = s // grid
+    vals = np.repeat(list(counts), list(counts.values()))
+    tiles = np.stack([rng.permutation(vals) for _ in range(grid * grid)])
+    img = tiles.reshape(grid, grid, th, th).transpose(0, 2, 1, 3).reshape(s, s)
+    return img.astype(np.float32) / np.float32(255)
+
+
+def _adversarial_histograms(rng, area, limit):
+    """Tile histograms that stress the clip and redistribution: one bin, two
+    bins, and totals of clipped counts that leave residual 0 and 255."""
+    b = [int(x) for x in rng.permutation(256)]
+    hists = [{0: area}, {128: area}, {255: area},
+             {b[0]: area // 3, b[1]: area - area // 3}]
+    k = 256 // limit
+    if limit == 1 and area <= 256:  # every pixel in its own bin: excess 0
+        hists.append({x: 1 for x in b[:area]})
+    else:  # clipped counts total 256: the excess is area - 256
+        hists.append({b[0]: area - (k - 1) * limit, **{x: limit for x in b[1:k]}})
+    if area > 256 + limit:  # clipped counts total 257: residual 255
+        hists.append({b[0]: area - (k - 1) * limit - 1,
+                      **{x: limit for x in b[1:k]}, b[k]: 1})
+    return hists
+
+
+@pytest.mark.parametrize("clip", [1.0, 4.0])
+@pytest.mark.parametrize("s,grid", [(64, 8), (64, 2), (30, 3)],
+                         ids=["S64", "S64-2x2", "S30-3x3"])
+def test_one_scan_rule_matches_plain_luts_and_jax(s, grid, clip):
+    """The one-scan CDF that kernel K2 computes equals the two-step OpenCV
+    rule of `clahe_luts_plain` bit for bit, and its LUTs blended equal the
+    JAX `clahe`, on constant, two-level, residual-0 and residual-255 tiles
+    (32x32 tiles at S=64 with a 2x2 grid, 8x8 and 10x10 ones otherwise)."""
+    rng = np.random.default_rng(12)
+    area = (s // grid) ** 2
+    limit = max(int(np.floor(np.float32(clip) * area / 256)), 1)
+    imgs = np.stack([_tile_image(rng, s, grid, h)
+                     for h in _adversarial_histograms(rng, area, limit)])
+    clips = np.full(len(imgs), clip, np.float32)
+    luts, residual = _one_scan_luts(torch.from_numpy(imgs), torch.from_numpy(clips),
+                                    grid)
+    assert 0 in residual and (area < 512 or 255 in residual)
+    assert torch.equal(luts, clahe_luts_plain(torch.from_numpy(imgs),
+                                              torch.from_numpy(clips), grid, grid))
+    out = clahe_blend_plain(torch.from_numpy(imgs),
+                            torch.ones(len(imgs), dtype=torch.int32),
+                            luts, grid, grid).numpy()
+    for i in range(len(imgs)):
+        ref = np.asarray(jax_clahe(jnp.asarray(imgs[i]), jnp.float32(clip),
+                                   grid_h=grid, grid_w=grid))
+        np.testing.assert_allclose(out[i], ref, atol=ATOL, rtol=0)
+
+
 def test_wrappers_take_plain_versions_on_cpu():
     rng = np.random.default_rng(8)
     imgs = torch.from_numpy(rng.random((3, 64, 64)).astype(np.float32))

@@ -145,6 +145,57 @@ def test_clahe_blend_misaligned_and_scalar_rows(cuda):
         assert (out - ref).abs().max().item() <= 1e-6
 
 
+def _residual_zero_image(rng, s, limit):
+    """An (s, s) image whose 8x8 grid's tiles each clip to 256 counts in
+    all: one bin of area - (k - 1) * limit pixels and k - 1 bins of `limit`
+    pixels (k = 256 / limit), each tile in its own order. The excess,
+    area - 256, is a multiple of 256 when the area is."""
+    th, k = s // 8, 256 // limit
+    bins = rng.choice(256, k, replace=False)
+    vals = np.repeat(bins, [th * th - (k - 1) * limit] + [limit] * (k - 1))
+    tiles = np.stack([rng.permutation(vals) for _ in range(64)])
+    img = tiles.reshape(8, 8, th, th).transpose(0, 2, 1, 3).reshape(s, s)
+    return img.astype(np.float32) / np.float32(255)
+
+
+def _k2_edge_case(case, rng):
+    """(imgs, clips, grid) of one K2 edge case, as numpy arrays."""
+    clips = np.array([1.0, 2.5, 4.0], np.float32)
+    if case.startswith("constant"):
+        return np.full((3, 256, 256), float(case.split("-")[1]), np.float32), clips, 8
+    if case == "residual-0":
+        # 32x32 tiles: clip 1.0 -> limit 4, clip 4.0 -> limit 16.
+        imgs = np.stack([_residual_zero_image(rng, 256, lim) for lim in (4, 4, 16)])
+        return imgs, np.array([1.0, 1.0, 4.0], np.float32), 8
+    if case == "S=512":
+        return (rng.random((3, 512, 512)) ** 2).astype(np.float32), clips, 8
+    if case == "S=30-3x3":
+        return rng.random((3, 30, 30)).astype(np.float32), clips, 3
+    assert case == "misaligned"
+    return (rng.random((3, 64, 64)) ** 2).astype(np.float32), clips, 8
+
+
+@pytest.mark.parametrize("case", ["constant-0.0", "constant-0.5", "constant-1.0",
+                                  "residual-0", "S=512", "S=30-3x3", "misaligned"])
+def test_clahe_luts_kernel_edge_cases(cuda, case):
+    """K2 equals the plain LUTs bit for bit on applied samples: one bin a
+    tile, an excess that is a multiple of 256, 64x64 tiles, 10x10 tiles
+    (scalar loads), and an image off a 16-byte boundary."""
+    imgs, clips, grid = _k2_edge_case(case, np.random.default_rng(11))
+    imgs = torch.from_numpy(imgs).to(cuda)
+    if case == "misaligned":
+        imgs = _misaligned(imgs)
+    clips = torch.from_numpy(clips).to(cuda)
+    apply = torch.tensor([1, 0, 1], dtype=torch.int32, device=cuda)
+    before = kernels.LAUNCHES["volseg_clahe_luts"]
+    luts = clahe_luts(imgs, clips, apply, grid, grid)
+    ref = clahe_luts_plain(imgs, clips, grid, grid)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["volseg_clahe_luts"] == before + 1
+    on = apply.bool()
+    assert torch.equal(luts[on], ref[on])
+
+
 def test_augment_batch_runs_each_kernel_once(cuda):
     rng = np.random.default_rng(0)
     imgs = torch.from_numpy(rng.integers(0, 256, (12, 256, 256), dtype=np.uint8)).to(cuda)

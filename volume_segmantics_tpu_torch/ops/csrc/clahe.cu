@@ -13,14 +13,28 @@
 // 196 KB of a batch stay in L2, so restaging them per block costs L2 reads,
 // not HBM bytes). Both do a handful of integer or f32 operations per pixel.
 //
-// K2 design: one block of 256 threads per (sample, tile), one thread per
-// histogram bin. The tile's histogram of clip(rint(px*255), 0, 255) is built
-// with shared-memory atomics in integers; the OpenCV clip limit is computed
-// in f32 in the reference's order, floor(clip * area / 256); excess and CDF
-// come from one block scan. Every count is an exact integer, so the LUT
-// clip(rint(cdf * (255/area)), 0, 255) equals the reference's bit for bit.
-// rintf rounds half to even, as jnp.rint and torch.round do. Samples whose
-// `apply` flag is 0 are skipped (their LUT rows are left unwritten).
+// K2 design: a block of 4 warps per (sample, tile), so that the per-pixel
+// work of a tile spreads over 128 threads, and one scan. Each thread issues
+// its first loads of the tile (16 bytes a thread where tiles are whole
+// float4 groups and the image is 16-byte aligned, at S=256 two float4 of a
+// 32x32 tile; one float a thread otherwise) before the shared histogram of
+// clip(rint(px*255), 0, 255) is cleared; shared-memory atomics build it in
+// integers. After the second barrier warp 0 alone makes the LUTs: lane l
+// takes bins 8l..8l+7, and a warp shuffle scan joins the lanes. One scan
+// suffices: the histogram sums to the tile's area, so the OpenCV excess is
+// area - sum(clipped), and the redistribution's prefix has a closed form
+// (bins 0, step, 2 step, ... below residual * step get one more, so bins
+// <= t get min(t / step + 1, residual)). The clip limit is computed in f32
+// in the reference's order, floor(clip * area / 256); every count is an
+// exact integer, so the LUT rint(cdf * (255/area)) equals the reference's
+// bit for bit (rounding half to even, as jnp.rint and torch.round do).
+// Samples whose `apply` flag is 0 are skipped (their LUT rows are left
+// unwritten). Measured and dropped (PERF.md, tools/k2_designs.cu): the
+// previous design (a block of 256 threads, thread = bin, two block scans),
+// a warp per tile (one warp's serial pixel work), warp aggregation with
+// __match_any_sync (twice as slow), per-warp and interleaved histogram
+// replicas, reading the flag alongside speculative image loads, and warps
+// dealt to applied tiles only.
 //
 // K3 design: many small blocks, 16-byte accesses, taps computed once. A
 // block takes `rows` rows of one half-tile band of one sample (at S=256:
@@ -65,78 +79,6 @@ __device__ __forceinline__ int bin_of(float px) {
   return (int)fminf(fmaxf(v, 0.f), 255.f);
 }
 
-// Inclusive prefix sum over a block of exactly kBins threads.
-__device__ int block_inclusive_scan(int v, int* warp_sums) {
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int u = __shfl_up_sync(0xffffffffu, v, o);
-    if (lane >= o) v += u;
-  }
-  if (lane == 31) warp_sums[wid] = v;
-  __syncthreads();
-  if (wid == 0) {
-    int s = lane < kBins / 32 ? warp_sums[lane] : 0;
-#pragma unroll
-    for (int o = 1; o < kBins / 32; o <<= 1) {
-      const int u = __shfl_up_sync(0xffffffffu, s, o);
-      if (lane >= o) s += u;
-    }
-    if (lane < kBins / 32) warp_sums[lane] = s;
-  }
-  __syncthreads();
-  if (wid > 0) v += warp_sums[wid - 1];
-  __syncthreads();  // warp_sums may be reused by the next scan
-  return v;
-}
-
-__global__ void __launch_bounds__(kBins)
-    clahe_luts_kernel(const float* __restrict__ imgs,
-                      const float* __restrict__ clips,
-                      const int* __restrict__ apply, uint8_t* __restrict__ luts,
-                      int s, int grid_h, int grid_w) {
-  const int b = blockIdx.y, tile = blockIdx.x;
-  if (apply[b] == 0) return;
-  const int th = s / grid_h, tw = s / grid_w, area = th * tw;
-  const int ty = tile / grid_w, tx = tile - ty * grid_w;
-  __shared__ int hist[kBins];
-  __shared__ int warp_sums[kBins / 32];
-  const int t = threadIdx.x;
-  hist[t] = 0;
-  __syncthreads();
-  const float* base = imgs + (size_t)b * s * s + (size_t)ty * th * s + tx * tw;
-  for (int i = t; i < area; i += kBins) {
-    const int r = i / tw, c = i - r * tw;
-    atomicAdd(&hist[bin_of(base[(size_t)r * s + c])], 1);
-  }
-  __syncthreads();
-
-  const float clip = clips[b];
-  const int limit = (int)fmaxf(
-      floorf(__fdiv_rn(__fmul_rn(clip, (float)area), (float)kBins)), 1.f);
-  const int h = hist[t];
-  const int clipped = min(h, limit);
-  const int excess = block_inclusive_scan(h - clipped, warp_sums);
-  __shared__ int total_excess;
-  if (t == kBins - 1) total_excess = excess;
-  __syncthreads();
-  const int redist = total_excess / kBins;
-  const int residual = total_excess - redist * kBins;
-  const int step = max(kBins / max(residual, 1), 1);
-  const int gets_one = (t % step == 0) && (t < residual * step);
-  const int cdf = block_inclusive_scan(clipped + redist + gets_one, warp_sums);
-  const float scale = (float)(255.0 / (double)area);
-  const float lut = fminf(fmaxf(rintf(__fmul_rn((float)cdf, scale)), 0.f), 255.f);
-  luts[((size_t)b * grid_h * grid_w + tile) * kBins + t] = (uint8_t)lut;
-}
-
-// OpenCV tile coordinate of a pixel: t = pos / tile - 0.5.
-__device__ __forceinline__ float tile_coord(int pos, int tile) {
-  return __fsub_rn(__fdiv_rn((float)pos, (float)tile), 0.5f);
-}
-
-constexpr int kBlendThreads = 256;
-
 // V neighbouring pixels: one 16-byte access for V == 4.
 template <int V>
 __device__ __forceinline__ void load_px(const float* p, float (&v)[V]) {
@@ -147,6 +89,134 @@ __device__ __forceinline__ void load_px(const float* p, float (&v)[V]) {
     v[0] = __ldg(p);
   }
 }
+
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kLutThreads = 128;  // 4 warps a tile
+constexpr int kLutRound = 2;      // pixel groups a thread loads at once
+
+// OpenCV clip limit, in f32 in the reference's order, at least 1.
+__device__ __forceinline__ int clip_limit(float clip, int area) {
+  return (int)fmaxf(
+      floorf(__fdiv_rn(__fmul_rn(clip, (float)area), (float)kBins)), 1.f);
+}
+
+// A thread's group of V pixels in its tile: row r, group c of qn groups a
+// row. Moving `stride` groups on is dr rows and dc groups (no division).
+struct Cursor {
+  int r, c;
+  __device__ __forceinline__ void advance(int dr, int dc, int qn) {
+    r += dr;
+    c += dc;
+    if (c >= qn) c -= qn, ++r;
+  }
+};
+
+// Loads G groups of V pixels, at group indices idx, idx + stride, ...;
+// ok[g] is false past the tile's n_groups.
+template <int V, int G>
+__device__ __forceinline__ void load_round(const float* base, int s, int idx,
+                                           int stride, int n_groups,
+                                           Cursor& cur, int dr, int dc, int qn,
+                                           float (&v)[G][V], bool (&ok)[G]) {
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    ok[g] = idx + g * stride < n_groups;
+    if (ok[g]) {
+      load_px<V>(base + (size_t)cur.r * s + cur.c * V, v[g]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < V; ++j) v[g][j] = 0.f;
+    }
+    cur.advance(dr, dc, qn);
+  }
+}
+
+// One warp turns a tile's histogram into its LUT: lane l scans bins
+// 8l..8l+7 of the clipped counts, a shuffle scan joins the lanes, and the
+// excess is area - total. The count of bins <= t that get one more is
+// min(t / step + 1, residual); (t + 0.5) / step lies at least 0.5 / 256
+// from an integer, far beyond the product's rounding, so the floor of
+// (t + 0.5) * (1 / step) is t / step. `scale` is (float)(255.0 / area);
+// `lut` is 8-byte aligned.
+__device__ __forceinline__ void warp_luts(const int4* hist4, int lane,
+                                          int limit, int area, float scale,
+                                          uint8_t* lut) {
+  const int4 h0 = hist4[2 * lane], h1 = hist4[2 * lane + 1];
+  const int h[8] = {h0.x, h0.y, h0.z, h0.w, h1.x, h1.y, h1.z, h1.w};
+  int p[8], run = 0;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) p[k] = run += min(h[k], limit);
+  int incl = run;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int u = __shfl_up_sync(kFull, incl, o);
+    if (lane >= o) incl += u;
+  }
+  const int total = __shfl_sync(kFull, incl, 31), below = incl - run;
+  const int excess = area - total, redist = excess >> 8, residual = excess & 255;
+  const float inv_step = __fdiv_rn(1.f, (float)(kBins / max(residual, 1)));
+  uint32_t word[2] = {0, 0};
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int t = 8 * lane + k;
+    const int ones = min((int)__fmul_rn((float)t + 0.5f, inv_step) + 1, residual);
+    const int cdf = below + p[k] + redist * (t + 1) + ones;
+    // round half to even, as rintf; cdf <= area, so at most 255
+    word[k >> 2] |= min(__float2uint_rn(__fmul_rn((float)cdf, scale)), 255u)
+                    << (8 * (k & 3));
+  }
+  reinterpret_cast<uint2*>(lut)[lane] = make_uint2(word[0], word[1]);
+}
+
+template <int V>
+__global__ void __launch_bounds__(kLutThreads)
+    clahe_luts_kernel(const float* __restrict__ imgs,
+                      const float* __restrict__ clips,
+                      const int* __restrict__ apply, uint8_t* __restrict__ luts,
+                      int s, int grid_h, int grid_w, float scale) {
+  static_assert(kLutThreads >= kBins / 4, "one int4 of the histogram a thread");
+  __shared__ __align__(16) int hist[kBins];
+  const int b = blockIdx.y, tile = blockIdx.x;
+  if (apply[b] == 0) return;  // uniform per block
+  const float clip = clips[b];
+  const int t = threadIdx.x;
+  const int th = s / grid_h, tw = s / grid_w, area = th * tw;
+  const int ty = tile / grid_w, tx = tile - ty * grid_w;
+  const float* base = imgs + (size_t)b * s * s + (size_t)ty * th * s + tx * tw;
+  const int qn = tw / V, n_groups = th * qn;
+  const int dr = kLutThreads / qn, dc = kLutThreads - dr * qn;
+  Cursor cur{t / qn, t - t / qn * qn};
+  float v[kLutRound][V];
+  bool ok[kLutRound];
+  load_round<V, kLutRound>(base, s, t, kLutThreads, n_groups, cur, dr, dc, qn,
+                           v, ok);
+  int4* hist4 = reinterpret_cast<int4*>(hist);
+  if (t < kBins / 4) hist4[t] = make_int4(0, 0, 0, 0);
+  __syncthreads();
+  for (int next = t + kLutRound * kLutThreads;; next += kLutRound * kLutThreads) {
+#pragma unroll
+    for (int g = 0; g < kLutRound; ++g) {
+      if (ok[g]) {
+#pragma unroll
+        for (int j = 0; j < V; ++j) atomicAdd(&hist[bin_of(v[g][j])], 1);
+      }
+    }
+    if (next >= n_groups) break;
+    load_round<V, kLutRound>(base, s, next, kLutThreads, n_groups, cur, dr, dc,
+                             qn, v, ok);
+  }
+  __syncthreads();
+  if (t >= 32) return;
+  warp_luts(hist4, t, clip_limit(clip, area), area, scale,
+            luts + ((size_t)b * grid_h * grid_w + tile) * kBins);
+}
+
+// OpenCV tile coordinate of a pixel: t = pos / tile - 0.5.
+__device__ __forceinline__ float tile_coord(int pos, int tile) {
+  return __fsub_rn(__fdiv_rn((float)pos, (float)tile), 0.5f);
+}
+
+constexpr int kBlendThreads = 256;
 
 template <int V>
 __device__ __forceinline__ void store_px(float* p, const float (&v)[V]) {
@@ -291,10 +361,16 @@ extern "C" int volseg_clahe_luts(const void* imgs, const void* clips,
                                  const void* apply, void* luts, int n, int s,
                                  int grid_h, int grid_w, void* stream) {
   if (n > 0) {
-    const dim3 grid(grid_h * grid_w, n);
-    clahe_luts_kernel<<<grid, kBins, 0, (cudaStream_t)stream>>>(
+    // float4 loads where tile rows are whole 16-byte groups and the images
+    // are 16-byte aligned; one pixel a load otherwise. `luts` comes from
+    // torch.empty, so it is aligned for warp_luts' 8-byte stores.
+    const int area = (s / grid_h) * (s / grid_w);
+    const bool vec = (s / grid_w) % 4 == 0 &&
+                     (reinterpret_cast<uintptr_t>(imgs) & 15) == 0;
+    const auto kernel = vec ? clahe_luts_kernel<4> : clahe_luts_kernel<1>;
+    kernel<<<dim3(grid_h * grid_w, n), kLutThreads, 0, (cudaStream_t)stream>>>(
         (const float*)imgs, (const float*)clips, (const int*)apply,
-        (uint8_t*)luts, s, grid_h, grid_w);
+        (uint8_t*)luts, s, grid_h, grid_w, (float)(255.0 / (double)area));
   }
   return (int)cudaGetLastError();
 }
