@@ -26,7 +26,20 @@
    with launch counters reset just before. Fails unless every loss is
    finite, frozen encoder parameters are unchanged, each kernel launched
    once per train step, and the checkpoint reloads to the same model.
-5. Prints a `{"kernels": [...]}` line and, last, the device line.
+5. Predict phase, from the slice phase's checkpoint, through
+   `VolSeg2DPredictionManager(...).predict_volume_to_path(None)` with the
+   shipped prediction settings (clip_data on): MEDIUM bf16 on a 256^3
+   vessels volume held to MeanIoU >= 0.75 against its truth; MEDIUM equal,
+   labels and max-probs, to a numpy merge of the three LOW sweeps, and
+   repeatable; on a 24x72x40 crop in float32 (TF32 off), the card at LOW,
+   MEDIUM and HIGH against the plain path on the CPU (near-tie rule); bf16
+   MEDIUM labels >= 99% equal to float32 on the 256^3 volume; no kernel
+   launch. Then times MEDIUM and HIGH on a 512^3 volume (the clipped
+   256^3 one tiled 2x2x2), uint8 ndarray in to labels on the host; MEDIUM
+   from the raw 512^3 volume with the manager's set-up (checkpoint load,
+   clip_to_uint8) timed too; and MEDIUM at prediction batches 16, 32, 64
+   and 128 (median of 3 runs each).
+6. Prints a `{"kernels": [...]}` line and, last, the device line.
 
 Exits non-zero on any failure, without a GPU, and outside a checkout of the
 repository (the package is imported from beside this file).
@@ -49,6 +62,9 @@ import numpy as np
 import torch
 
 N, S = 12, 256  # parity batch and image size of the shipped settings
+P = 256  # side of the prediction phase's vessels volume; timed at 2 P
+PRED_BATCHES = (16, 32, 64, 128)
+CROP = (24, 72, 40)  # card against plain path: no side a multiple of 32
 GPU_BANDWIDTH = (  # bytes/s by card name (NVIDIA data sheets)
     ("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12), ("H200", 4.8e12),
     ("H100", 3.35e12),
@@ -327,7 +343,9 @@ def kernel_phase(images_u8, masks_u8, bw, dev):
     return results
 
 
-def slice_phase(dev):
+def slice_phase(dev, model_out: Path):
+    """Trains through VolSeg2dTrainer; its checkpoint is written to
+    `model_out`."""
     from volume_segmantics_tpu_torch.model import VolSeg2dTrainer
     from volume_segmantics_tpu_torch.model.model_2d import create_model_from_file
     from volume_segmantics_tpu_torch.models.checkpoint import load_checkpoint
@@ -350,46 +368,44 @@ def slice_phase(dev):
                              2, settings, device=dev)
     setup_s = time.perf_counter() - t0
     failures = []
-    with tempfile.TemporaryDirectory() as tmp:
-        model_out = Path(tmp) / "vessels_U_Net_trained_2d_model.pytorch"
-        kernels.reset_launch_counts()
-        torch.cuda.reset_peak_memory_stats(dev)
-        t0 = time.perf_counter()
-        trainer.train_model(model_out, settings.num_cyc_frozen,
-                            settings.patience, create=True, frozen=True)
-        changed = [n for n, p in trainer.model.named_parameters()
-                   if n.startswith("encoder.")
-                   and not torch.equal(p.detach(), trainer.encoder_at_create[n])]
-        if changed:
-            failures.append(f"frozen encoder parameters changed: {changed[:3]}")
-        trainer.train_model(model_out, settings.num_cyc_unfrozen,
-                            settings.patience, create=False, frozen=False)
-        torch.cuda.synchronize()
-        train_s = time.perf_counter() - t0
-        launches = dict(kernels.LAUNCHES)
-        peak = torch.cuda.max_memory_allocated(dev)
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    trainer.train_model(model_out, settings.num_cyc_frozen,
+                        settings.patience, create=True, frozen=True)
+    changed = [n for n, p in trainer.model.named_parameters()
+               if n.startswith("encoder.")
+               and not torch.equal(p.detach(), trainer.encoder_at_create[n])]
+    if changed:
+        failures.append(f"frozen encoder parameters changed: {changed[:3]}")
+    trainer.train_model(model_out, settings.num_cyc_unfrozen,
+                        settings.patience, create=False, frozen=False)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev)
 
-        ckpt = load_checkpoint(model_out)
-        model, _, _ = create_model_from_file(model_out, device=dev)
-        x = torch.randn(2, 1, S, S, generator=torch.Generator().manual_seed(0))
-        model.eval()
-        trainer.model.eval()
-        with torch.no_grad():
-            reload_equal = torch.equal(model(x.to(dev)), trainer.model(x.to(dev)))
-            # The trained model on the card (float32, TF32 off) against the
-            # same weights on the CPU: the port's plain reference path.
-            cpu_model = create_model_from_file(model_out, device="cpu")[0].eval()
-            small = x[:, :, :64, :64]
-            ref = cpu_model(small)
-            gpu_err = (model(small.to(dev)).cpu() - ref).abs().max().item()
-        if not reload_equal:
-            failures.append("checkpoint reload changed the model's forward")
-        if set(ckpt) != {"model_state_dict", "model_struc_dict",
-                         "optimizer_state_dict", "loss_val", "label_codes"}:
-            failures.append(f"checkpoint keys {sorted(ckpt)}")
-        ref_scale = max(1.0, ref.abs().max().item())
-        if not gpu_err <= 1e-3 * ref_scale:
-            failures.append(f"GPU forward differs from CPU by {gpu_err}")
+    ckpt = load_checkpoint(model_out)
+    model, _, _ = create_model_from_file(model_out, device=dev)
+    x = torch.randn(2, 1, S, S, generator=torch.Generator().manual_seed(0))
+    model.eval()
+    trainer.model.eval()
+    with torch.no_grad():
+        reload_equal = torch.equal(model(x.to(dev)), trainer.model(x.to(dev)))
+        # The trained model on the card (float32, TF32 off) against the
+        # same weights on the CPU: the port's plain reference path.
+        cpu_model = create_model_from_file(model_out, device="cpu")[0].eval()
+        small = x[:, :, :64, :64]
+        ref = cpu_model(small)
+        gpu_err = (model(small.to(dev)).cpu() - ref).abs().max().item()
+    if not reload_equal:
+        failures.append("checkpoint reload changed the model's forward")
+    if set(ckpt) != {"model_state_dict", "model_struc_dict",
+                     "optimizer_state_dict", "loss_val", "label_codes"}:
+        failures.append(f"checkpoint keys {sorted(ckpt)}")
+    ref_scale = max(1.0, ref.abs().max().item())
+    if not gpu_err <= 1e-3 * ref_scale:
+        failures.append(f"GPU forward differs from CPU by {gpu_err}")
 
     losses = trainer.avg_train_losses + trainer.avg_valid_losses
     if not all(np.isfinite(losses)):
@@ -418,6 +434,199 @@ def slice_phase(dev):
     }
     print(json.dumps(summary), flush=True)
     return summary
+
+
+def prediction_settings(**overrides) -> SimpleNamespace:
+    """volseg-settings/2d_model_predict_settings.yaml as a namespace."""
+    settings = dict(
+        quality="medium", output_probs=False, clip_data=True,
+        st_dev_factor=2.575, data_hdf5_path="/data", cuda_device=0,
+        downsample=False, one_hot=False, prediction_axis="Z",
+        compute_dtype="bfloat16",
+    )
+    settings.update(overrides)
+    return SimpleNamespace(**settings)
+
+
+def volume_mean_iou(labels, truth, dev) -> float:
+    """The port's MeanIoU of a 2-class label volume against its truth."""
+    from volume_segmantics_tpu_torch.data.metrics import mean_iou
+
+    def one_hot(vol):
+        t = torch.from_numpy(vol).to(dev).long()
+        return torch.nn.functional.one_hot(t, 2).permute(3, 0, 1, 2)[None]
+
+    return mean_iou(one_hot(labels).float(), one_hot(truth)).item()
+
+
+def merge_max_prob(sweeps):
+    """numpy merge of (labels, probs) pairs in order: strictly greater wins,
+    a tie keeps the earlier sweep."""
+    labels, probs = sweeps[0]
+    for lab, prob in sweeps[1:]:
+        take = prob > probs
+        labels, probs = np.where(take, lab, labels), np.where(take, prob, probs)
+    return labels, probs
+
+
+def near_tie_check(name, got, ref):
+    """The card's (labels, probs) against the plain path's: LOW labels equal
+    wherever the reference's max probability exceeds 0.5 + 1e-4; MEDIUM and
+    HIGH labels equal on >= 99.9% of voxels, each other voxel a near-tie;
+    float16 max probabilities within 1e-3 everywhere."""
+    (lab, prob), (ref_lab, ref_prob) = got, ref
+    prob_err = np.abs(prob.astype(np.float32) - ref_prob.astype(np.float32))
+    differ = lab != ref_lab
+    res = {"label_agreement": float(1.0 - differ.mean()),
+           "max_prob_abs_err": float(prob_err.max())}
+    if name == "LOW":
+        ok = not (differ & (ref_prob.astype(np.float32) > 0.5 + 1e-4)).any()
+    else:
+        ok = res["label_agreement"] >= 0.999 and (prob_err[differ] <= 1e-3).all()
+    res["ok"] = bool(ok and res["max_prob_abs_err"] <= 1e-3
+                     and lab.dtype == np.uint8 and prob.dtype == np.float16)
+    return res
+
+
+def timed_predict(manager, quality, dev, batch=None):
+    """Seconds from the ndarray handed in to labels on the host, with the
+    slices swept, peak device memory and the batch the run ended at."""
+    from volume_segmantics_tpu_torch.utils.base_data_utils import Quality
+
+    if batch is not None:
+        manager.predictor.batch_size = batch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    labels = manager.predict_volume_to_path(None, quality)
+    seconds = time.perf_counter() - t0
+    sweeps = {Quality.MEDIUM: 3, Quality.HIGH: 8}[quality]
+    return labels, {
+        "seconds": seconds,
+        "voxels_per_s": labels.size / seconds,
+        "slices_per_s": sweeps * labels.shape[0] / seconds,
+        "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+        "batch": manager.predictor.batch_size,
+    }
+
+
+def predict_phase(model_file: Path, dev):
+    """3-D prediction with the trained checkpoint (see the module doc)."""
+    from volume_segmantics_tpu_torch.model import VolSeg2DPredictionManager
+    from volume_segmantics_tpu_torch.model.operations.vol_seg_2d_predictor import (
+        VolSeg2dPredictor,
+    )
+    from volume_segmantics_tpu_torch.ops import kernels
+    from volume_segmantics_tpu_torch.utils.base_data_utils import Axis, Quality
+
+    launches_before = dict(kernels.LAUNCHES)
+    failures, res = [], {"phase": "predict"}
+    data, truth = make_vessel_volume((P, P, P), seed=7)
+
+    # 1. Correctness: the shipped settings (MEDIUM, bf16, clip_data on).
+    t0 = time.perf_counter()
+    manager = VolSeg2DPredictionManager(model_file, data, prediction_settings(),
+                                        device=dev)
+    res["setup_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    labels = manager.predict_volume_to_path(None)
+    res["medium_256_first_call_s"] = time.perf_counter() - t0
+    res["mean_iou"] = volume_mean_iou(labels, truth, dev)
+    res["mean_iou_all_background"] = volume_mean_iou(np.zeros_like(truth),
+                                                     truth, dev)
+    if not (labels.shape == data.shape and labels.dtype == np.uint8):
+        failures.append(f"MEDIUM labels {labels.shape} {labels.dtype}")
+    if not res["mean_iou"] >= 0.75:
+        failures.append(f"MEDIUM MeanIoU {res['mean_iou']} < 0.75")
+    vol = manager.data_vol  # clipped to uint8
+
+    # 2. Internal consistency: MEDIUM is the merge of the three LOW sweeps.
+    predictor = manager.predictor
+    lows = [predictor._predict_single_axis(vol, True, axis)
+            for axis in (Axis.Z, Axis.Y, Axis.X)]
+    med_labels, med_probs = predictor._predict_3_ways_max_probs(vol, True)
+    ref_labels, ref_probs = merge_max_prob(lows)
+    res["medium_equals_low_merge"] = bool(
+        np.array_equal(med_labels, ref_labels)
+        and np.array_equal(med_probs, ref_probs))
+    res["medium_repeatable"] = bool(np.array_equal(med_labels, labels))
+    if not res["medium_equals_low_merge"]:
+        failures.append("MEDIUM differs from the merge of the LOW sweeps")
+    if not res["medium_repeatable"]:
+        failures.append("two MEDIUM runs gave different labels")
+
+    # 3. Card against plain path, float32 (TF32 is off), on a crop.
+    f32 = prediction_settings(compute_dtype="float32")
+    crop = np.ascontiguousarray(vol[:CROP[0], :CROP[1], :CROP[2]])
+    on_card = VolSeg2dPredictor(model_file, f32, device=dev)
+    on_cpu = VolSeg2dPredictor(model_file, f32, device="cpu")
+    for name, method in (("LOW", "_predict_single_axis"),
+                         ("MEDIUM", "_predict_3_ways_max_probs"),
+                         ("HIGH", "_predict_12_ways_max_probs")):
+        r = near_tie_check(name, getattr(on_card, method)(crop),
+                           getattr(on_cpu, method)(crop))
+        res[f"card_vs_cpu_{name}"] = r
+        if not r["ok"]:
+            failures.append(f"{name} on the card against the CPU: {r}")
+    f32_labels = on_card._predict_3_ways_max_probs(vol, False)[0]
+    res["bf16_vs_f32_medium_agreement"] = float((f32_labels == labels).mean())
+    if not res["bf16_vs_f32_medium_agreement"] >= 0.99:
+        failures.append(f"bf16 MEDIUM agrees with float32 on "
+                        f"{res['bf16_vs_f32_medium_agreement']} < 0.99")
+    del on_card, on_cpu, f32_labels, lows
+
+    # 5. Times at 512^3 (content does not change the time).
+    big = np.tile(vol, (2, 2, 2))
+    timed = VolSeg2DPredictionManager(
+        model_file, big, prediction_settings(clip_data=False), device=dev)
+    res["default_batch"] = timed.predictor.batch_size
+    timed_labels = {}
+    for quality in (Quality.MEDIUM, Quality.HIGH):
+        timed_predict(timed, quality, dev)  # warm-up: cuDNN plans, allocator
+        out, r = timed_predict(timed, quality, dev)
+        res[f"{quality.name.lower()}_512"] = r
+        timed_labels[quality] = out
+        if not (out.shape == big.shape and out.dtype == np.uint8):
+            failures.append(f"{quality.name} 512^3 labels {out.shape} {out.dtype}")
+    # MEDIUM from the raw 512^3 volume as a user hands it in: the manager's
+    # set-up (checkpoint loaded, clip_to_uint8 on the host) and the sweeps.
+    raw = np.tile(data, (2, 2, 2))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    from_raw = VolSeg2DPredictionManager(model_file, raw, prediction_settings(),
+                                         device=dev)
+    setup_s = time.perf_counter() - t0
+    out = from_raw.predict_volume_to_path(None)
+    seconds = time.perf_counter() - t0
+    res["medium_512_from_raw"] = {
+        "setup_s": setup_s, "predict_s": seconds - setup_s,
+        "seconds": seconds, "voxels_per_s": out.size / seconds,
+        "batch": from_raw.predictor.batch_size,
+        "label_agreement": float((out == timed_labels[Quality.MEDIUM]).mean()),
+    }
+    if not res["medium_512_from_raw"]["label_agreement"] >= 0.999:
+        failures.append(f"MEDIUM 512^3 from the raw volume: "
+                        f"{res['medium_512_from_raw']}")
+    del raw, from_raw, out, timed_labels
+    sweep = {}
+    for batch in PRED_BATCHES:
+        timed_predict(timed, Quality.MEDIUM, dev, batch)
+        runs = [timed_predict(timed, Quality.MEDIUM, dev, batch)[1]
+                for _ in range(3)]
+        sweep[batch] = dict(sorted(runs, key=lambda r: r["seconds"])[1],
+                            all_seconds=[r["seconds"] for r in runs])
+    res["medium_512_batch_sweep"] = sweep
+    fits = [b for b, r in sweep.items() if r["batch"] == b]
+    res["fastest_batch"] = min(fits, key=lambda b: sweep[b]["seconds"])
+
+    # 4. Prediction launches none of the augmentation kernels.
+    res["kernel_launches"] = {k: kernels.LAUNCHES[k] - launches_before[k]
+                              for k in kernels.LAUNCHES}
+    if any(res["kernel_launches"].values()):
+        failures.append(f"prediction launched kernels {res['kernel_launches']}")
+    res["failures"] = failures
+    print(json.dumps(res), flush=True)
+    return res
 
 
 KERNELS = (
@@ -470,7 +679,10 @@ def main() -> int:
     bw = bandwidth(torch.cuda.get_device_name(0))
     kres = kernel_phase(images, masks, bw, dev)
 
-    summary = slice_phase(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        model_out = Path(tmp) / "vessels_U_Net_trained_2d_model.pytorch"
+        summary = slice_phase(dev, model_out)
+        predicted = predict_phase(model_out, dev)
     kernels_line = {"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": summary["launches"][entry],
@@ -479,7 +691,8 @@ def main() -> int:
          "bound_by": "bytes", "library_ms": None}
         for k, name, entry, source, replaces in KERNELS
     ]}
-    failed = [k for k in kres if not kres[k]["ok"]] + summary["failures"]
+    failed = ([k for k in kres if not kres[k]["ok"]] + summary["failures"]
+              + predicted["failures"])
     if failed:
         print(json.dumps({"failed": failed}), file=sys.stderr)
         return 1

@@ -42,6 +42,8 @@ def test_every_module_imports_and_no_kernel_is_built():
     names = [m.name for m in pkgutil.walk_packages(
         [str(PACKAGE)], prefix="volume_segmantics_tpu_torch.")]
     assert "volume_segmantics_tpu_torch.ops.augment" in names
+    assert ("volume_segmantics_tpu_torch.model.operations.vol_seg_2d_predictor"
+            in names)
     for name in names:
         importlib.import_module(name)
     assert kernels._lib is None

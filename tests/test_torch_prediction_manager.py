@@ -1,0 +1,141 @@
+"""The PyTorch `VolSeg2DPredictionManager` on the CPU: dispatch by quality
+and one-hot, the settings check, the cases the port does not cover yet
+(paths, output files, volumes above the in-memory limit), the CUDA default
+and the prediction batch. Parity of its results with the JAX package is in
+test_torch_predictor.py."""
+
+import numpy as np
+import pytest
+import torch
+
+from test_torch_predictor import SHAPE, predict_settings, write_checkpoint
+from volume_segmantics_tpu_torch.data.settings_data import SettingsError
+from volume_segmantics_tpu_torch.model import VolSeg2DPredictionManager
+from volume_segmantics_tpu_torch.model.operations.vol_seg_2d_predictor import (
+    VolSeg2dPredictor,
+)
+from volume_segmantics_tpu_torch.utils import config as cfg
+from volume_segmantics_tpu_torch.utils.base_data_utils import (
+    Axis,
+    Quality,
+    get_batch_size,
+)
+
+torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module")
+def ckpt2(tmp_path_factory):
+    return write_checkpoint(tmp_path_factory.mktemp("ckpt") / "m.pytorch", 2)
+
+
+@pytest.fixture()
+def vol():
+    return np.random.default_rng(1).integers(0, 256, SHAPE, dtype=np.uint8)
+
+
+def test_a_path_input_is_not_ported(ckpt2, tmp_path):
+    with pytest.raises(NotImplementedError, match="host-I/O"):
+        VolSeg2DPredictionManager(ckpt2, str(tmp_path / "vol.h5"),
+                                  predict_settings(), device="cpu")
+    with pytest.raises(NotImplementedError, match="host-I/O"):
+        VolSeg2DPredictionManager(ckpt2, tmp_path / "vol.h5",
+                                  predict_settings(), device="cpu")
+
+
+def test_an_output_path_is_not_ported(ckpt2, vol, tmp_path):
+    manager = VolSeg2DPredictionManager(ckpt2, vol, predict_settings(),
+                                        device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        manager.predict_volume_to_path(tmp_path / "pred.h5")
+    assert not (tmp_path / "pred.h5").exists()
+
+
+def test_volumes_above_the_in_memory_limit_are_not_ported(ckpt2, vol):
+    manager = VolSeg2DPredictionManager(
+        ckpt2, vol, predict_settings(quality="low",
+                                     streaming_threshold=vol.size - 1),
+        device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        manager.predict_volume_to_path(None)
+    manager.settings.streaming_threshold = vol.size
+    assert manager.predict_volume_to_path(None).shape == SHAPE
+
+
+def test_in_memory_limit_from_device_memory(ckpt2, vol):
+    manager = VolSeg2DPredictionManager(ckpt2, vol, predict_settings(),
+                                        device="cpu")
+    plain = manager.in_memory_limit_voxels(one_hot=False)
+    votes = manager.in_memory_limit_voxels(one_hot=True)
+    assert plain > votes > 0
+    assert plain * cfg.PREDICT_BYTES_PER_VOXEL == pytest.approx(
+        votes * (cfg.PREDICT_BYTES_PER_VOXEL + 2), rel=1e-6)
+
+
+DISPATCH = {
+    ("low", False): ("_predict_single_axis", dict(output_probs=False,
+                                                  axis=Axis.Y)),
+    ("medium", False): ("_predict_3_ways_max_probs", dict(output_probs=False)),
+    ("high", False): ("_predict_12_ways_max_probs", dict(output_probs=False)),
+    ("low", True): ("_predict_single_axis_to_one_hot", dict(axis=Axis.Y)),
+    ("medium", True): ("_predict_3_ways_one_hot", {}),
+    ("high", True): ("_predict_12_ways_one_hot", {}),
+}
+
+
+@pytest.mark.parametrize("quality,one_hot", list(DISPATCH),
+                         ids=lambda v: str(v))
+def test_dispatch_by_quality_and_one_hot(ckpt2, vol, quality, one_hot,
+                                         monkeypatch):
+    settings = predict_settings(quality=quality, one_hot=one_hot,
+                                prediction_axis="Y", clip_data=False)
+    manager = VolSeg2DPredictionManager(ckpt2, vol, settings, device="cpu")
+    calls = []
+    labels = np.ones(SHAPE, np.uint8)
+    for method in {m for m, _ in DISPATCH.values()}:
+        def record(data, method=method, **kwargs):
+            calls.append((method, data, kwargs))
+            if method.endswith("one_hot"):
+                return np.stack([labels, labels])
+            return labels, None
+        monkeypatch.setattr(manager.predictor, method, record)
+    out = manager.predict_volume_to_path(None)
+    method, kwargs = DISPATCH[(quality, one_hot)]
+    assert [(m, k) for m, _, k in calls] == [(method, kwargs)]
+    assert calls[0][1] is manager.data_vol
+    assert out.shape == ((2, *SHAPE) if one_hot else SHAPE)
+
+
+def test_an_explicit_quality_overrides_the_setting(ckpt2, vol):
+    manager = VolSeg2DPredictionManager(
+        ckpt2, vol, predict_settings(quality="high"), device="cpu")
+    labels = manager.predict_volume_to_path(None, quality=Quality.LOW)
+    np.testing.assert_array_equal(
+        labels, manager.predictor._predict_single_axis(manager.data_vol)[0])
+
+
+def test_prediction_axis_all_and_missing_settings_raise(ckpt2, vol):
+    manager = VolSeg2DPredictionManager(
+        ckpt2, vol, predict_settings(prediction_axis="All"), device="cpu")
+    with pytest.raises(ValueError, match="prediction_axis"):
+        manager.predict_volume_to_path(None)
+    settings = predict_settings()
+    del settings.one_hot, settings.clip_data
+    with pytest.raises(SettingsError, match="'clip_data', 'one_hot'"):
+        VolSeg2DPredictionManager(ckpt2, vol, settings, device="cpu")
+
+
+def test_cuda_is_the_default_and_raises_without_a_gpu(ckpt2, vol, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="No CUDA device"):
+        VolSeg2dPredictor(ckpt2, predict_settings())
+    with pytest.raises(RuntimeError, match="No CUDA device"):
+        VolSeg2DPredictionManager(ckpt2, vol, predict_settings())
+
+
+def test_prediction_batch_size_setting_and_default():
+    assert get_batch_size(predict_settings(prediction_batch_size=6), "cpu",
+                          prediction=True) == 6
+    settings = predict_settings(prediction_batch_size=None, batch_size=5)
+    assert get_batch_size(settings, "cpu", prediction=True) == cfg.BIG_PRED_BATCH
+    assert get_batch_size(settings, "cpu") == 5

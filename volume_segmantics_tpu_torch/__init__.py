@@ -7,8 +7,10 @@ CLAHE blend) are hand-written CUDA C++ for Hopper (`ops/csrc`), built with
 nvcc at first CUDA use. Entry points run on `device="cuda"` unless the
 caller passes another device, and raise when no GPU is present.
 
-This slice ports the training path: `model.VolSeg2dTrainer` on in-memory
-slice lists, U-Net/ResNet-34, Dice loss and MeanIoU.
+Ported so far: the training path (`model.VolSeg2dTrainer` on in-memory
+slice lists, U-Net/ResNet-34, Dice loss and MeanIoU) and in-memory 3-D
+prediction (`model.VolSeg2DPredictionManager` on an ndarray, at every
+quality, max-prob or one-hot), which launches none of the kernels.
 """
 
 __version__ = "0.1.0"

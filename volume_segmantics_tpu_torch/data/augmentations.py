@@ -9,7 +9,11 @@ Transforms follow the albumentations calling convention:
 ``sample = t(image=..., mask=...)`` returning a dict.
 """
 
+import math
+
 import numpy as np
+
+import volume_segmantics_tpu_torch.utils.config as cfg
 
 
 class Compose:
@@ -78,3 +82,12 @@ def get_train_preprocess_augs(img_size: int) -> Compose:
             PadIfNeeded(min_height=img_size, min_width=img_size),
         ]
     )
+
+
+def get_padded_dimension(dimension: int) -> int:
+    """Round a dimension up to the model-stride divisor
+    (reference augmentations.py:30-43)."""
+    image_divisor = cfg.IM_SIZE_DIVISOR
+    if dimension % image_divisor == 0:
+        return dimension
+    return (math.floor(dimension / image_divisor) + 1) * image_divisor

@@ -29,7 +29,8 @@ def make_base_optimizer(params: Iterable[torch.nn.Parameter],
     )
 
 
-def _normalise(imgs: torch.Tensor) -> torch.Tensor:
+def normalise(imgs: torch.Tensor) -> torch.Tensor:
+    """(N, H, W) images in [0, 1] -> (N, 1, H, W) model input."""
     return ((imgs - cfg.IMAGENET_MEAN) / cfg.IMAGENET_STD)[:, None]
 
 
@@ -37,7 +38,8 @@ def _one_hot_nchw(masks: torch.Tensor, num_labels: int, dtype) -> torch.Tensor:
     return F.one_hot(masks.long(), num_labels).permute(0, 3, 1, 2).to(dtype)
 
 
-def _autocast(device: torch.device, compute_dtype: torch.dtype):
+def autocast(device: torch.device, compute_dtype: torch.dtype):
+    """Autocast to `compute_dtype`; off for float32."""
     return torch.autocast(
         device.type, dtype=compute_dtype,
         enabled=compute_dtype != torch.float32,
@@ -62,9 +64,9 @@ def build_train_step(model: torch.nn.Module, loss_fn: Callable,
                                           image_size)
         else:
             imgs, msks = images_u8.float() / 255.0, masks_u8
-        x = _normalise(imgs)
+        x = normalise(imgs)
         targets = _one_hot_nchw(msks, num_labels, compute_dtype)
-        with _autocast(device, compute_dtype):
+        with autocast(device, compute_dtype):
             logits = model(x)
         loss = loss_fn(logits.float(), targets)
         optimizer.zero_grad(set_to_none=True)
@@ -88,9 +90,9 @@ def build_eval_step(model: torch.nn.Module, loss_fn: Callable,
     def step(images_u8: torch.Tensor, masks_u8: torch.Tensor, n_valid: int):
         device = images_u8.device
         model.eval()
-        x = _normalise(images_u8.float() / 255.0)
+        x = normalise(images_u8.float() / 255.0)
         targets = _one_hot_nchw(masks_u8, num_labels, compute_dtype)
-        with _autocast(device, compute_dtype):
+        with autocast(device, compute_dtype):
             logits = model(x).float()
         sample_weights = (
             torch.arange(images_u8.shape[0], device=device) < n_valid

@@ -1,14 +1,39 @@
-"""Enums and batch sizing (the subset of the JAX package's
-`utils/base_data_utils.py` that the training path reads)."""
+"""Enums, batch sizing and host-side volume preprocessing (the subset of
+the JAX package's `utils/base_data_utils.py` that the training and
+in-memory prediction paths read). The array math is numpy on the host,
+copied so that results equal the JAX package's bit for bit."""
 
 import logging
 import sys
+from concurrent.futures import ThreadPoolExecutor
 from enum import Enum
 from types import SimpleNamespace
 
+import numpy as np
 import torch
 
 import volume_segmantics_tpu_torch.utils.config as cfg
+
+
+class Quality(Enum):
+    """Prediction quality = number of prediction sweeps merged together.
+
+    LOW: single axis. MEDIUM: 3 axes. HIGH: 12 ways (3 axes x 4 in-plane
+    rotations). Mirrors reference base_data_utils.py:21-32.
+    """
+
+    LOW = 1
+    MEDIUM = 3
+    HIGH = 12
+
+
+class Axis(Enum):
+    """Volume axis enum (reference base_data_utils.py:35-39)."""
+
+    Z = 0
+    Y = 1
+    X = 2
+    ALL = 4
 
 
 class ModelType(Enum):
@@ -39,8 +64,17 @@ def create_enum_from_setting(setting_str, enum):
         sys.exit(1)
 
 
+def get_prediction_quality(settings: SimpleNamespace) -> Quality:
+    return create_enum_from_setting(settings.quality, Quality)
+
+
 def get_model_type(settings: SimpleNamespace) -> ModelType:
     return create_enum_from_setting(settings.model["type"], ModelType)
+
+
+def get_prediction_axis(settings: SimpleNamespace) -> Axis:
+    axis_setting = getattr(settings, "prediction_axis", "Z")
+    return create_enum_from_setting(axis_setting, Axis)
 
 
 def _free_device_memory_gb(device) -> float:
@@ -52,23 +86,27 @@ def _free_device_memory_gb(device) -> float:
     return free / 1024**3
 
 
-def get_batch_size(settings: SimpleNamespace, device="cuda") -> int:
-    """Training batch size from the `batch_size` setting, else from the
-    device's free memory and `performance_profile`
-    (reference base_data_utils.py:104-122)."""
+def get_batch_size(settings: SimpleNamespace, device="cuda",
+                   prediction: bool = False) -> int:
+    """Batch size from the `batch_size` (training) or
+    `prediction_batch_size` setting, else from the device's free memory and,
+    for training, `performance_profile` (reference base_data_utils.py:104-122)."""
     profile = getattr(settings, "performance_profile", None) or "parity"
     if profile not in cfg.PERFORMANCE_PROFILES:
         raise ValueError(
             f"performance_profile must be one of "
             f"{list(cfg.PERFORMANCE_PROFILES)}, got {profile!r}."
         )
-    override = getattr(settings, "batch_size", None)
+    override_key = "prediction_batch_size" if prediction else "batch_size"
+    override = getattr(settings, override_key, None)
     if override:
         logging.info(f"Using batch size {override} from settings.")
         return int(override)
     free_mem = _free_device_memory_gb(device)
     if free_mem < cfg.BIG_HBM_THRESHOLD:
         batch_size = cfg.SMALL_BATCH
+    elif prediction:
+        batch_size = cfg.BIG_PRED_BATCH
     elif profile == "throughput":
         batch_size = cfg.THROUGHPUT_TRAIN_BATCH
     else:
@@ -78,3 +116,148 @@ def get_batch_size(settings: SimpleNamespace, device="cuda") -> int:
         f"{batch_size}."
     )
     return batch_size
+
+
+def rotate_array_to_axis(array: np.ndarray, axis: Axis = Axis.Z) -> np.ndarray:
+    """Swap axes so `axis` becomes the leading (slicing) dim
+    (reference base_data_utils.py:132-138). Involutive."""
+    if axis == Axis.Z:
+        return array
+    if axis == Axis.Y:
+        return array.swapaxes(0, 1)
+    if axis == Axis.X:
+        return array.swapaxes(0, 2)
+
+
+def one_hot_encode_array(input_array: np.ndarray, num_labels: int) -> np.ndarray:
+    """Label volume -> (num_labels, *shape) uint8 one-hot
+    (reference base_data_utils.py:141-147)."""
+    out = np.zeros((num_labels, input_array.size), dtype=np.uint8)
+    out[input_array.ravel(), np.arange(input_array.size)] = 1
+    out.shape = (num_labels,) + input_array.shape
+    return out
+
+
+def downsample_data(data: np.ndarray, factor: int = 2) -> np.ndarray:
+    """2x block-mean downsample with ceil-shaped edges.
+
+    Matches skimage.measure.block_reduce(data, (f,f,f), np.nanmean) as used
+    by reference base_data_utils.py:161-163: the array is padded with zeros
+    to a multiple of `factor` and the block function is nan-aware mean (so
+    padded zeros participate in edge-block means, and NaNs are ignored).
+    """
+    logging.info(f"Downsampling data by a factor of {factor}.")
+    f = factor
+    pads = [(0, (-s) % f) for s in data.shape]
+    padded = np.pad(data.astype(np.float64, copy=False), pads, constant_values=0)
+    z, y, x = padded.shape
+    blocks = padded.reshape(z // f, f, y // f, f, x // f, f)
+    with np.errstate(invalid="ignore"):
+        return np.nanmean(blocks, axis=(1, 3, 5))
+
+
+# Above this voxel count clip_to_uint8 switches to the slab-streamed,
+# multi-threaded path: the whole-array formulation makes ~6 full passes and
+# `astype(float)` promotes integer volumes to float64 (a 2048**3 uint16
+# volume would transiently need 68 GB). Slabs bound extra memory to
+# O(slab) and threads parallelise the memory-bound ufuncs (numpy releases
+# the GIL on large array ops).
+CLIP_STREAM_THRESHOLD_VOXELS = 512**3
+_CLIP_SLAB_SLICES = 64
+
+
+def _clip_to_uint8_streaming(
+    data: np.ndarray, data_mean: float, st_dev_factor: float
+) -> np.ndarray:
+    """Slab-streamed clip_to_uint8 for volumes too large for whole-array
+    temporaries. Two passes: (1) nan-aware sum of squared deviations for the
+    std (the same two-pass moment np.nanstd computes, accumulated in
+    float64), (2) per-slab clip/rescale straight into a preallocated uint8
+    volume. Slabs are processed by a thread pool."""
+    num_vox = data.size
+    slabs = [
+        slice(i, min(i + _CLIP_SLAB_SLICES, data.shape[0]))
+        for i in range(0, data.shape[0], _CLIP_SLAB_SLICES)
+    ]
+
+    def moments(sl):
+        x = np.asarray(data[sl], dtype=np.float64)
+        nan_mask = np.isnan(x)
+        d = np.where(nan_mask, data_mean, x) - data_mean
+        return float((d * d).sum()), int(x.size - nan_mask.sum())
+
+    with ThreadPoolExecutor() as pool:
+        results = list(pool.map(moments, slabs))
+    sq_sum = sum(r[0] for r in results)
+    n_valid = sum(r[1] for r in results)
+    data_st_dev = float(np.sqrt(sq_sum / max(n_valid, 1)))
+    lower_bound = data_mean - (data_st_dev * st_dev_factor)
+    upper_bound = data_mean + (data_st_dev * st_dev_factor)
+    logging.info(f"Lower bound: {lower_bound}, upper bound: {upper_bound}")
+    out = np.empty(data.shape, np.uint8)
+
+    def convert(sl):
+        # clip_to_uint8's per-voxel op sequence, a slab at a time.
+        x = data[sl]
+        with np.errstate(invalid="ignore"):
+            gt_ub = int((x > upper_bound).sum())
+            lt_lb = int((x < lower_bound).sum())
+        x = np.nan_to_num(x, copy=True, nan=data_mean)
+        if np.issubdtype(x.dtype, np.integer):
+            x = x.astype(float)
+        x = np.clip(x, lower_bound, upper_bound, out=x)
+        x = np.subtract(x, lower_bound, out=x)
+        x = np.divide(x, (upper_bound - lower_bound), out=x)
+        x = np.clip(x, 0.0, 1.0, out=x)
+        x = np.multiply(x, 255, out=x)
+        out[sl] = x.astype(np.uint8)
+        return gt_ub, lt_lb
+
+    with ThreadPoolExecutor() as pool:
+        counts = list(pool.map(convert, slabs))
+    gt_ub = sum(c[0] for c in counts)
+    lt_lb = sum(c[1] for c in counts)
+    logging.info(
+        f"Voxels above upper bound: {gt_ub} ({gt_ub / num_vox * 100:.3f}%), "
+        f"below lower bound: {lt_lb} ({lt_lb / num_vox * 100:.3f}%)"
+    )
+    return out
+
+
+def clip_to_uint8(
+    data: np.ndarray, data_mean: float, st_dev_factor: float
+) -> np.ndarray:
+    """Clip to mean +/- k*sigma, rescale to [0, 255] uint8.
+
+    Numerically mirrors reference base_data_utils.py:243-287 (nan-aware std,
+    NaN replacement with the mean, float conversion for integer data).
+    Volumes above CLIP_STREAM_THRESHOLD_VOXELS take the slab-streamed
+    multi-threaded path (bounded memory; same bounds up to float summation
+    order).
+    """
+    logging.info("Clipping data and converting to uint8.")
+    if data.ndim == 3 and data.size > CLIP_STREAM_THRESHOLD_VOXELS:
+        return _clip_to_uint8_streaming(data, data_mean, st_dev_factor)
+    data_st_dev = np.nanstd(data)
+    num_vox = data.size
+    lower_bound = data_mean - (data_st_dev * st_dev_factor)
+    upper_bound = data_mean + (data_st_dev * st_dev_factor)
+    with np.errstate(invalid="ignore"):
+        gt_ub = (data > upper_bound).sum()
+        lt_lb = (data < lower_bound).sum()
+    logging.info(f"Lower bound: {lower_bound}, upper bound: {upper_bound}")
+    logging.info(
+        f"Voxels above upper bound: {gt_ub} ({gt_ub / num_vox * 100:.3f}%), "
+        f"below lower bound: {lt_lb} ({lt_lb / num_vox * 100:.3f}%)"
+    )
+    if np.isnan(data).any():
+        logging.info("Replacing NaN values.")
+        data = np.nan_to_num(data, copy=False, nan=data_mean)
+    if np.issubdtype(data.dtype, np.integer):
+        data = data.astype(float)
+    data = np.clip(data, lower_bound, upper_bound, out=data)
+    data = np.subtract(data, lower_bound, out=data)
+    data = np.divide(data, (upper_bound - lower_bound), out=data)
+    data = np.clip(data, 0.0, 1.0, out=data)
+    data = np.multiply(data, 255, out=data)
+    return data.astype(np.uint8)

@@ -1,4 +1,5 @@
-"""Shared constants of the PyTorch port (the subset the training path reads).
+"""Shared constants of the PyTorch port (the subset the training and
+prediction paths read).
 
 Copied from the JAX package's `utils/config.py`; batch-size figures that
 were measured on another accelerator are left out until they are measured
@@ -14,6 +15,13 @@ BIG_TRAIN_BATCH = 12
 THROUGHPUT_TRAIN_BATCH = 128
 PERFORMANCE_PROFILES = ("parity", "throughput")
 SMALL_BATCH = 2
+# Default prediction batch (slices per forward pass), used when the
+# settings give no `prediction_batch_size` and the GPU has more than
+# BIG_HBM_THRESHOLD GB free: the fastest batch of chip_smoke.py's sweep of
+# 3-axis prediction over a 512^3 volume at 16, 32, 64 and 128 on an NVIDIA
+# H100 80GB HBM3 at a 700 W power limit (1.77 s at 128, 1.80 at 64, 1.87
+# at 32, 1.97 at 16; 14 GiB peak at 128; PERF.md).
+BIG_PRED_BATCH = 128
 # Minimum exponential-sweep steps for the LR-range finder: its epoch count
 # is raised until the sweep has at least this many steps.
 MIN_LR_FIND_STEPS = 40
@@ -28,3 +36,15 @@ IMAGENET_MEAN = 0.449  # Single-channel ImageNet normalisation mean
 IMAGENET_STD = 0.226  # Single-channel ImageNet normalisation std
 
 COMPUTE_DTYPE = "bfloat16"  # autocast dtype of the forward pass; params stay fp32
+
+# Prediction keeps the whole uint8 volume, the running (labels, max-prob)
+# pair and one sweep's outputs and temporaries on the GPU: 11.7 bytes a
+# voxel measured at 512^3 (chip_smoke.py's peak memory at batches 16 and
+# 32, less the batch's share; PERF.md), plus the one-hot vote volume (C
+# bytes a voxel) when votes are asked for. A volume predicts in memory
+# while that fits in IN_MEMORY_PREDICT_SHARE of the card's memory, leaving
+# the rest to the forward pass's working set; larger volumes need the
+# slab-streaming predictor, which the port does not have yet. The JAX
+# package's thresholds were set for a 16 GB TPU chip and are not used.
+PREDICT_BYTES_PER_VOXEL = 12
+IN_MEMORY_PREDICT_SHARE = 0.5
