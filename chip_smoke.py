@@ -39,17 +39,37 @@
    from the raw 512^3 volume with the manager's set-up (checkpoint load,
    clip_to_uint8) timed too; and MEDIUM at prediction batches 16, 32, 64
    and 128 (median of 3 runs each).
-6. Prints a `{"kernels": [...]}` line and, last, the device line.
+6. CLI phase, in process so that the launch counters see it, in
+   `<out-dir>/cli`: writes an 80x288x320 vessels training pair as gzip
+   HDF5 (chunks=True) with the port's writer, and the shipped settings
+   files (train: one frozen and one unfrozen epoch, seed 0; predict:
+   output_probs on). `model-train-2d` (`scripts/train_2d_model.main`) on
+   the card, with launch counters reset just before: fails unless the
+   dated checkpoint and the CSV exist, every loss is finite, the last
+   eval score is >= 0.5 and each kernel launched once per train step.
+   `model-predict-2d` on the 256^3 vessels volume (seed 7) from HDF5:
+   labels equal to the manager's on the same ndarray at every voxel,
+   MeanIoU >= 0.75, a float16 max-prob sidecar of the volume's shape.
+   Then `model-predict-2d` end to end on the raw 512^3 volume (the 256^3
+   one tiled 2x2x2, gzip HDF5) with the shipped prediction settings as
+   written, timed by part: HDF5 read, the manager's clip, checkpoint load,
+   sweeps, HDF5 write, and `main`'s wall time.
+7. Prints a `{"kernels": [...]}` line (launches of the slice and CLI
+   phases) and, last, the device line.
 
 Exits non-zero on any failure, without a GPU, and outside a checkout of the
 repository (the package is imported from beside this file).
 """
 
 import argparse
+import contextlib
+import csv
 import functools
 import json
 import logging
 import math
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -61,8 +81,10 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
+REPO = Path(__file__).resolve().parent
 N, S = 12, 256  # parity batch and image size of the shipped settings
 P = 256  # side of the prediction phase's vessels volume; timed at 2 P
+CLI_TRAIN_SHAPE = (80, 288, 320)  # no side is S: every slice is resized
 PRED_BATCHES = (16, 32, 64, 128)
 CROP = (24, 72, 40)  # card against plain path: no side a multiple of 32
 GPU_BANDWIDTH = (  # bytes/s by card name (NVIDIA data sheets)
@@ -629,6 +651,196 @@ def predict_phase(model_file: Path, dev):
     return res
 
 
+def settings_text(name, **edits) -> str:
+    """A shipped settings file of this checkout as text, with `key: value`
+    lines replaced (or appended where the file lacks the key)."""
+    text = (REPO / "volseg-settings" / name).read_text()
+    for key, value in edits.items():
+        line = f"{key}: {value}"
+        text, n = re.subn(rf"(?m)^{key}:.*$", line, text)
+        if not n:
+            text = text.rstrip("\n") + f"\n{line}\n"
+    return text
+
+
+@contextlib.contextmanager
+def timed_spans(targets):
+    """Wraps each (owner, attribute, span) of `targets` so that its calls
+    add their wall seconds to `spans[span]`; yields `spans` and restores
+    the attributes on exit."""
+    spans, saved = {}, []
+
+    def wrap(fn, span):
+        @functools.wraps(fn)
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                spans[span] = spans.get(span, 0.0) + time.perf_counter() - t0
+        return timed
+
+    for owner, attr, span in targets:
+        saved.append((owner, attr, owner.__dict__[attr]))
+        setattr(owner, attr, wrap(getattr(owner, attr), span))
+    try:
+        yield spans
+    finally:
+        for owner, attr, original in saved:
+            setattr(owner, attr, original)
+
+
+def cli_phase(dev, out_dir: Path):
+    """Both console entry points, in process, from HDF5 files and settings
+    files the port writes (see the module doc)."""
+    import volume_segmantics_tpu_torch.utils.config as cfg
+    from volume_segmantics_tpu_torch.data import get_settings_data
+    from volume_segmantics_tpu_torch.data.base_data_manager import BaseDataManager
+    from volume_segmantics_tpu_torch.model import VolSeg2DPredictionManager
+    from volume_segmantics_tpu_torch.model.operations import vol_seg_2d_predictor
+    from volume_segmantics_tpu_torch.ops import kernels
+    from volume_segmantics_tpu_torch.scripts import predict_2d_model, train_2d_model
+    from volume_segmantics_tpu_torch.utils import base_data_utils, hdf5
+
+    failures, res = [], {"phase": "cli"}
+    root = out_dir / "cli"
+    shutil.rmtree(root, ignore_errors=True)
+    settings_dir = root / cfg.SETTINGS_DIR
+    settings_dir.mkdir(parents=True)
+
+    # 1. Inputs: a training pair (gzip, chunks=True) and the shipped
+    # settings files, cut to one frozen and one unfrozen epoch.
+    t0 = time.perf_counter()
+    data, labels = make_vessel_volume(CLI_TRAIN_SHAPE, seed=2)
+    hdf5.write(root / "train_data.h5", data, chunks=True)
+    hdf5.write(root / "train_labels.h5", labels, chunks=True)
+    (settings_dir / cfg.TRAIN_SETTINGS_FN).write_text(settings_text(
+        cfg.TRAIN_SETTINGS_FN, num_cyc_frozen=1, num_cyc_unfrozen=1, seed=0))
+    (settings_dir / cfg.PREDICTION_SETTINGS_FN).write_text(settings_text(
+        cfg.PREDICTION_SETTINGS_FN, output_probs=True))
+    res["inputs_s"] = time.perf_counter() - t0
+    del data, labels
+
+    # 2. model-train-2d on the card.
+    trainers = []
+
+    class RecordedTrainer(train_2d_model.VolSeg2dTrainer):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            trainers.append(self)
+
+    train_2d_model.VolSeg2dTrainer = RecordedTrainer
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        train_2d_model.main(["--data", str(root / "train_data.h5"),
+                             "--labels", str(root / "train_labels.h5"),
+                             "--data_dir", str(root)])
+    finally:
+        train_2d_model.VolSeg2dTrainer = RecordedTrainer.__bases__[0]
+    torch.cuda.synchronize()
+    res["train_main_s"] = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    trainer = trainers[0]
+    ckpt = train_2d_model._model_output_path(trainer.settings, root)
+    stats = root / f"{ckpt.stem}_train_stats.csv"
+    for path in (ckpt, stats):
+        if not path.exists():
+            failures.append(f"model-train-2d wrote no {path.name}")
+    with open(stats, newline="") as f:
+        rows = list(csv.DictReader(f))
+    losses = [float(r[k]) for r in rows for k in ("Train Loss", "Valid Loss")]
+    eval_scores = [float(r["Eval Score"]) for r in rows]
+    epoch_samples = sum(trainer.epoch_train_steps) * trainer.training_loader.batch_size
+    res.update({
+        "checkpoint": ckpt.name, "csv_rows": len(rows),
+        "slices": len(trainer.training_loader.images),
+        "batch_size": trainer.training_loader.batch_size,
+        "train_steps": trainer.train_steps,
+        "median_lr_find_step_ms": 1e3 * statistics.median(trainer.lr_find_step_seconds),
+        "epoch_samples_per_s": epoch_samples / sum(trainer.epoch_train_seconds),
+        "losses": losses, "eval_scores": eval_scores, "launches": launches,
+    })
+    if len(rows) != 2 or not all(np.isfinite(losses)):
+        failures.append(f"train-stats CSV: {len(rows)} epochs, losses {losses}")
+    if not eval_scores or not eval_scores[-1] >= 0.5:
+        failures.append(f"last eval score {eval_scores} < 0.5")
+    for name, count in launches.items():
+        if count != trainer.train_steps:
+            failures.append(f"{name} launched {count} times in the CLI's "
+                            f"{trainer.train_steps} train steps")
+    del trainers, trainer
+
+    # 3. model-predict-2d with output_probs on the 256^3 vessels volume,
+    # against the manager on the same ndarray.
+    vol, truth = make_vessel_volume((P, P, P), seed=7)
+    hdf5.write(root / "vessels_256.h5", vol, chunks=True)
+    t0 = time.perf_counter()
+    predict_2d_model.main([str(ckpt), str(root / "vessels_256.h5"),
+                           "--data_dir", str(root)])
+    res["predict_256_main_s"] = time.perf_counter() - t0
+    out = predict_2d_model.create_output_path(root, Path("vessels_256.h5"))
+    cli_labels, res["output_chunks"] = hdf5.read(out)
+    probs, _ = hdf5.read(out.with_name(f"{out.stem}_probs.h5"))
+    settings = get_settings_data(settings_dir / cfg.PREDICTION_SETTINGS_FN,
+                                 kind="prediction")
+    ref = VolSeg2DPredictionManager(ckpt, vol, settings,
+                                    device=dev).predict_volume_to_path(None)
+    res["labels_equal_manager"] = bool(np.array_equal(cli_labels, ref))
+    res["mean_iou"] = volume_mean_iou(cli_labels, truth, dev)
+    res["probs"] = {"dtype": str(probs.dtype), "shape": list(probs.shape),
+                    "min": float(probs.min()), "max": float(probs.max())}
+    if not res["labels_equal_manager"]:
+        failures.append("model-predict-2d labels differ from the manager's")
+    if not res["mean_iou"] >= 0.75:
+        failures.append(f"model-predict-2d MeanIoU {res['mean_iou']} < 0.75")
+    if probs.dtype != np.float16 or probs.shape != vol.shape:
+        failures.append(f"max-prob sidecar {probs.dtype} {probs.shape}")
+    del cli_labels, probs, ref, truth
+
+    # 4. model-predict-2d end to end on the raw 512^3 volume (gzip, chunks
+    # True), with the shipped prediction settings as written.
+    shipped = root / "shipped"
+    (shipped / cfg.SETTINGS_DIR).mkdir(parents=True)
+    (shipped / cfg.SETTINGS_DIR / cfg.PREDICTION_SETTINGS_FN).write_text(
+        settings_text(cfg.PREDICTION_SETTINGS_FN))
+    raw = np.tile(vol, (2, 2, 2))
+    big = shipped / "vessels_512.h5"
+    t0 = time.perf_counter()
+    hdf5.write(big, raw, chunks=True)
+    input_write_s = time.perf_counter() - t0
+    raw_mb, big_mb = raw.nbytes / 1e6, big.stat().st_size / 1e6
+    del raw, vol
+    spans_of = ((base_data_utils, "get_numpy_from_path", "hdf5_read_s"),
+                (BaseDataManager, "_preprocess_data", "setup_clip_s"),
+                (vol_seg_2d_predictor, "create_model_from_file", "checkpoint_load_s"),
+                (vol_seg_2d_predictor.VolSeg2dPredictor,
+                 "_predict_3_ways_max_probs", "sweeps_s"),
+                (base_data_utils, "save_data_to_hdf5", "hdf5_write_s"))
+    with timed_spans(spans_of) as spans:
+        t0 = time.perf_counter()
+        predict_2d_model.main([str(ckpt), str(big), "--data_dir", str(shipped)])
+        spans["main_s"] = time.perf_counter() - t0
+    out = predict_2d_model.create_output_path(shipped, big)
+    labels_512, _ = hdf5.read(out)
+    out_mb = out.stat().st_size / 1e6
+    res["predict_512"] = dict(
+        spans, other_s=spans["main_s"] - sum(v for k, v in spans.items()
+                                             if k != "main_s"),
+        input_mb=raw_mb, input_file_mb=big_mb, output_file_mb=out_mb,
+        hdf5_read_mb_per_s=raw_mb / spans["hdf5_read_s"],
+        hdf5_write_mb_per_s=labels_512.nbytes / 1e6 / spans["hdf5_write_s"],
+        input_write_s=input_write_s,
+        input_write_mb_per_s=raw_mb / input_write_s,
+    )
+    if labels_512.shape != (2 * P,) * 3 or labels_512.dtype != np.uint8:
+        failures.append(f"512^3 labels {labels_512.shape} {labels_512.dtype}")
+    big.unlink()
+    res["failures"] = failures
+    print(json.dumps(res), flush=True)
+    return res
+
+
 KERNELS = (
     ("K1", "warp_u8", "volseg_warp_u8", "volume_segmantics_tpu_torch/ops/csrc/warp.cu",
      "volume_segmantics_tpu/ops/warp.py:420"),
@@ -648,7 +860,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    sys.path.insert(0, str(REPO))
     from volume_segmantics_tpu_torch.ops import kernels
 
     out_dir = Path(args.out_dir)
@@ -683,16 +895,17 @@ def main() -> int:
         model_out = Path(tmp) / "vessels_U_Net_trained_2d_model.pytorch"
         summary = slice_phase(dev, model_out)
         predicted = predict_phase(model_out, dev)
+    cli = cli_phase(dev, out_dir)
     kernels_line = {"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-         "launches": summary["launches"][entry],
+         "launches": summary["launches"][entry] + cli["launches"][entry],
          "max_abs_err": kres[k]["max_abs_err"], "ms": kres[k]["kernel_ms"],
          "plain_ms": kres[k]["plain_ms"], "bound_ms": kres[k]["bound_ms"],
          "bound_by": "bytes", "library_ms": None}
         for k, name, entry, source, replaces in KERNELS
     ]}
     failed = ([k for k in kres if not kres[k]["ok"]] + summary["failures"]
-              + predicted["failures"])
+              + predicted["failures"] + cli["failures"])
     if failed:
         print(json.dumps({"failed": failed}), file=sys.stderr)
         return 1

@@ -116,10 +116,27 @@ def test_base_data_manager_is_bit_equal(kind, clip_data, downsample):
 
 
 def test_base_data_manager_path_input_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="host-I/O"):
-        BaseDataManager(tmp_path / "vol.h5", manager_settings(True, False))
-    with pytest.raises(ValueError, match="numpy array"):
-        BaseDataManager([[1, 2]], manager_settings(True, False))
+    """Path input is read eagerly, as the JAX package reads a volume below
+    its lazy-ingest threshold: the same volume and chunking, and the same
+    error for an unsupported suffix or a non-array."""
+    from volume_segmantics_tpu_torch.utils import hdf5
+
+    settings = manager_settings(True, False)
+    vol = volume("float32", shape=(9, 16, 11), seed=5)
+    path = tmp_path / "vol.h5"
+    hdf5.write(path, vol, chunks=(3, 8, 11))
+    for arg in (path, str(path)):
+        ours, ref = BaseDataManager(arg, settings), JaxBaseDataManager(arg, settings)
+        assert_same(ours.data_vol, ref.data_vol)
+        assert ours.input_data_chunking == ref.input_data_chunking == (3, 8, 11)
+    (tmp_path / "vol.raw").write_bytes(b"")
+    for bad, err in ((tmp_path / "vol.raw", "Unsupported volume file type"),
+                     ([[1, 2]], "numpy array")):
+        with pytest.raises(ValueError, match=err) as a:
+            BaseDataManager(bad, settings)
+        with pytest.raises(ValueError, match=err) as b:
+            JaxBaseDataManager(bad, settings)
+        assert str(a.value) == str(b.value)
 
 
 @pytest.mark.parametrize("axis", ["Z", "Y", "X"])

@@ -1,8 +1,8 @@
 """The PyTorch `VolSeg2DPredictionManager` on the CPU: dispatch by quality
-and one-hot, the settings check, the cases the port does not cover yet
-(paths, output files, volumes above the in-memory limit), the CUDA default
-and the prediction batch. Parity of its results with the JAX package is in
-test_torch_predictor.py."""
+and one-hot, the settings check, HDF5 input and output files, the case the
+port does not cover yet (volumes above the in-memory limit), the CUDA
+default and the prediction batch. Parity of its results with the JAX
+package is in test_torch_predictor.py."""
 
 import numpy as np
 import pytest
@@ -15,6 +15,7 @@ from volume_segmantics_tpu_torch.model.operations.vol_seg_2d_predictor import (
     VolSeg2dPredictor,
 )
 from volume_segmantics_tpu_torch.utils import config as cfg
+from volume_segmantics_tpu_torch.utils import hdf5
 from volume_segmantics_tpu_torch.utils.base_data_utils import (
     Axis,
     Quality,
@@ -34,21 +35,57 @@ def vol():
     return np.random.default_rng(1).integers(0, 256, SHAPE, dtype=np.uint8)
 
 
-def test_a_path_input_is_not_ported(ckpt2, tmp_path):
-    with pytest.raises(NotImplementedError, match="host-I/O"):
-        VolSeg2DPredictionManager(ckpt2, str(tmp_path / "vol.h5"),
-                                  predict_settings(), device="cpu")
-    with pytest.raises(NotImplementedError, match="host-I/O"):
-        VolSeg2DPredictionManager(ckpt2, tmp_path / "vol.h5",
+def test_a_path_input_is_not_ported(ckpt2, vol, tmp_path):
+    """A path input is read with the port's HDF5 reader: the manager holds
+    the same volume as from the ndarray, and the file's chunking."""
+    path = tmp_path / "vol.h5"
+    hdf5.write(path, vol, chunks=(4, 8, 8))
+    from_array = VolSeg2DPredictionManager(ckpt2, vol, predict_settings(),
+                                           device="cpu")
+    for arg in (str(path), path):
+        manager = VolSeg2DPredictionManager(ckpt2, arg, predict_settings(),
+                                            device="cpu")
+        np.testing.assert_array_equal(manager.data_vol, from_array.data_vol)
+        assert manager.input_data_chunking == (4, 8, 8)
+    with pytest.raises(FileNotFoundError):
+        VolSeg2DPredictionManager(ckpt2, tmp_path / "absent.h5",
                                   predict_settings(), device="cpu")
 
 
-def test_an_output_path_is_not_ported(ckpt2, vol, tmp_path):
-    manager = VolSeg2DPredictionManager(ckpt2, vol, predict_settings(),
-                                        device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        manager.predict_volume_to_path(tmp_path / "pred.h5")
-    assert not (tmp_path / "pred.h5").exists()
+@pytest.mark.parametrize("one_hot,output_probs",
+                         [(False, False), (False, True), (True, True)])
+def test_an_output_path_is_not_ported(ckpt2, vol, tmp_path, one_hot,
+                                      output_probs, monkeypatch):
+    """An output path writes what is returned, gzip at /data with the
+    input's chunking (one-hot votes fall back to h5py's guess), and the
+    float16 max-probabilities beside it only when `output_probs` is set;
+    only then are the probabilities asked for."""
+    settings = predict_settings(quality="low", one_hot=one_hot,
+                                output_probs=output_probs)
+    path = tmp_path / "vol.h5"
+    hdf5.write(path, vol, chunks=(4, 8, 8))
+    manager = VolSeg2DPredictionManager(ckpt2, path, settings, device="cpu")
+    asked = []
+    real = manager.predictor._predict_single_axis
+    monkeypatch.setattr(manager.predictor, "_predict_single_axis",
+                        lambda data, output_probs=False, **kw: asked.append(
+                            output_probs) or real(data, output_probs, **kw))
+    out = tmp_path / "pred.h5"
+    labels = manager.predict_volume_to_path(out)
+    written, chunks = hdf5.read(out)
+    np.testing.assert_array_equal(written, labels)
+    assert chunks == (hdf5.guess_chunk(labels.shape, 1) if one_hot else (4, 8, 8))
+    probs_path = tmp_path / "pred_probs.h5"
+    assert probs_path.exists() == (output_probs and not one_hot)
+    if not one_hot:
+        assert asked == [output_probs]
+    if probs_path.exists():
+        probs, chunks = hdf5.read(probs_path)
+        assert probs.dtype == np.float16 and probs.shape == SHAPE
+        assert chunks == (4, 8, 8)
+        assert ((probs >= 0.5) & (probs <= 1)).all()
+    manager.predict_volume_to_path(None)
+    assert asked[-1:] == ([False] if not one_hot else [])
 
 
 def test_volumes_above_the_in_memory_limit_are_not_ported(ckpt2, vol):

@@ -131,7 +131,37 @@ def test_pad_matches_opencv_reflect101(shape):
 
 
 def test_longest_max_size_only_passes_through():
-    img = np.zeros((16, 64), np.uint8)
+    """At the identity scale the slice passes through untouched; any other
+    scale resizes as the JAX package's cv2 call does (the full table of
+    cases is in test_torch_resize.py)."""
+    from volume_segmantics_tpu.data.augmentations import (
+        LongestMaxSize as JaxLongestMaxSize,
+    )
+
+    img = np.random.default_rng(0).integers(0, 256, (16, 64), dtype=np.uint8)
     assert LongestMaxSize(64)(image=img, mask=img)["image"] is img
-    with pytest.raises(NotImplementedError):
-        LongestMaxSize(128)(image=img, mask=img)
+    ours = LongestMaxSize(128)(image=img, mask=img)
+    ref = JaxLongestMaxSize(128)(image=img, mask=img)
+    for key in ("image", "mask"):
+        np.testing.assert_array_equal(ours[key], ref[key])
+        assert ours[key].shape == (32, 128)
+
+
+def test_missing_settings_raise_settings_error_as_in_jax(settings):
+    """The trainer checks its settings through `require_settings`, so a
+    hand-built namespace that lacks keys raises the JAX trainer's
+    SettingsError, listing every missing key."""
+    from volume_segmantics_tpu.data.settings_data import (
+        SettingsError as JaxSettingsError,
+    )
+    from volume_segmantics_tpu_torch.data.settings_data import SettingsError
+
+    del settings.loss_criterion, settings.image_size
+    data, labels = tiny_volume()
+    with pytest.raises(SettingsError) as ours:
+        VolSeg2dTrainer(list(data), list(labels), 2, settings, device="cpu")
+    with pytest.raises(JaxSettingsError) as ref:
+        JaxTrainer(list(data), list(labels), 2, settings)
+    assert "'image_size'" in str(ours.value)
+    assert "'loss_criterion'" in str(ours.value)
+    assert str(ours.value) == str(ref.value)

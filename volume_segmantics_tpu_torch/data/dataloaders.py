@@ -76,14 +76,24 @@ def to_device_batches(loader, device: torch.device):
 
 
 def _preprocess_slice_lists(data_slices, label_slices, image_size):
-    """Pad in-memory slice lists to the square training size and stack."""
+    """Resize/pad in-memory slice lists to the square training size and
+    stack them in order. Slices of one shape go through the transforms as
+    one stack."""
+    if len(data_slices) != len(label_slices):
+        raise ValueError(f"{len(data_slices)} image slices but "
+                         f"{len(label_slices)} label slices.")
     pre = get_train_preprocess_augs(image_size)
-    images, masks = [], []
-    for img, msk in zip(data_slices, label_slices):
-        sample = pre(image=np.asarray(img), mask=np.asarray(msk))
-        images.append(sample["image"])
-        masks.append(sample["mask"])
-    return np.stack(images).astype(np.uint8), np.stack(masks).astype(np.uint8)
+    images = np.empty((len(data_slices), image_size, image_size), np.uint8)
+    masks = np.empty_like(images)
+    by_shape = {}
+    for i, img in enumerate(data_slices):
+        by_shape.setdefault(np.shape(img), []).append(i)
+    for idx in by_shape.values():
+        sample = pre(image=np.stack([np.asarray(data_slices[i]) for i in idx]),
+                     mask=np.stack([np.asarray(label_slices[i]) for i in idx]))
+        images[idx] = sample["image"]
+        masks[idx] = sample["mask"]
+    return images, masks
 
 
 def get_2d_training_dataloaders(

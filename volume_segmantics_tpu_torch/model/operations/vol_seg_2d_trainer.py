@@ -11,10 +11,12 @@ Freezing follows the JAX package's mask: every leaf whose path holds
 `stem_conv`, `convbn*` or `conv_down`, so the whole encoder is frozen,
 BatchNorm scale and bias included. Running statistics still update.
 
-Left out of this port: autosave/resume, profiling, the loss/prediction
-figures and CSV, and `from_slicer`.
+Left out of this port: autosave/resume, profiling and the loss and
+prediction figures (the GPU machine has no matplotlib); the train-stats
+CSV is written.
 """
 
+import csv
 import logging
 import math
 import time
@@ -33,6 +35,7 @@ from volume_segmantics_tpu_torch.data.dataloaders import (
 )
 from volume_segmantics_tpu_torch.data.losses import get_loss_fn
 from volume_segmantics_tpu_torch.data.metrics import get_eval_metric_fn
+from volume_segmantics_tpu_torch.data.settings_data import require_settings
 from volume_segmantics_tpu_torch.model.model_2d import create_model_on_device
 from volume_segmantics_tpu_torch.models.checkpoint import load_checkpoint
 from volume_segmantics_tpu_torch.parallel.train import (
@@ -52,6 +55,12 @@ def is_frozen_parameter(name: str) -> bool:
 class VolSeg2dTrainer:
     """Trains a 2d model on in-memory slice lists."""
 
+    @classmethod
+    def from_slicer(cls, slicer, labels, settings, device=None):
+        """A trainer on a TrainingDataSlicer's slices, in z, y, x order."""
+        data_slices, label_slices = slicer.get_slice_arrays()
+        return cls(data_slices, label_slices, labels, settings, device=device)
+
     # Keys the training flow reads without defaults.
     REQUIRED_SETTINGS = (
         "image_size", "training_set_proportion", "loss_criterion",
@@ -61,11 +70,7 @@ class VolSeg2dTrainer:
 
     def __init__(self, data_slices, label_slices, labels: Union[int, dict],
                  settings: SimpleNamespace, device=None):
-        missing = [k for k in self.REQUIRED_SETTINGS if not hasattr(settings, k)]
-        if missing:
-            raise ValueError(
-                f"training settings are missing required key(s): {missing}"
-            )
+        require_settings(settings, self.REQUIRED_SETTINGS, "training")
         self.device = resolve_device(device)
         # One seed, three independent streams: data split and order, model
         # initialisation, and on-device augmentation.
@@ -399,3 +404,33 @@ class VolSeg2dTrainer:
             model_dict=self.model_struc_dict,
             best_score=best_score,
         )
+
+    # ------------------------------------------------------------------
+    # Outputs (reference trainer :434-535)
+    # ------------------------------------------------------------------
+
+    def output_loss_fig(self, model_out_path: Path) -> None:
+        """Write the per-epoch CSV of losses and eval scores. The loss
+        curve figure is skipped: the port has no plotting library."""
+        out_dir = model_out_path.parent
+        stem = model_out_path.stem
+        logging.info("Skipping the figure of training/validation losses "
+                     "(no plotting library in the PyTorch port).")
+        # CSV column names are a de-facto contract with downstream tooling.
+        # Epoch numbers are 0-based like the reference's
+        # (trainer :472 `range(len(self.avg_train_losses))`).
+        csv_path = out_dir / f"{stem}_train_stats.csv"
+        with open(csv_path, "w", newline="") as f:
+            writer = csv.writer(f)
+            writer.writerow(("Epoch", "Train Loss", "Valid Loss", "Eval Score"))
+            writer.writerows(
+                zip(range(len(self.avg_train_losses)), self.avg_train_losses,
+                    self.avg_valid_losses, self.avg_eval_scores)
+            )
+
+    def output_prediction_figure(self, model_path: Path) -> None:
+        """The montage of validation predictions is skipped: the port has
+        no plotting library."""
+        logging.info(f"Skipping the example prediction figure for "
+                     f"{model_path.name} (no plotting library in the "
+                     "PyTorch port).")

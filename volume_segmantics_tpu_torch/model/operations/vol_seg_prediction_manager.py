@@ -1,12 +1,14 @@
-"""Prediction manager: preprocessing + predictor + quality dispatch (port of
-the JAX package's `model/operations/vol_seg_prediction_manager.py`,
+"""Prediction manager: preprocessing + predictor + quality dispatch + HDF5
+(port of the JAX package's `model/operations/vol_seg_prediction_manager.py`,
 reference volume_segmantics/model/operations/vol_seg_prediction_manager.py:12-100)
-for volumes that fit in the GPU's memory. Writing gzip HDF5 and the
-slab-streaming predictor for larger volumes are not ported yet."""
+for volumes that fit in the GPU's memory. The slab-streaming predictor for
+larger volumes is not ported yet."""
 
 import logging
 import os
+from pathlib import Path
 from types import SimpleNamespace
+from typing import Union
 
 import numpy as np
 import torch
@@ -32,7 +34,7 @@ class VolSeg2DPredictionManager(BaseDataManager):
         "one_hot", "output_probs",
     )
 
-    def __init__(self, model_file_path, data_vol: np.ndarray,
+    def __init__(self, model_file_path, data_vol: Union[str, Path, np.ndarray],
                  settings: SimpleNamespace, device=None) -> None:
         require_settings(settings, self.REQUIRED_SETTINGS, "prediction")
         super().__init__(data_vol, settings)
@@ -62,16 +64,14 @@ class VolSeg2DPredictionManager(BaseDataManager):
         )
         return int(total * cfg.IN_MEMORY_PREDICT_SHARE / per_voxel)
 
-    def predict_volume_to_path(self, output_path, quality=None) -> np.ndarray:
+    def predict_volume_to_path(self, output_path: Union[Path, None],
+                               quality=None) -> np.ndarray:
         """Predict a 3D segmentation at the requested quality and return it:
         uint8 labels, or (C, D, H, W) uint8 votes with `one_hot` (reference
-        manager :43-100). `output_path` must be None."""
-        if output_path is not None:
-            raise NotImplementedError(
-                "Writing predictions to gzip HDF5 is not ported to PyTorch "
-                "yet: it comes with the host-I/O slice (see ROADMAP.md). Pass "
-                "output_path=None and save the returned array."
-            )
+        manager :43-100). With an `output_path` it is also written to gzip
+        HDF5 with the input's chunking, and, when `output_probs` is set, the
+        float16 max-probabilities to `<stem>_probs.h5` beside it; only then
+        are the probabilities downloaded."""
         one_hot = self.settings.one_hot
         preferred_axis = utils.get_prediction_axis(self.settings)
         if preferred_axis == utils.Axis.ALL:
@@ -91,24 +91,34 @@ class VolSeg2DPredictionManager(BaseDataManager):
             )
         logging.info(f"Predicting at {quality.name} quality.")
         predictor = self.predictor
-        # Without an output file the max-probabilities are not kept, so
-        # they are not downloaded.
-        if quality == utils.Quality.LOW:
-            if one_hot:
-                return predictor._predict_single_axis_to_one_hot(
-                    self.data_vol, axis=preferred_axis
-                )
-            return predictor._predict_single_axis(
-                self.data_vol, output_probs=False, axis=preferred_axis
-            )[0]
-        if quality == utils.Quality.MEDIUM:
-            if one_hot:
-                return predictor._predict_3_ways_one_hot(self.data_vol)
-            return predictor._predict_3_ways_max_probs(
-                self.data_vol, output_probs=False
-            )[0]
+        want_probs = output_path is not None and bool(self.settings.output_probs)
+        probs = None
         if one_hot:
-            return predictor._predict_12_ways_one_hot(self.data_vol)
-        return predictor._predict_12_ways_max_probs(
-            self.data_vol, output_probs=False
-        )[0]
+            if quality == utils.Quality.LOW:
+                prediction = predictor._predict_single_axis_to_one_hot(
+                    self.data_vol, axis=preferred_axis)
+            elif quality == utils.Quality.MEDIUM:
+                prediction = predictor._predict_3_ways_one_hot(self.data_vol)
+            else:
+                prediction = predictor._predict_12_ways_one_hot(self.data_vol)
+        elif quality == utils.Quality.LOW:
+            prediction, probs = predictor._predict_single_axis(
+                self.data_vol, output_probs=want_probs, axis=preferred_axis)
+        elif quality == utils.Quality.MEDIUM:
+            prediction, probs = predictor._predict_3_ways_max_probs(
+                self.data_vol, output_probs=want_probs)
+        else:
+            prediction, probs = predictor._predict_12_ways_max_probs(
+                self.data_vol, output_probs=want_probs)
+        if output_path is not None:
+            output_path = Path(output_path)
+            utils.save_data_to_hdf5(
+                prediction, output_path, chunking=self.input_data_chunking
+            )
+            if probs is not None:
+                utils.save_data_to_hdf5(
+                    probs,
+                    f"{output_path.parent / output_path.stem}_probs.h5",
+                    chunking=self.input_data_chunking,
+                )
+        return prediction

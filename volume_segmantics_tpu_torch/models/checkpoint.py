@@ -34,4 +34,9 @@ def load_checkpoint(path) -> Dict[str, Any]:
     """Load a checkpoint this package wrote, tensors on the CPU. The
     structure dict holds this package's ModelType enum, so the file is
     unpickled in full: load only files you wrote or trust."""
+    if Path(path).suffix == ".vstpu":
+        raise NotImplementedError(
+            f"{path}: the JAX package's native .vstpu checkpoints are not "
+            "ported to PyTorch yet (see ROADMAP.md)."
+        )
     return torch.load(Path(path), map_location="cpu", weights_only=False)

@@ -1,0 +1,157 @@
+#!/usr/bin/env python
+"""`model-train-2d` console entry point (port of the JAX package's
+`scripts/train_2d_model.py`).
+
+Same flags, settings discovery under <data_dir>/volseg-settings/, dated
+model filename, frozen -> unfrozen two-phase schedule and train-stats CSV
+as the JAX CLI. The slices stay in memory: where the JAX CLI writes PNG
+slices and reads them back (``slice_to_disk`` absent or true), the trainer
+gets them in the order that round trip gives.
+
+    python -m volume_segmantics_tpu_torch.scripts.train_2d_model \\
+        --data d.h5 --labels l.h5 --data_dir DIR
+
+It trains on the GPU; `main(argv, device="cpu")` runs the plain PyTorch
+path on the CPU.
+"""
+
+import logging
+import re
+import sys
+from datetime import date
+from pathlib import Path
+
+import volume_segmantics_tpu_torch.utils.base_data_utils as utils
+import volume_segmantics_tpu_torch.utils.config as cfg
+from volume_segmantics_tpu_torch.data import TrainingDataSlicer, get_settings_data
+from volume_segmantics_tpu_torch.model import VolSeg2dTrainer
+from volume_segmantics_tpu_torch.utils import get_2d_training_parser
+
+
+def _parse_cli(argv=None):
+    args = get_2d_training_parser().parse_args(argv)
+    data_vols = getattr(args, cfg.TRAIN_DATA_ARG)
+    label_vols = getattr(args, cfg.LABEL_DATA_ARG)
+    if len(data_vols) != len(label_vols):
+        logging.error(
+            "Number of data volumes and number of label volumes must be equal!"
+        )
+        sys.exit(1)
+    root = Path(getattr(args, cfg.DATA_DIR_ARG)).resolve()
+    return data_vols, label_vols, root
+
+
+def natsort(item):
+    """The JAX package's natural-sort key for slice file paths
+    (`data/datasets.py:VolSeg2dDataset.natsort`)."""
+    return [int(t) if t.isdigit() else t.lower()
+            for t in re.split(r"(\d+)", str(item))]
+
+
+def _slice_all_volumes(data_vols, label_vols, settings):
+    """Slice every (data, label) pair in memory; returns ((data slices,
+    label slices), the widest label count seen, its codes, the last
+    slicer).
+
+    With ``slice_to_disk`` absent or true the JAX CLI writes each slice to
+    `data{i}_{axis}_stack_{index}.png` (labels `seg{i}_...`) and reads them
+    back in natural-sort order of those paths: volume by volume, then x, y,
+    z, then index. The slices are put in that order, so the trainer's split
+    falls as in the JAX CLI. With ``slice_to_disk: False`` they keep the
+    slicer's z, y, x order."""
+    to_disk = bool(getattr(settings, "slice_to_disk", True))
+    axis_enum = utils.get_training_axis(settings)
+    data, labels, names = [], [], []
+    max_labels, codes, slicer = 0, None, None
+    for i, (data_path, label_path) in enumerate(zip(data_vols, label_vols)):
+        slicer = TrainingDataSlicer(data_path, label_path, settings)
+        d, l = slicer.get_slice_arrays()
+        data.extend(d)
+        labels.extend(l)
+        names.extend(
+            f"data{i}_{axis}_stack_{index}.png"
+            for axis, index in utils.get_axis_index_pairs(
+                slicer.data_vol.shape, axis_enum)
+        )
+        if slicer.num_seg_classes > max_labels:
+            max_labels, codes = slicer.num_seg_classes, slicer.codes
+    if to_disk:
+        order = sorted(range(len(names)), key=lambda k: natsort(names[k]))
+        data = [data[k] for k in order]
+        labels = [labels[k] for k in order]
+    return (data, labels), max_labels, codes, slicer
+
+
+def _model_output_path(settings, root: Path) -> Path:
+    mtype = settings.model["type"]
+    mtype = mtype if isinstance(mtype, str) else mtype.name
+    return root / f"{date.today()}_{mtype}_{settings.model_output_fn}.pytorch"
+
+
+def resolve_training_phases(settings) -> tuple:
+    """(frozen_epochs, unfrozen_epochs) for the two-phase schedule.
+
+    The frozen phase protects PRETRAINED encoder features while the decoder
+    adapts. The port has no converted ImageNet weights, so with the opt-in
+    setting ``skip_frozen_without_pretrained: True`` the frozen epochs
+    always fold into the unfrozen phase. Default is off: both phases run as
+    the settings give them."""
+    frozen_epochs = int(settings.num_cyc_frozen)
+    unfrozen_epochs = int(settings.num_cyc_unfrozen)
+    if frozen_epochs > 0 and bool(
+        getattr(settings, "skip_frozen_without_pretrained", False)
+    ):
+        encoder = settings.model.get("encoder_name", "resnet34")
+        logging.warning(
+            f"No pretrained weights available for encoder '{encoder}' "
+            f"(skip_frozen_without_pretrained is on): folding "
+            f"{frozen_epochs} frozen epochs into the unfrozen phase "
+            f"({frozen_epochs + unfrozen_epochs} unfrozen epochs total)."
+        )
+        return 0, frozen_epochs + unfrozen_epochs
+    return frozen_epochs, unfrozen_epochs
+
+
+def _run_training_phases(trainer, model_out: Path, settings) -> None:
+    """Frozen-encoder phase (when configured) followed by fine-tuning, with
+    the reference's create/warm-start semantics."""
+    frozen_epochs, unfrozen_epochs = resolve_training_phases(settings)
+    patience = settings.patience
+    if frozen_epochs > 0:
+        trainer.train_model(model_out, frozen_epochs, patience,
+                            create=True, frozen=True)
+    if unfrozen_epochs > 0:
+        trainer.train_model(model_out, unfrozen_epochs, patience,
+                            create=frozen_epochs == 0, frozen=False)
+
+
+def main(argv=None, device=None) -> None:
+    """Run `model-train-2d` with `argv` (default: the command line) on
+    `device` (default: the GPU)."""
+    logging.basicConfig(
+        level=logging.INFO, format=cfg.LOGGING_FMT, datefmt=cfg.LOGGING_DATE_FMT
+    )
+    data_vols, label_vols, root = _parse_cli(argv)
+    settings = get_settings_data(
+        root / cfg.SETTINGS_DIR / cfg.TRAIN_SETTINGS_FN, kind="training"
+    )
+    (data, labels), max_labels, label_codes, last_slicer = _slice_all_volumes(
+        data_vols, label_vols, settings
+    )
+    # The slicer's label codes go into the checkpoint as {str(i): code},
+    # as the JAX CLI passes them.
+    codes = (
+        {str(i): code for i, code in enumerate(label_codes)}
+        if label_codes
+        else max_labels
+    )
+    trainer = VolSeg2dTrainer(data, labels, codes, settings, device=device)
+    model_out = _model_output_path(settings, root)
+    _run_training_phases(trainer, model_out, settings)
+    trainer.output_loss_fig(model_out)
+    trainer.output_prediction_figure(model_out)
+    last_slicer.clean_up_slices()
+
+
+if __name__ == "__main__":
+    main()

@@ -1,18 +1,23 @@
-"""Enums, batch sizing and host-side volume preprocessing (the subset of
-the JAX package's `utils/base_data_utils.py` that the training and
-in-memory prediction paths read). The array math is numpy on the host,
-copied so that results equal the JAX package's bit for bit."""
+"""Enums, batch sizing, volume file I/O and host-side volume preprocessing
+(the subset of the JAX package's `utils/base_data_utils.py` that training,
+in-memory prediction and both CLIs read). The array math is numpy on the
+host, copied so that results equal the JAX package's bit for bit. HDF5 goes
+through the port's own reader and writer (`utils/hdf5.py`)."""
 
 import logging
+import pathlib
 import sys
 from concurrent.futures import ThreadPoolExecutor
 from enum import Enum
+from itertools import chain, product
 from types import SimpleNamespace
+from typing import Tuple, Union
 
 import numpy as np
 import torch
 
 import volume_segmantics_tpu_torch.utils.config as cfg
+from volume_segmantics_tpu_torch.utils import hdf5
 
 
 class Quality(Enum):
@@ -72,9 +77,22 @@ def get_model_type(settings: SimpleNamespace) -> ModelType:
     return create_enum_from_setting(settings.model["type"], ModelType)
 
 
+def get_training_axis(settings: SimpleNamespace) -> Axis:
+    axis_setting = getattr(settings, "training_axes", "All")
+    return create_enum_from_setting(axis_setting, Axis)
+
+
 def get_prediction_axis(settings: SimpleNamespace) -> Axis:
     axis_setting = getattr(settings, "prediction_axis", "Z")
     return create_enum_from_setting(axis_setting, Axis)
+
+
+def setup_path_if_exists(input_param):
+    if isinstance(input_param, str):
+        return pathlib.Path(input_param)
+    if isinstance(input_param, pathlib.Path):
+        return input_param
+    return None
 
 
 def _free_device_memory_gb(device) -> float:
@@ -261,3 +279,128 @@ def clip_to_uint8(
     data = np.clip(data, 0.0, 1.0, out=data)
     data = np.multiply(data, 255, out=data)
     return data.astype(np.uint8)
+
+
+def numpy_from_tiff(path) -> np.ndarray:
+    """Multipage TIFF -> numpy volume: not ported (the GPU machine has no
+    TIFF codec)."""
+    raise NotImplementedError(
+        f"Reading TIFF volumes ({path}) is not ported to PyTorch yet (see "
+        "ROADMAP.md); convert the volume to HDF5."
+    )
+
+
+def _resolve_hdf5_dataset(data_handle, hdf5_path: str = "/data",
+                          nexus: bool = False):
+    """Locate the volume dataset inside an open HDF5/NXS handle. NXS files
+    fall back through the standard Diamond processed-data paths (reference
+    base_data_utils.py:179-212)."""
+    if not nexus:
+        return data_handle[hdf5_path]
+    try:
+        return data_handle["processed/result/data"]
+    except KeyError:
+        logging.error(
+            "NXS file: Couldn't find data at 'processed/result/data' "
+            "trying another path."
+        )
+        try:
+            return data_handle["entry/final_result_tomo/data"]
+        except KeyError:
+            logging.error(
+                "NXS file: Could not find entry at "
+                "entry/final_result_tomo/data, exiting!"
+            )
+            sys.exit(1)
+
+
+def numpy_from_hdf5(path, hdf5_path: str = "/data", nexus: bool = False):
+    """HDF5/NXS file -> (volume, chunking)."""
+    with hdf5.File(path) as data_handle:
+        dataset = _resolve_hdf5_dataset(data_handle, hdf5_path, nexus)
+        return dataset[()], dataset.chunks
+
+
+def get_numpy_from_path(
+    path: pathlib.Path, internal_path: str = "/data"
+) -> Tuple[np.ndarray, Union[Tuple[int, ...], bool, None]]:
+    """Dispatch volume loading on file suffix (reference
+    base_data_utils.py:215-233)."""
+    if path.suffix in cfg.TIFF_SUFFIXES:
+        return numpy_from_tiff(path), True
+    elif path.suffix in cfg.HDF5_SUFFIXES:
+        nexus = path.suffix == ".nxs"
+        return numpy_from_hdf5(path, hdf5_path=internal_path, nexus=nexus)
+
+
+def sequential_labels(unique_labels: np.ndarray) -> bool:
+    """True when sorted unique labels increase in steps of one
+    (reference base_data_utils.py:236-240)."""
+    return not np.where(np.diff(unique_labels) != 1)[0].size
+
+
+def get_axis_index_pairs(vol_shape: Tuple, axis_enum: Axis):
+    """Iterable of (axis_char, index) pairs covering the volume
+    (reference base_data_utils.py:308-328)."""
+    if axis_enum == Axis.ALL:
+        return chain(
+            product("z", range(vol_shape[0])),
+            product("y", range(vol_shape[1])),
+            product("x", range(vol_shape[2])),
+        )
+    return product(axis_enum.name.lower(), range(vol_shape[axis_enum.value]))
+
+
+def axis_index_to_slice(vol, axis: str, index: int):
+    """(axis, index) -> 2D slice of a 3D volume
+    (reference base_data_utils.py:331-348)."""
+    if axis == "z":
+        return vol[index, :, :]
+    if axis == "y":
+        return vol[:, index, :]
+    if axis == "x":
+        return vol[:, :, index]
+
+
+def save_data_to_hdf5(data, file_path, internal_path="/data", chunking=True):
+    """Write gzip-compressed HDF5 (level 4, h5py's default), preserving the
+    input's chunking (reference base_data_utils.py:351-356). The writer
+    reads the source a chunk at a time, so a memmapped source is never
+    copied whole."""
+    logging.info(f"Saving data of shape {data.shape} to {file_path}.")
+    if chunking not in (True, None) and len(chunking) != data.ndim:
+        # e.g. one-hot output is 4D while input chunking was 3D
+        chunking = True
+    hdf5.write(file_path, data, internal_path, chunks=chunking)
+
+
+def img_as_ubyte(data: np.ndarray) -> np.ndarray:
+    """Convert an array to uint8 with skimage.img_as_ubyte-compatible scaling
+    (needed because the slicer saves PNGs; reference data/slicers.py:127-129).
+    """
+    if data.dtype == np.uint8:
+        return data
+    if data.dtype == bool:
+        return data.astype(np.uint8) * 255
+    if np.issubdtype(data.dtype, np.floating):
+        if np.nanmin(data) < -1.0 or np.nanmax(data) > 1.0:
+            raise ValueError("Images of type float must be between -1 and 1.")
+        # skimage rounds half-to-even (np.rint), not half-up.
+        return np.rint(np.clip(data, 0, 1) * 255.0).astype(np.uint8)
+    if np.issubdtype(data.dtype, np.unsignedinteger):
+        # skimage downcasts unsigned ints by floor-dividing out the extra
+        # bits (uint16 -> uint8 is >> 8), NOT by rounded 255/65535 scaling.
+        shift = 8 * (data.dtype.itemsize - 1)
+        return (data >> shift).astype(np.uint8)
+    if np.issubdtype(data.dtype, np.signedinteger):
+        # skimage clips negatives then scales the positive (n-1)-bit range
+        # down to 8 bits by floor division (int16 -> uint8 is >> 7); int8's
+        # 7-bit range UPscales (255/127, rounded) instead.
+        shift = 8 * data.dtype.itemsize - 1 - 8
+        clipped = np.clip(data, 0, None)
+        if shift < 0:
+            return np.rint(clipped.astype(np.float64) * (255.0 / 127.0)).astype(
+                np.uint8
+            )
+        return (clipped >> shift).astype(np.uint8)
+    raise ValueError(f"Unsupported dtype for image conversion: {data.dtype}")

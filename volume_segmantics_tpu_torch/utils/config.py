@@ -1,10 +1,38 @@
 """Shared constants of the PyTorch port (the subset the training and
-prediction paths read).
+prediction paths and both CLIs read).
 
 Copied from the JAX package's `utils/config.py`; batch-size figures that
 were measured on another accelerator are left out until they are measured
 on the GPU.
 """
+
+# Parser argument names (reference utilities/config.py:4-8)
+TRAIN_DATA_ARG = "data"
+LABEL_DATA_ARG = "labels"
+MODEL_PTH_ARG = "model"
+PREDICT_DATA_ARG = "data"
+DATA_DIR_ARG = "data_dir"
+
+# Accepted file extensions (reference utilities/config.py:10-15). ".vstpu"
+# is the JAX package's native checkpoint: the CLI accepts it as the JAX one
+# does, and loading it raises until it is ported.
+TIFF_SUFFIXES = {".tiff", ".tif"}
+HDF5_SUFFIXES = {".h5", ".hdf5", ".nxs"}
+TRAIN_DATA_EXT = {*HDF5_SUFFIXES, *TIFF_SUFFIXES}
+LABEL_DATA_EXT = {*HDF5_SUFFIXES, *TIFF_SUFFIXES}
+MODEL_DATA_EXT = {".pytorch", ".pth", ".vstpu"}
+PREDICT_DATA_EXT = {*HDF5_SUFFIXES, *TIFF_SUFFIXES}
+
+# Logging format (reference utilities/config.py:18-19)
+LOGGING_FMT = "%(asctime)s - %(levelname)s - %(message)s"
+LOGGING_DATE_FMT = "%d-%b-%y %H:%M:%S"
+
+# Settings yaml file locations (reference utilities/config.py:21-23)
+SETTINGS_DIR = "volseg-settings"
+TRAIN_SETTINGS_FN = "2d_model_train_settings.yaml"
+PREDICTION_SETTINGS_FN = "2d_model_predict_settings.yaml"
+
+HDF5_GZIP_LEVEL = 4  # h5py's default level for compression="gzip"
 
 # Batch sizing (reference utilities/base_data_utils.py:104-122): the
 # reference trains at batch 12 on a GPU with more than 8 GB free.
