@@ -54,8 +54,34 @@
    one tiled 2x2x2, gzip HDF5) with the shipped prediction settings as
    written, timed by part: HDF5 read, the manager's clip, checkpoint load,
    sweeps, HDF5 write, and `main`'s wall time.
-7. Prints a `{"kernels": [...]}` line (launches of the slice and CLI
-   phases) and, last, the device line.
+7. Losses phase, from one seeded U-Net/ResNet-34 at 256x256, batch 12,
+   bf16: for each of the five losses of the shipped settings, 20 train
+   steps through `build_train_step`, each followed by the eval step with
+   MeanIoU and with DiceCoefficient; fails unless every loss and score is
+   finite and each kernel launched once per step. Then each loss, its
+   gradient on the logits and both metrics on the card against the CPU on
+   the same (12, 2, 256, 256) float32 logits: |card - CPU| <= 1e-5 times
+   the CPU value's largest magnitude.
+8. Checkpoint phase: the slice phase's model written as a JAX package
+   `VSTPU1` file under a `.pytorch` name (forward map and the port's
+   msgpack writer) must rebuild to a state_dict bit-equal to the torch
+   file's, and `model-predict-2d` on it must give the torch file's labels
+   at every voxel of the 256^3 volume; the torch file must unpickle through
+   the reference-path Unpickler and name the reference's module.
+9. Pretrained phase: the slice model's encoder, its first convolution
+   widened to 3 channels (the kernel, then zeros), as
+   `$VOLSEG_TPU_WEIGHTS_DIR/resnet34.vstpu`; `model-train-2d` on the CLI
+   phase's HDF5 pair with the shipped settings plus
+   `skip_frozen_without_pretrained`, `autosave` and `profile_dir`: fails
+   unless the frozen phase runs, every model the trainer creates starts
+   from the slice model's encoder, each kernel launched once per step, the
+   autosave is gone at the end and a Chrome trace holds CUDA kernel events.
+10. Train-batch sweep (`THROUGHPUT_TRAIN_BATCH`): 15 timed
+   `build_train_step` steps on one seeded batch at batches 12, 32, 64, 128
+   and 256 (bf16, unfrozen), samples/s and peak memory; the smallest batch
+   within 5% of the best samples/s is printed beside the configured one.
+11. Prints a `{"kernels": [...]}` line (launches of the slice, CLI, losses
+   and pretrained phases) and, last, the device line.
 
 Exits non-zero on any failure, without a GPU, and outside a checkout of the
 repository (the package is imported from beside this file).
@@ -68,6 +94,7 @@ import functools
 import json
 import logging
 import math
+import os
 import re
 import shutil
 import statistics
@@ -841,6 +868,383 @@ def cli_phase(dev, out_dir: Path):
     return res
 
 
+SHIPPED_LOSSES = ("DiceLoss", "BCEDiceLoss", "BCELoss", "GeneralizedDiceLoss",
+                  "CrossEntropyLoss")  # 2d_model_train_settings.yaml:20
+METRICS = ("MeanIoU", "DiceCoefficient")  # :23
+LOSS_STEPS = 20
+STRUC = {"type": "U_Net", "encoder_name": "resnet34", "encoder_weights": None,
+         "in_channels": 1, "classes": 2}
+SWEEP_BATCHES = (12, 32, 64, 128, 256)
+SWEEP_STEPS = 15  # 30 in the first card run; cut to keep the script short
+
+
+def loss_settings(name, **more) -> SimpleNamespace:
+    return SimpleNamespace(loss_criterion=name, alpha=0.75, beta=0.25, **more)
+
+
+def against_cpu(fn, gpu_args, cpu_args):
+    """|fn on the card - fn on the CPU| over the CPU value's largest
+    magnitude, for a scalar or tensor result."""
+    got, ref = fn(*gpu_args).detach().cpu(), fn(*cpu_args).detach()
+    return ((got - ref).abs().max() / ref.abs().max().clamp(min=1e-30)).item()
+
+
+def losses_phase(images_u8, masks_u8, dev):
+    """Each shipped loss through the train step, and every loss and metric
+    on the card against the CPU (see the module doc)."""
+    from volume_segmantics_tpu_torch.data.losses import get_loss_fn
+    from volume_segmantics_tpu_torch.data.metrics import get_eval_metric_fn
+    from volume_segmantics_tpu_torch.model.model_2d import create_model_on_device
+    from volume_segmantics_tpu_torch.ops import kernels
+    from volume_segmantics_tpu_torch.parallel.train import (
+        build_eval_step,
+        build_train_step,
+        make_base_optimizer,
+    )
+
+    failures, res = [], {"phase": "losses", "steps_per_loss": LOSS_STEPS}
+    model = create_model_on_device(dev, STRUC,
+                                   generator=torch.Generator().manual_seed(11))
+    initial = {k: v.clone() for k, v in model.state_dict().items()}
+    metric_fns = {m: get_eval_metric_fn(SimpleNamespace(eval_metric=m))
+                  for m in METRICS}
+    kernels.reset_launch_counts()
+    steps = 0
+    for name in SHIPPED_LOSSES:
+        loss_fn = get_loss_fn(loss_settings(name))
+        model.load_state_dict(initial)
+        optimizer = make_base_optimizer(model.parameters())
+        step = build_train_step(
+            model, loss_fn, optimizer, num_labels=2, image_size=S,
+            compute_dtype=torch.bfloat16,
+            generator=torch.Generator(dev).manual_seed(12))
+        evals = {m: build_eval_step(model, loss_fn, fn, num_labels=2)
+                 for m, fn in metric_fns.items()}
+        step_ms, losses, scores = [], [], {m: [] for m in METRICS}
+        for _ in range(LOSS_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = step(images_u8, masks_u8, 1e-3)
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            losses.append(loss.item())
+            for m, ev in evals.items():
+                scores[m].append(ev(images_u8, masks_u8, N)[1].item())
+            steps += 1
+        finite = all(np.isfinite(losses + scores["MeanIoU"]
+                                 + scores["DiceCoefficient"]))
+        res[name] = {"median_step_ms": statistics.median(step_ms),
+                     "first_loss": losses[0], "last_loss": losses[-1],
+                     **{f"last_{m}": scores[m][-1] for m in METRICS}}
+        if not finite:
+            failures.append(f"{name}: non-finite losses or scores "
+                            f"{losses} {scores}")
+        del step, evals, optimizer
+    res["launches"] = dict(kernels.LAUNCHES)
+    for entry, count in res["launches"].items():
+        if count != steps:
+            failures.append(f"{entry} launched {count} times in {steps} "
+                            "train steps of the losses phase")
+    del model, initial
+
+    # Every loss, its logits-gradient and both metrics: card against CPU.
+    gen = torch.Generator().manual_seed(13)
+    logits = torch.randn(N, 2, S, S, generator=gen)
+    target = torch.nn.functional.one_hot(masks_u8.long().cpu(), 2).permute(
+        0, 3, 1, 2).float()
+    cpu_args, gpu_args = (logits, target), (logits.to(dev), target.to(dev))
+    errors = {}
+    for name in SHIPPED_LOSSES:
+        loss_fn = get_loss_fn(loss_settings(name))
+
+        def grad(x, t, fn=loss_fn):
+            x = x.clone().requires_grad_(True)
+            fn(x, t).backward()
+            return x.grad
+
+        errors[name] = against_cpu(loss_fn, gpu_args, cpu_args)
+        errors[f"{name}_grad"] = against_cpu(grad, gpu_args, cpu_args)
+    probs = torch.softmax(logits, dim=1)
+    for m, fn in metric_fns.items():
+        errors[m] = against_cpu(fn, (probs.to(dev), target.to(dev)),
+                                (probs, target))
+    res["card_vs_cpu_rel_err"] = errors
+    res["card_vs_cpu_rtol"] = 1e-5
+    bad = {k: v for k, v in errors.items() if not v <= 1e-5}
+    if bad:
+        failures.append(f"card against CPU beyond rtol 1e-5: {bad}")
+    res["failures"] = failures
+    print(json.dumps(res), flush=True)
+    return res
+
+
+def write_native_checkpoint(torch_file: Path, path: Path) -> Path:
+    """`torch_file` rewritten as a JAX package checkpoint: the magic, then
+    the flax msgpack of its five keys with the weights as a flax tree."""
+    from volume_segmantics_tpu_torch.models.checkpoint import MAGIC, load_checkpoint
+    from volume_segmantics_tpu_torch.models.torch_export import (
+        variables_from_smp_state_dict,
+    )
+    from volume_segmantics_tpu_torch.utils.flax_msgpack import msgpack_serialize
+
+    ckpt = load_checkpoint(torch_file)
+    struc = dict(ckpt["model_struc_dict"])
+    struc["type"] = struc["type"].name
+    blob = {
+        "model_state_dict": variables_from_smp_state_dict(
+            ckpt["model_state_dict"], struc),
+        "model_struc_dict": struc, "optimizer_state_dict": {},
+        "loss_val": float(ckpt["loss_val"]), "label_codes": ckpt["label_codes"],
+    }
+    path.write_bytes(MAGIC + msgpack_serialize(blob))
+    return path
+
+
+def checkpoint_phase(model_file: Path, dev, out_dir: Path):
+    """The JAX package's checkpoint format and the reference's pickling,
+    on the slice phase's model (see the module doc)."""
+    import zipfile
+
+    import volume_segmantics_tpu_torch.utils.config as cfg
+    from volume_segmantics_tpu_torch.model.model_2d import create_model_from_file
+    from volume_segmantics_tpu_torch.models import checkpoint
+    from volume_segmantics_tpu_torch.scripts import predict_2d_model
+    from volume_segmantics_tpu_torch.utils import hdf5
+    from volume_segmantics_tpu_torch.utils.base_data_utils import ModelType
+
+    failures, res = [], {"phase": "checkpoint"}
+    root = out_dir / "checkpoint"
+    shutil.rmtree(root, ignore_errors=True)
+    (root / cfg.SETTINGS_DIR).mkdir(parents=True)
+    native = write_native_checkpoint(model_file, root / "vessels_native.pytorch")
+    res["native_mb"] = native.stat().st_size / 1e6
+    with open(native, "rb") as f:
+        res["native_magic"] = f.read(8).decode("latin-1")
+    torch_model = create_model_from_file(model_file, device=dev)[0]
+    native_model = create_model_from_file(native, device=dev)[0]
+    ref_sd, sd = torch_model.state_dict(), native_model.state_dict()
+    res["state_dict_bit_equal"] = set(sd) == set(ref_sd) and all(
+        torch.equal(sd[k], ref_sd[k]) for k in ref_sd)
+    if not res["state_dict_bit_equal"]:
+        failures.append("the VSTPU1 file rebuilds another state_dict")
+    del torch_model, native_model, sd, ref_sd
+
+    (root / cfg.SETTINGS_DIR / cfg.PREDICTION_SETTINGS_FN).write_text(
+        settings_text(cfg.PREDICTION_SETTINGS_FN))
+    vol, _ = make_vessel_volume((P, P, P), seed=7)
+    hdf5.write(root / "vessels_256.h5", vol, chunks=True)
+    labels = {}
+    for name, path in (("torch", model_file), ("native", native)):
+        t0 = time.perf_counter()
+        predict_2d_model.main([str(path), str(root / "vessels_256.h5"),
+                               "--data_dir", str(root)])
+        res[f"predict_{name}_main_s"] = time.perf_counter() - t0
+        out = predict_2d_model.create_output_path(root, Path("vessels_256.h5"))
+        labels[name] = hdf5.read(out)[0]
+        out.unlink()
+    res["labels_equal"] = bool(np.array_equal(labels["torch"], labels["native"]))
+    res["labels_shape"] = list(labels["native"].shape)
+    if not res["labels_equal"] or labels["native"].shape != vol.shape:
+        failures.append("model-predict-2d on the VSTPU1 file gave other labels")
+
+    blob = torch.load(model_file, map_location="cpu", weights_only=False,
+                      pickle_module=checkpoint.REFERENCE_PICKLE)
+    with zipfile.ZipFile(model_file) as z:
+        pickled = z.read(next(n for n in z.namelist() if n.endswith("data.pkl")))
+    res["reference_unpickler_type"] = repr(blob["model_struc_dict"]["type"])
+    res["pickles_reference_module"] = checkpoint.REFERENCE_MODULE.encode() in pickled
+    if blob["model_struc_dict"]["type"] is not ModelType.U_NET:
+        failures.append(f"reference Unpickler gave {res['reference_unpickler_type']}")
+    if not res["pickles_reference_module"]:
+        failures.append("the torch file does not pickle ModelType under "
+                        f"{checkpoint.REFERENCE_MODULE}")
+    res["failures"] = failures
+    print(json.dumps(res), flush=True)
+    return res
+
+
+def chrome_trace_kernels(path: Path) -> int:
+    """CUDA kernel events in a Chrome trace that torch.profiler exported
+    (an epoch's trace is hundreds of MB: counted in the text, not parsed)."""
+    data = path.read_bytes()
+    if not data.lstrip().startswith(b"{") or b'"traceEvents"' not in data:
+        return 0
+    return len(re.findall(rb'"cat":\s*"kernel"', data))
+
+
+def pretrained_phase(model_file: Path, dev, out_dir: Path, cli_res):
+    """`model-train-2d` from a pretrained-encoder cache, with autosave and
+    profiling (see the module doc)."""
+    import volume_segmantics_tpu_torch.utils.config as cfg
+    from volume_segmantics_tpu_torch.models.checkpoint import load_checkpoint
+    from volume_segmantics_tpu_torch.models.pretrained import WEIGHTS_DIR_ENV
+    from volume_segmantics_tpu_torch.models.torch_export import (
+        variables_from_smp_state_dict,
+    )
+    from volume_segmantics_tpu_torch.ops import kernels
+    from volume_segmantics_tpu_torch.scripts import train_2d_model
+    from volume_segmantics_tpu_torch.utils.flax_msgpack import msgpack_serialize
+
+    failures, res = [], {"phase": "pretrained"}
+    root = out_dir / "pretrained"
+    shutil.rmtree(root, ignore_errors=True)
+    (root / cfg.SETTINGS_DIR).mkdir(parents=True)
+    (root / "weights").mkdir()
+
+    # The slice model's encoder as a converted 3-channel ImageNet cache: the
+    # first kernel in input channel 0 and zeros in 1 and 2, so that the
+    # grayscale adaptation (a sum over input channels) gives it back.
+    ckpt = load_checkpoint(model_file)
+    slice_encoder = {k: v for k, v in ckpt["model_state_dict"].items()
+                     if k.startswith("encoder.")}
+    tree = variables_from_smp_state_dict(ckpt["model_state_dict"],
+                                         ckpt["model_struc_dict"])
+    params = tree["params"]["encoder"]
+    kernel = params["stem_conv"]["conv"]["kernel"]  # HWIO, I = 1
+    params["stem_conv"]["conv"]["kernel"] = np.concatenate(
+        [kernel, np.zeros_like(kernel), np.zeros_like(kernel)], axis=2)
+    (root / "weights" / "resnet34.vstpu").write_bytes(msgpack_serialize(
+        {"params": params, "batch_stats": tree["batch_stats"]["encoder"]}))
+    (root / cfg.SETTINGS_DIR / cfg.TRAIN_SETTINGS_FN).write_text(settings_text(
+        cfg.TRAIN_SETTINGS_FN, num_cyc_frozen=1, num_cyc_unfrozen=1, seed=0,
+        skip_frozen_without_pretrained=True, autosave=True,
+        profile_dir=root / "profile"))
+
+    trainers, phases = [], []
+
+    class RecordedTrainer(train_2d_model.VolSeg2dTrainer):
+        """Records the phases it trains and each model's encoder at
+        creation."""
+
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.encoders_at_create = []
+            trainers.append(self)
+
+        def _create_model_and_optimiser(self, learning_rate, frozen=False):
+            super()._create_model_and_optimiser(learning_rate, frozen)
+            self.encoders_at_create.append(
+                (self.model.pretrained_loaded,
+                 {n: v.detach().cpu().clone()
+                  for n, v in self.model.state_dict().items()
+                  if n.startswith("encoder.")}))
+
+        def train_model(self, output_path, num_epochs, patience, create=True,
+                        frozen=False):
+            phases.append({"epochs": num_epochs, "create": create,
+                           "frozen": frozen})
+            return super().train_model(output_path, num_epochs, patience,
+                                       create, frozen)
+
+    saved_env = os.environ.get(WEIGHTS_DIR_ENV)
+    os.environ[WEIGHTS_DIR_ENV] = str(root / "weights")
+    train_2d_model.VolSeg2dTrainer = RecordedTrainer
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        train_2d_model.main(["--data", str(out_dir / "cli" / "train_data.h5"),
+                             "--labels", str(out_dir / "cli" / "train_labels.h5"),
+                             "--data_dir", str(root)])
+    finally:
+        train_2d_model.VolSeg2dTrainer = RecordedTrainer.__bases__[0]
+        if saved_env is None:
+            del os.environ[WEIGHTS_DIR_ENV]
+        else:
+            os.environ[WEIGHTS_DIR_ENV] = saved_env
+    torch.cuda.synchronize()
+    res["train_main_s"] = time.perf_counter() - t0
+    res["launches"] = dict(kernels.LAUNCHES)
+    trainer = trainers[0]
+    model_out = train_2d_model._model_output_path(trainer.settings, root)
+    res["phases"] = phases
+    if not phases or not phases[0]["frozen"]:
+        failures.append(f"the frozen phase did not run: {phases}")
+    res["models_created"] = len(trainer.encoders_at_create)
+    mismatched = [i for i, (loaded, enc) in enumerate(trainer.encoders_at_create)
+                  if not loaded or set(enc) != set(slice_encoder)
+                  or not all(torch.equal(enc[k], slice_encoder[k]) for k in enc)]
+    res["encoder_at_create_equal"] = not mismatched
+    if mismatched or not trainer.encoders_at_create:
+        failures.append(f"created models {mismatched} do not start from the "
+                        "cached encoder")
+    res["autosave_left"] = Path(f"{model_out}.autosave").exists()
+    if res["autosave_left"] or not model_out.exists():
+        failures.append(f"autosave left {res['autosave_left']}, checkpoint "
+                        f"written {model_out.exists()}")
+    traces = sorted((root / "profile").glob("*.json"))
+    res["traces"] = {t.name: {"mb": t.stat().st_size / 1e6,
+                              "cuda_kernel_events": chrome_trace_kernels(t)}
+                     for t in traces}
+    if not any(v["cuda_kernel_events"] for v in res["traces"].values()):
+        failures.append(f"no Chrome trace with CUDA kernel events: {res['traces']}")
+    for entry, count in res["launches"].items():
+        if count != trainer.train_steps:
+            failures.append(f"{entry} launched {count} times in the pretrained "
+                            f"run's {trainer.train_steps} train steps")
+    res.update({
+        "train_steps": trainer.train_steps,
+        "eval_scores": trainer.avg_eval_scores,
+        "last_eval_mean_iou": trainer.avg_eval_scores[-1],
+        "random_init_cli_last_eval_mean_iou": cli_res["eval_scores"][-1],
+        "failures": failures,
+    })
+    for trace in traces:
+        trace.unlink()  # tens of MB each
+    print(json.dumps(res), flush=True)
+    return res
+
+
+def train_batch_sweep(images_u8, masks_u8, dev):
+    """Train-step throughput by batch for `THROUGHPUT_TRAIN_BATCH` (see the
+    module doc); launches here are not counted on the kernels line."""
+    import volume_segmantics_tpu_torch.utils.config as cfg
+    from volume_segmantics_tpu_torch.data.losses import get_loss_fn
+    from volume_segmantics_tpu_torch.model.model_2d import create_model_on_device
+    from volume_segmantics_tpu_torch.parallel.train import (
+        build_train_step,
+        make_base_optimizer,
+    )
+
+    res = {"phase": "train_batch_sweep", "steps": SWEEP_STEPS, "batches": {}}
+    for batch in SWEEP_BATCHES:
+        reps = -(-batch // images_u8.shape[0])
+        imgs = images_u8.repeat(reps, 1, 1)[:batch].contiguous()
+        msks = masks_u8.repeat(reps, 1, 1)[:batch].contiguous()
+        model = create_model_on_device(dev, STRUC,
+                                       generator=torch.Generator().manual_seed(14))
+        step = build_train_step(
+            model, get_loss_fn(loss_settings("DiceLoss")),
+            make_base_optimizer(model.parameters()), num_labels=2, image_size=S,
+            compute_dtype=torch.bfloat16,
+            generator=torch.Generator(dev).manual_seed(15))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        for _ in range(3):  # warm-up: cuDNN plans, allocator
+            step(imgs, msks, 1e-4)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SWEEP_STEPS):
+            loss = step(imgs, msks, 1e-4)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        res["batches"][batch] = {
+            "step_ms": 1e3 * seconds / SWEEP_STEPS,
+            "samples_per_s": batch * SWEEP_STEPS / seconds,
+            "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+            "loss_finite": bool(np.isfinite(loss.item())),
+        }
+        del model, step, imgs, msks, loss
+        torch.cuda.empty_cache()
+    best = max(r["samples_per_s"] for r in res["batches"].values())
+    res["throughput_train_batch"] = min(
+        b for b, r in res["batches"].items() if r["samples_per_s"] >= 0.95 * best)
+    res["configured_throughput_train_batch"] = cfg.THROUGHPUT_TRAIN_BATCH
+    res["failures"] = [f"batch {b}: non-finite loss"
+                       for b, r in res["batches"].items() if not r["loss_finite"]]
+    print(json.dumps(res), flush=True)
+    return res
+
+
 KERNELS = (
     ("K1", "warp_u8", "volseg_warp_u8", "volume_segmantics_tpu_torch/ops/csrc/warp.cu",
      "volume_segmantics_tpu/ops/warp.py:420"),
@@ -895,17 +1299,23 @@ def main() -> int:
         model_out = Path(tmp) / "vessels_U_Net_trained_2d_model.pytorch"
         summary = slice_phase(dev, model_out)
         predicted = predict_phase(model_out, dev)
-    cli = cli_phase(dev, out_dir)
+        cli = cli_phase(dev, out_dir)
+        losses = losses_phase(images, masks, dev)
+        ckpt = checkpoint_phase(model_out, dev, out_dir)
+        pretrained = pretrained_phase(model_out, dev, out_dir, cli)
+    sweep = train_batch_sweep(images, masks, dev)
+    counted = (summary, cli, losses, pretrained)
     kernels_line = {"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-         "launches": summary["launches"][entry] + cli["launches"][entry],
+         "launches": sum(phase["launches"][entry] for phase in counted),
          "max_abs_err": kres[k]["max_abs_err"], "ms": kres[k]["kernel_ms"],
          "plain_ms": kres[k]["plain_ms"], "bound_ms": kres[k]["bound_ms"],
          "bound_by": "bytes", "library_ms": None}
         for k, name, entry, source, replaces in KERNELS
     ]}
-    failed = ([k for k in kres if not kres[k]["ok"]] + summary["failures"]
-              + predicted["failures"] + cli["failures"])
+    failed = [k for k in kres if not kres[k]["ok"]] + [
+        f for phase in (summary, predicted, cli, losses, ckpt, pretrained, sweep)
+        for f in phase["failures"]]
     if failed:
         print(json.dumps({"failed": failed}), file=sys.stderr)
         return 1

@@ -240,11 +240,42 @@ def test_main_defaults_to_the_gpu_and_raises_without_one(
 
 
 def test_native_jax_checkpoints_raise_naming_the_roadmap(volumes, tmp_path):
-    """`model-predict-2d` accepts a `.vstpu` model path as the JAX CLI does;
-    loading one is not ported."""
-    (tmp_path / "m.vstpu").write_bytes(b"VSTPU1")
-    write_settings(tmp_path, cfg.PREDICTION_SETTINGS_FN)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """`model-predict-2d` takes a JAX package `VSTPU1` model file, under
+    `.vstpu` as the JAX CLI does, and predicts with it as from the same
+    weights in the port's torch format; what the port's msgpack reader
+    does not take (here a bfloat16 leaf) raises naming ROADMAP."""
+    import jax.numpy as jnp
+    from flax import serialization
+
+    from volume_segmantics_tpu_torch.models.checkpoint import (
+        MAGIC,
+        load_checkpoint,
+    )
+    from volume_segmantics_tpu_torch.models.torch_export import (
+        variables_from_smp_state_dict,
+    )
+
+    torch_file = write_checkpoint(tmp_path / "m.pytorch", 2)
+    ckpt = load_checkpoint(torch_file)
+    struc = dict(ckpt["model_struc_dict"], type="U_NET")
+    blob = {"model_state_dict": variables_from_smp_state_dict(
+                ckpt["model_state_dict"], struc),
+            "model_struc_dict": struc, "optimizer_state_dict": {},
+            "loss_val": 1.0, "label_codes": {}}
+    (tmp_path / "m.vstpu").write_bytes(MAGIC + serialization.msgpack_serialize(blob))
+    write_settings(tmp_path, cfg.PREDICTION_SETTINGS_FN, compute_dtype="float32",
+                   prediction_batch_size=4)
+    outs = {}
+    for name in ("m.pytorch", "m.vstpu"):
+        predict.main([str(tmp_path / name), str(volumes / "d1.h5"),
+                      "--data_dir", str(tmp_path)], device="cpu")
+        outs[name] = hdf5.read(predict.create_output_path(
+            tmp_path, volumes / "d1.h5"))[0]
+    np.testing.assert_array_equal(outs["m.vstpu"], outs["m.pytorch"])
+    blob["model_state_dict"]["params"]["head_conv"]["bias"] = np.zeros(
+        2, jnp.bfloat16)
+    (tmp_path / "m.vstpu").write_bytes(MAGIC + serialization.msgpack_serialize(blob))
+    with pytest.raises(NotImplementedError, match="bfloat16.*ROADMAP"):
         predict.main([str(tmp_path / "m.vstpu"), str(volumes / "d1.h5"),
                       "--data_dir", str(tmp_path)], device="cpu")
 

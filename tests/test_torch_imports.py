@@ -1,9 +1,9 @@
 """The PyTorch port stands alone: no module of the package, nor
 `chip_smoke.py`, imports JAX, flax, optax, the JAX package, or the host
 libraries the card machine lacks (cv2, h5py, yaml, imageio, matplotlib,
-tqdm): settings files and HDF5 go through the port's own readers. The
-package imports where there is no triton and no nvcc, and builds its
-kernels only at the first CUDA call."""
+tqdm, msgpack): settings files, HDF5 and flax msgpack go through the
+port's own readers. The package imports where there is no triton and no
+nvcc, and builds its kernels only at the first CUDA call."""
 
 import ast
 import importlib
@@ -17,7 +17,7 @@ import volume_segmantics_tpu_torch
 ROOT = Path(__file__).resolve().parents[1]
 PACKAGE = Path(volume_segmantics_tpu_torch.__file__).parent
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "volume_segmantics_tpu", "cv2",
-             "h5py", "yaml", "imageio", "matplotlib", "tqdm", "triton"}
+             "h5py", "yaml", "imageio", "matplotlib", "tqdm", "triton", "msgpack"}
 SOURCES = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -46,7 +46,8 @@ def test_every_module_imports_and_no_kernel_is_built():
     assert ("volume_segmantics_tpu_torch.model.operations.vol_seg_2d_predictor"
             in names)
     for module in ("scripts.train_2d_model", "scripts.predict_2d_model",
-                   "utils.hdf5", "utils.yaml_settings", "data.slicers"):
+                   "utils.hdf5", "utils.yaml_settings", "data.slicers",
+                   "utils.flax_msgpack", "models.pretrained"):
         assert f"volume_segmantics_tpu_torch.{module}" in names
     for name in names:
         importlib.import_module(name)

@@ -2,7 +2,8 @@
 weights carried across from the JAX model, against the JAX package's
 `build_dp_train_step` with the same learning rate, frozen and unfrozen;
 and one eval step with a padded tail (n_valid=1) against
-`build_dp_eval_step`."""
+`build_dp_eval_step`. `assert_step_matches_jax` serves the per-loss steps
+of `test_torch_losses.py` too."""
 
 from types import SimpleNamespace
 
@@ -61,8 +62,8 @@ def numpy_tree(variables):
     return jax.tree_util.tree_map(np.array, serialization.to_state_dict(variables))
 
 
-@pytest.fixture(scope="module")
-def setup():
+def make_setup():
+    """The seeded JAX model and one batch of images and masks."""
     bundle = jax_create_model_on_device(
         0, dict(STRUC, type=JaxModelType.U_NET), rng=jax.random.PRNGKey(0),
         dtype=jnp.float32,
@@ -73,17 +74,22 @@ def setup():
     return bundle, images, masks
 
 
+@pytest.fixture(scope="module")
+def setup():
+    return make_setup()
+
+
 def carried(variables):
     model = create_model(STRUC)
     model.load_state_dict(smp_state_dict_from_variables(numpy_tree(variables), STRUC))
     return model
 
 
-def jax_step(bundle, images, masks, frozen):
+def jax_step(bundle, images, masks, frozen, settings=SETTINGS):
     tx = jax_make_base_optimizer(0.01)
     params = jax.tree_util.tree_map(jnp.array, bundle.params)
     step = build_dp_train_step(
-        bundle.module, jax_get_loss_fn(SETTINGS), tx,
+        bundle.module, jax_get_loss_fn(settings), tx,
         _freeze_mask(params, frozen), num_labels=2, image_size=S,
         mesh=get_mesh(1), compute_dtype=jnp.float32, augment=False,
     )
@@ -97,7 +103,7 @@ def jax_step(bundle, images, masks, frozen):
     )
 
 
-def port_step(variables, images, masks, frozen):
+def port_step(variables, images, masks, frozen, settings=SETTINGS):
     model = carried(variables)
     trainable = []
     for name, p in model.named_parameters():
@@ -105,34 +111,36 @@ def port_step(variables, images, masks, frozen):
         if p.requires_grad:
             trainable.append(p)
     step = build_train_step(
-        model, get_loss_fn(SETTINGS), make_base_optimizer(trainable, 0.01),
+        model, get_loss_fn(settings), make_base_optimizer(trainable, 0.01),
         num_labels=2, image_size=S, compute_dtype=torch.float32, augment=False,
     )
     loss = step(torch.from_numpy(images), torch.from_numpy(masks), LR)
     return loss.item(), model
 
 
-def float64_grads(variables, images, masks):
+def float64_grads(variables, images, masks, settings=SETTINGS):
     """The port's gradients of the same step in float64."""
     model = carried(variables).double().train()
     x = torch.from_numpy(images).double() / 255.0
     x = ((x - 0.449) / 0.226)[:, None]
     targets = torch.nn.functional.one_hot(
         torch.from_numpy(masks).long(), 2).permute(0, 3, 1, 2).double()
-    get_loss_fn(SETTINGS)(model(x), targets).backward()
+    get_loss_fn(settings)(model(x), targets).backward()
     return {n: p.grad for n, p in model.named_parameters()}
 
 
-@pytest.mark.parametrize("frozen", [True, False], ids=["frozen", "unfrozen"])
-def test_train_step_matches_jax(setup, frozen):
+def assert_step_matches_jax(setup, frozen, settings=SETTINGS, min_share=0.25):
+    """The port's step against the JAX step from the same weights: the
+    loss, every updated parameter above the float64 noise floor, and the
+    running statistics."""
     bundle, images, masks = setup
     before = carried(bundle.variables).state_dict()
-    ref_loss, ref_sd = jax_step(bundle, images, masks, frozen)
-    loss, model = port_step(bundle.variables, images, masks, frozen)
+    ref_loss, ref_sd = jax_step(bundle, images, masks, frozen, settings)
+    loss, model = port_step(bundle.variables, images, masks, frozen, settings)
     np.testing.assert_allclose(loss, ref_loss, atol=1e-5, rtol=0)
     sd = model.state_dict()
     grads = {n: p.grad for n, p in model.named_parameters()}
-    grads64 = float64_grads(bundle.variables, images, masks)
+    grads64 = float64_grads(bundle.variables, images, masks, settings)
     n_updated = n_trainable = 0
     for name, p in model.named_parameters():
         if frozen and name.startswith("encoder."):
@@ -158,10 +166,15 @@ def test_train_step_matches_jax(setup, frozen):
         n_updated += int(moved.sum())
         n_trainable += p.numel()
     # About a third of the elements stand clear of the noise floor.
-    assert n_updated > 0.25 * n_trainable, (n_updated, n_trainable)
+    assert n_updated > min_share * n_trainable, (n_updated, n_trainable)
     for name in [k for k in ref_sd if k.endswith(("running_mean", "running_var"))]:
         np.testing.assert_allclose(sd[name].numpy(), ref_sd[name], atol=1e-4,
                                    rtol=0, err_msg=name)
+
+
+@pytest.mark.parametrize("frozen", [True, False], ids=["frozen", "unfrozen"])
+def test_train_step_matches_jax(setup, frozen):
+    assert_step_matches_jax(setup, frozen)
 
 
 def test_trainable_parameter_counts_match_jax(setup):

@@ -2,8 +2,13 @@
 volume: the two-phase run of `model-train-2d` (frozen, then unfrozen from
 the checkpoint), the reference-format checkpoint, and the JAX package
 loading that checkpoint with the same forward. The LR finder and
-schedule math against the JAX trainer's."""
+schedule math against the JAX trainer's. Autosave and resume, and the
+`profile_dir` trace, as the JAX trainer's tests drive them
+(tests/test_vol_seg_2d_trainer.py:87-117)."""
 
+import copy
+import json
+import logging
 import math
 from types import SimpleNamespace
 
@@ -165,3 +170,140 @@ def test_missing_settings_raise_settings_error_as_in_jax(settings):
     assert "'image_size'" in str(ours.value)
     assert "'loss_criterion'" in str(ours.value)
     assert str(ours.value) == str(ref.value)
+
+
+@pytest.fixture()
+def z_slices():
+    """16 Z slices of 64 x 64: 3 train batches of 4 and 1 validation batch."""
+    data, labels = tiny_volume()
+    return list(data), list(labels)
+
+
+def assert_same_state(got, ref, where="state"):
+    """Nested dicts and lists equal, tensors bit for bit."""
+    if isinstance(ref, torch.Tensor):
+        assert torch.equal(got, ref), where
+    elif isinstance(ref, dict):
+        assert set(got) == set(ref), where
+        for key in ref:
+            assert_same_state(got[key], ref[key], f"{where}.{key}")
+    elif isinstance(ref, (list, tuple)):
+        assert len(got) == len(ref), where
+        for i, (a, b) in enumerate(zip(got, ref)):
+            assert_same_state(a, b, f"{where}[{i}]")
+    else:
+        assert got == ref, where
+
+
+def test_autosave_resume(settings, z_slices, tmp_path, monkeypatch):
+    """An interrupted three-epoch run resumes at epoch 2 from the epoch
+    autosave without rerunning the LR finder, ends with three entries in
+    each list and removes the autosave; the restored model and AdamW state
+    are what was saved, bit for bit; a frozen-flag mismatch starts afresh."""
+    monkeypatch.setattr(cfg, "MIN_LR_FIND_STEPS", 6)
+    settings.autosave = True
+    model_out = tmp_path / "model.pytorch"
+    autosave = tmp_path / "model.pytorch.autosave"
+    make = lambda: VolSeg2dTrainer(*z_slices, 2, settings, device="cpu")
+
+    trainer = make()
+    assert len(trainer.training_loader) == 3
+    saved = {}
+    write = trainer._write_autosave
+
+    def interrupting(*args, **kwargs):
+        write(*args, **kwargs)
+        saved["model"] = copy.deepcopy(trainer.model.state_dict())
+        saved["optimizer"] = copy.deepcopy(trainer.optimizer.state_dict())
+        raise KeyboardInterrupt
+
+    trainer._write_autosave = interrupting
+    with pytest.raises(KeyboardInterrupt):
+        trainer.train_model(model_out, 3, 3, create=True, frozen=True)
+    assert autosave.exists() and len(trainer.avg_train_losses) == 1
+    assert trainer.train_steps == 6 + 3  # LR sweep, then epoch 1
+
+    restored = make()
+    extra = restored._try_resume(autosave, frozen=True)
+    assert (extra["epoch"], extra["global_step"], extra["frozen"]) == (1, 3, True)
+    assert extra["avg_train_losses"] == trainer.avg_train_losses
+    assert_same_state(restored.model.state_dict(), saved["model"], "model")
+    assert_same_state(restored.optimizer.state_dict(), saved["optimizer"],
+                      "optimizer")
+    assert len(saved["optimizer"]["state"]) > 0
+
+    resumed = make()
+    resumed.train_model(model_out, 3, 3, create=True, frozen=True)
+    assert resumed.lr_find_step_seconds == []  # no finder
+    assert resumed.train_steps == 2 * 3  # epochs 2 and 3
+    for values in (resumed.avg_train_losses, resumed.avg_valid_losses,
+                   resumed.avg_eval_scores):
+        assert len(values) == 3 and all(np.isfinite(values))
+    assert resumed.avg_train_losses[0] == trainer.avg_train_losses[0]
+    assert not autosave.exists() and model_out.exists()
+
+    # An autosave of the frozen phase does not resume the unfrozen one.
+    trainer = make()
+    trainer._write_autosave = interrupting
+    with pytest.raises(KeyboardInterrupt):
+        trainer.train_model(model_out, 2, 3, create=True, frozen=True)
+    afresh = make()
+    assert afresh._try_resume(autosave, frozen=False) is None
+    assert afresh.model is None
+    afresh.train_model(model_out, 1, 3, create=True, frozen=False)
+    assert afresh.train_steps == 6 + 3 and len(afresh.avg_train_losses) == 1
+    assert not autosave.exists()
+
+    # The JAX trainer's autosave (both CLIs name their outputs alike) holds
+    # an optax state the port cannot take: it trains afresh.
+    from flax import serialization
+    from volume_segmantics_tpu_torch.models.checkpoint import MAGIC
+    from volume_segmantics_tpu_torch.models.torch_export import (
+        variables_from_smp_state_dict,
+    )
+
+    struc = {"type": "U_NET", "encoder_name": "resnet34", "classes": 2}
+    autosave.write_bytes(MAGIC + serialization.msgpack_serialize({
+        "model_state_dict": variables_from_smp_state_dict(
+            afresh.model.state_dict(), struc),
+        "model_struc_dict": struc, "optimizer_state_dict": {"0": {}},
+        "loss_val": 1.0, "label_codes": {},
+        "extra": {"epoch": 1, "frozen": True}}))
+    jax_autosave = make()
+    assert jax_autosave._try_resume(autosave, frozen=True) is None
+    assert jax_autosave.model is None
+
+
+def test_profile_dir_writes_one_trace(settings, z_slices, tmp_path, monkeypatch):
+    settings.profile_dir = str(tmp_path / "profile")
+    trainer = VolSeg2dTrainer(*z_slices, 2, settings, device="cpu")
+    monkeypatch.setattr(trainer, "_run_lr_finder", lambda: 1e-3)
+    trainer.train_model(tmp_path / "model.pytorch", 2, 3, create=True,
+                        frozen=True)
+    traces = list((tmp_path / "profile").iterdir())
+    assert [t.name for t in traces] == ["train_frozen_epoch1.json"]
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    names = {e.get("name") for e in events}
+    assert "aten::convolution" in names  # the epoch's forward passes
+    assert len(trainer.avg_train_losses) == 2
+
+
+def test_frozen_random_encoder_warns_only_without_pretrained_weights(
+        settings, z_slices, tmp_path, monkeypatch, caplog):
+    from test_torch_pretrained import write_cache
+    from volume_segmantics_tpu_torch.models.pretrained import WEIGHTS_DIR_ENV
+
+    settings.model = dict(settings.model, encoder_weights="imagenet")
+    monkeypatch.setenv(WEIGHTS_DIR_ENV, str(tmp_path))
+    trainer = VolSeg2dTrainer(*z_slices, 2, settings, device="cpu")
+    warned = []
+    for cache in (False, True):
+        if cache:
+            write_cache(tmp_path)
+        caplog.clear()
+        with caplog.at_level(logging.WARNING):
+            trainer._create_model_and_optimiser(1e-3, frozen=True)
+        assert trainer.model.pretrained_loaded == cache
+        warned.append(any("FROZEN encoder that has RANDOM weights" in r.getMessage()
+                          for r in caplog.records))
+    assert warned == [True, False]

@@ -11,9 +11,13 @@ Freezing follows the JAX package's mask: every leaf whose path holds
 `stem_conv`, `convbn*` or `conv_down`, so the whole encoder is frozen,
 BatchNorm scale and bias included. Running statistics still update.
 
-Left out of this port: autosave/resume, profiling and the loss and
-prediction figures (the GPU machine has no matplotlib); the train-stats
-CSV is written.
+With `autosave: True` each epoch writes `<output>.autosave` (model and
+AdamW state, early-stopping state, the loss lists), and an interrupted run
+resumes from it when its frozen flag matches. `profile_dir` records a
+`torch.profiler` trace of epoch 1 of each phase as a Chrome trace.
+
+Left out of this port: the loss and prediction figures (the GPU machine
+has no matplotlib); the train-stats CSV is written.
 """
 
 import csv
@@ -37,7 +41,10 @@ from volume_segmantics_tpu_torch.data.losses import get_loss_fn
 from volume_segmantics_tpu_torch.data.metrics import get_eval_metric_fn
 from volume_segmantics_tpu_torch.data.settings_data import require_settings
 from volume_segmantics_tpu_torch.model.model_2d import create_model_on_device
-from volume_segmantics_tpu_torch.models.checkpoint import load_checkpoint
+from volume_segmantics_tpu_torch.models.checkpoint import (
+    load_checkpoint,
+    save_checkpoint,
+)
 from volume_segmantics_tpu_torch.parallel.train import (
     build_eval_step,
     build_train_step,
@@ -145,12 +152,12 @@ class VolSeg2dTrainer:
             f"Model has {self._count_trainable_parameters()} trainable "
             f"parameters, {self._count_parameters()} total parameters."
         )
-        if frozen:
+        if frozen and not self.model.pretrained_loaded:
             logging.warning(
                 "Training with a FROZEN encoder that has RANDOM weights: the "
-                "frozen phase will learn poorly. Converted pretrained encoder "
-                "weights are not available to the PyTorch port yet; set "
-                "num_cyc_frozen: 0 to train unfrozen."
+                "frozen phase will learn poorly. Provide pretrained encoder "
+                "weights via VOLSEG_TPU_WEIGHTS_DIR, or set num_cyc_frozen: 0 "
+                "and train unfrozen."
             )
         logging.info("Trainer created.")
 
@@ -196,7 +203,22 @@ class VolSeg2dTrainer:
                     create: bool = True, frozen: bool = False) -> None:
         """Train for `num_epochs` with an automatically determined learning
         rate (reference trainer :163-274)."""
-        if create:
+        # Resume (the JAX package's addition): with `autosave: True` each
+        # epoch writes <output>.autosave, and an interrupted run restarts
+        # after its last completed epoch, without the LR finder.
+        autosave = bool(getattr(self.settings, "autosave", False))
+        autosave_path = Path(f"{output_path}.autosave")
+        resume = self._try_resume(autosave_path, frozen) if autosave else None
+        if resume is not None:
+            lr_to_use = resume["lr_to_use"]
+            early_stopping = self._create_early_stopping(
+                output_path, patience, best_score=resume["best_score"]
+            )
+            early_stopping.counter = resume["es_counter"]
+            logging.info(
+                f"Resuming training from autosave at epoch {resume['epoch'] + 1}."
+            )
+        elif create:
             self._create_model_and_optimiser(self.starting_lr, frozen=frozen)
             lr_to_use = self._run_lr_finder()
             self._create_model_and_optimiser(lr_to_use, frozen=frozen)
@@ -218,8 +240,10 @@ class VolSeg2dTrainer:
             )
 
         lr_schedule = self._create_oc_lr_schedule(num_epochs, lr_to_use)
-        global_step = 0
-        for epoch in range(1, num_epochs + 1):
+        global_step = resume["global_step"] if resume else 0
+        start_epoch = resume["epoch"] + 1 if resume else 1
+        profiler = self._start_profiler()
+        for epoch in range(start_epoch, num_epochs + 1):
             tic = time.perf_counter()
             logging.info(f"Epoch {epoch} of {num_epochs}")
             train_losses = []
@@ -259,12 +283,91 @@ class VolSeg2dTrainer:
                 f"{self.settings.eval_metric}: {self.avg_eval_scores[-1]}"
             )
             logging.info(f"Time taken for epoch {epoch}: {toc - tic:0.2f} seconds")
+            if profiler is not None and epoch == 1:
+                profiler = self._stop_profiler(profiler, frozen)
             early_stopping(self.avg_valid_losses[-1], self.model,
                            self.optimizer, self.codes)
+            if autosave:
+                self._write_autosave(
+                    autosave_path, epoch=epoch, global_step=global_step,
+                    lr_to_use=lr_to_use, early_stopping=early_stopping,
+                    frozen=frozen,
+                )
             if early_stopping.early_stop:
                 logging.info("Early stopping")
                 break
+        if profiler is not None:
+            self._stop_profiler(profiler, frozen)
+        if autosave and autosave_path.exists():
+            autosave_path.unlink()
         self._load_in_weights(output_path)
+
+    # ------------------------------------------------------------------
+    # Autosave / resume (JAX trainer :429-484) and profiling (:345-347)
+    # ------------------------------------------------------------------
+
+    def _write_autosave(self, autosave_path, epoch, global_step, lr_to_use,
+                        early_stopping, frozen):
+        save_checkpoint(
+            autosave_path, self.model, self.model_struc_dict, self.optimizer,
+            loss_val=self.avg_valid_losses[-1], label_codes=self.codes,
+            extra={
+                "epoch": int(epoch),
+                "global_step": int(global_step),
+                "lr_to_use": float(lr_to_use),
+                "best_score": float(early_stopping.best_score),
+                "es_counter": int(early_stopping.counter),
+                "frozen": bool(frozen),
+                "avg_train_losses": [float(x) for x in self.avg_train_losses],
+                "avg_valid_losses": [float(x) for x in self.avg_valid_losses],
+                "avg_eval_scores": [float(x) for x in self.avg_eval_scores],
+            },
+        )
+
+    def _try_resume(self, autosave_path, frozen):
+        """Restore model, optimizer and loss lists from an epoch autosave
+        of this package; returns its `extra` dict, or None to start
+        afresh."""
+        if not autosave_path.exists():
+            return None
+        ckpt = load_checkpoint(autosave_path)
+        extra = ckpt.get("extra")
+        if not extra or bool(extra.get("frozen")) != bool(frozen):
+            return None
+        if "param_groups" not in ckpt["optimizer_state_dict"]:
+            logging.info(f"{autosave_path} holds no AdamW state of this "
+                         "package; training afresh.")
+            return None
+        self._create_model_and_optimiser(extra["lr_to_use"], frozen=frozen)
+        self.model.load_state_dict(ckpt["model_state_dict"])
+        self.optimizer.load_state_dict(ckpt["optimizer_state_dict"])
+        self.avg_train_losses = list(extra.get("avg_train_losses", []))
+        self.avg_valid_losses = list(extra.get("avg_valid_losses", []))
+        self.avg_eval_scores = list(extra.get("avg_eval_scores", []))
+        return extra
+
+    def _start_profiler(self):
+        """A torch.profiler trace from here on when `profile_dir` is set
+        (CUDA activity too on the GPU); None otherwise."""
+        if not getattr(self.settings, "profile_dir", None):
+            return None
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        profiler = torch.profiler.profile(activities=activities)
+        profiler.start()
+        return profiler
+
+    def _stop_profiler(self, profiler, frozen):
+        """Stop `profiler` and write its Chrome trace into `profile_dir`."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        profiler.stop()
+        path = (Path(self.settings.profile_dir)
+                / f"train_{'frozen' if frozen else 'unfrozen'}_epoch1.json")
+        path.parent.mkdir(parents=True, exist_ok=True)
+        profiler.export_chrome_trace(str(path))
+        logging.info(f"Saved the profile trace of epoch 1 to {path}.")
 
     def _train_one_batch_async(self, images, masks, lr):
         """One train step; returns the loss as a device scalar without

@@ -1,0 +1,97 @@
+"""ImageNet-pretrained encoder weights from a local cache (port of the JAX
+package's `models/pretrained.py`).
+
+No weights are downloaded. `$VOLSEG_TPU_WEIGHTS_DIR/<encoder_name>.vstpu`
+is a flax msgpack blob {"params", "batch_stats"} of the encoder subtree in
+the JAX package's naming, the file its `tools/convert_torch_encoder.py`
+writes; both packages read the same cache. When it is missing the model
+keeps its random initialisation, with the JAX package's warning.
+"""
+
+import logging
+import os
+from pathlib import Path
+from typing import Optional
+
+import numpy as np
+import torch
+
+from volume_segmantics_tpu_torch.models.torch_export import (
+    _inverse_resnet_encoder,
+    variables_from_smp_state_dict,
+)
+from volume_segmantics_tpu_torch.utils.flax_msgpack import msgpack_restore
+
+WEIGHTS_DIR_ENV = "VOLSEG_TPU_WEIGHTS_DIR"
+
+
+def _weights_path(encoder_name: str) -> Optional[Path]:
+    root = os.environ.get(WEIGHTS_DIR_ENV)
+    if not root:
+        return None
+    path = Path(root) / f"{encoder_name}.vstpu"
+    return path if path.exists() else None
+
+
+def pretrained_weights_available(encoder_name: str) -> bool:
+    """True when a converted ImageNet weight file for `encoder_name` exists
+    in the $VOLSEG_TPU_WEIGHTS_DIR cache (no model build, no load)."""
+    return _weights_path(encoder_name) is not None
+
+
+def _adapt_first_conv(kernel: np.ndarray, in_channels: int) -> np.ndarray:
+    """Adapt an HWIO kernel pretrained on 3-channel input to `in_channels`:
+    the sum over input channels for one channel (smp's patch_first_conv for
+    grayscale), else tiled and rescaled."""
+    if kernel.shape[2] == in_channels:
+        return kernel
+    if in_channels == 1:
+        return kernel.sum(axis=2, keepdims=True)
+    reps = int(np.ceil(in_channels / kernel.shape[2]))
+    tiled = np.tile(kernel, (1, 1, reps, 1))[:, :, :in_channels, :]
+    return tiled * (kernel.shape[2] / in_channels)
+
+
+def load_pretrained_encoder(model: torch.nn.Module, encoder_name: str,
+                            in_channels: int) -> bool:
+    """Copy the cached encoder weights into `model`'s `encoder.*` in place;
+    False (with a warning) when there is no cache. A cache without batch
+    statistics keeps the model's running statistics, as in the JAX
+    package."""
+    path = _weights_path(encoder_name)
+    if path is None:
+        logging.warning(
+            f"No pretrained weights for encoder '{encoder_name}' found in "
+            f"${WEIGHTS_DIR_ENV}; using random initialisation. Convert torch "
+            "weights with tools/convert_torch_encoder.py to enable them."
+        )
+        return False
+    blob = msgpack_restore(path.read_bytes())
+    params = dict(blob["params"])
+    stats = blob.get("batch_stats") or variables_from_smp_state_dict(
+        model.state_dict(), {"type": "U_NET", "encoder_name": encoder_name}
+    )["batch_stats"]["encoder"]
+    stem = dict(params["stem_conv"])
+    stem["conv"] = dict(stem["conv"])
+    stem["conv"]["kernel"] = _adapt_first_conv(
+        np.asarray(stem["conv"]["kernel"]), in_channels)
+    params["stem_conv"] = stem
+    sd = {}
+    _inverse_resnet_encoder(sd, params, stats)
+    own = model.state_dict()
+    unknown = sorted(set(sd) - set(own))
+    missing = sorted(k for k in own if k.startswith("encoder.")
+                     and not k.endswith("num_batches_tracked") and k not in sd)
+    if unknown or missing:
+        raise ValueError(
+            f"{path} does not match encoder '{encoder_name}': unknown "
+            f"{unknown[:3]}, missing {missing[:3]}"
+        )
+    with torch.no_grad():
+        for key, value in sd.items():
+            if own[key].shape != value.shape:
+                raise ValueError(f"{path}: {key} has shape {value.shape}, the "
+                                 f"model's is {tuple(own[key].shape)}")
+            own[key].copy_(torch.tensor(value))
+    logging.info(f"Loaded pretrained '{encoder_name}' encoder weights from {path}.")
+    return True

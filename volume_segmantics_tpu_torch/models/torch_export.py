@@ -1,10 +1,12 @@
-"""Carry weights trained by the JAX package into the port's models.
+"""Carry weights between the JAX package's models and the port's.
 
 The JAX package keeps a model as a nested {"params", "batch_stats"} tree
 (flax naming, HWIO kernels). The port's modules use smp naming, so the
 inverse mapping of that package's `models/torch_export.py` (resnet encoder,
-U-Net decoder, head) gives a `state_dict` the port loads directly. The tree
-is taken as plain nested dicts of numpy arrays (e.g. the JAX side's
+U-Net decoder, head) gives a `state_dict` the port loads directly, and
+`variables_from_smp_state_dict` maps back (that package's
+`models/torch_convert.convert_smp_state_dict`). The tree is taken as plain
+nested dicts of numpy arrays (e.g. the JAX side's
 `flax.serialization.to_state_dict` output); nothing of JAX is imported.
 """
 
@@ -56,11 +58,7 @@ def _inverse_unet_decoder(sd, p, s):
                         f"{t}.conv2.0", f"{t}.conv2.1")
 
 
-def smp_state_dict_from_variables(
-    variables: Dict[str, Any], struc: dict
-) -> Dict[str, torch.Tensor]:
-    """{"params", "batch_stats"} tree of a U-Net/resnet34 -> the port's
-    smp-named state_dict (float32 tensors; `num_batches_tracked` 0)."""
+def _check_ported(struc: dict) -> None:
     encoder = struc.get("encoder_name", "resnet34")
     mtype = struc.get("type")
     mtype = getattr(mtype, "name", mtype)
@@ -68,6 +66,14 @@ def smp_state_dict_from_variables(
         raise NotImplementedError(
             f"Carrying weights of {mtype} / {encoder} is not ported yet."
         )
+
+
+def smp_state_dict_from_variables(
+    variables: Dict[str, Any], struc: dict
+) -> Dict[str, torch.Tensor]:
+    """{"params", "batch_stats"} tree of a U-Net/resnet34 -> the port's
+    smp-named state_dict (float32 tensors; `num_batches_tracked` 0)."""
+    _check_ported(struc)
     params, stats = variables["params"], variables.get("batch_stats", {})
     sd: Dict[str, np.ndarray] = {}
     _inverse_resnet_encoder(sd, params["encoder"], stats["encoder"])
@@ -85,3 +91,63 @@ def smp_state_dict_from_variables(
             0, dtype=torch.long
         )
     return out
+
+
+def _hwio(weight) -> np.ndarray:
+    """torch OIHW conv weight -> flax HWIO kernel."""
+    return np.transpose(weight, (2, 3, 1, 0))
+
+
+def _set(tree: dict, path, value) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = value
+
+
+def _convbn(params, stats, sd, t_conv, t_bn, path):
+    _set(params, path + ("conv", "kernel"), _hwio(sd[f"{t_conv}.weight"]))
+    _set(params, path + ("bn", "scale"), sd[f"{t_bn}.weight"])
+    _set(params, path + ("bn", "bias"), sd[f"{t_bn}.bias"])
+    _set(stats, path + ("bn", "mean"), sd[f"{t_bn}.running_mean"])
+    _set(stats, path + ("bn", "var"), sd[f"{t_bn}.running_var"])
+
+
+def variables_from_smp_state_dict(state_dict: Dict[str, Any],
+                                  struc: dict) -> Dict[str, Any]:
+    """The port's smp-named state_dict of a U-Net/resnet34 -> the JAX
+    package's {"params", "batch_stats"} tree of numpy arrays (the inverse
+    of `smp_state_dict_from_variables`; `num_batches_tracked` is dropped)."""
+    _check_ported(struc)
+    sd = {k: np.array(v.detach().cpu() if isinstance(v, torch.Tensor) else v)
+          for k, v in state_dict.items()}
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+    _convbn(params, stats, sd, "encoder.conv1", "encoder.bn1",
+            ("encoder", "stem_conv"))
+    stage = 1
+    while f"encoder.layer{stage}.0.conv1.weight" in sd:
+        block = 0
+        while f"encoder.layer{stage}.{block}.conv1.weight" in sd:
+            t = f"encoder.layer{stage}.{block}"
+            path = ("encoder", f"layer{stage}_{block}")
+            for ci in (1, 2, 3):
+                if f"{t}.conv{ci}.weight" in sd:
+                    _convbn(params, stats, sd, f"{t}.conv{ci}", f"{t}.bn{ci}",
+                            path + (f"convbn{ci}",))
+            if f"{t}.downsample.0.weight" in sd:
+                _convbn(params, stats, sd, f"{t}.downsample.0",
+                        f"{t}.downsample.1", path + ("conv_down",))
+            block += 1
+        stage += 1
+    block = 0
+    while f"decoder.blocks.{block}.conv1.0.weight" in sd:
+        t = f"decoder.blocks.{block}"
+        path = ("decoder", f"block{block}")
+        _convbn(params, stats, sd, f"{t}.conv1.0", f"{t}.conv1.1",
+                path + ("convbn1",))
+        _convbn(params, stats, sd, f"{t}.conv2.0", f"{t}.conv2.1",
+                path + ("convbn2",))
+        block += 1
+    _set(params, ("head_conv", "kernel"), _hwio(sd["segmentation_head.0.weight"]))
+    _set(params, ("head_conv", "bias"), sd["segmentation_head.0.bias"])
+    return {"params": params, "batch_stats": stats}

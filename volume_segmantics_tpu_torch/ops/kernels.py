@@ -2,10 +2,13 @@
 
 The sources have a plain C interface. At the first CUDA call they are
 compiled with nvcc for `sm_90a` (one nvcc per source, all started
-together), linked into `build/volseg_kernels/<digest>/libvolseg_kernels.so`
-beside the package, and loaded with ctypes. The digest covers the sources
-and flags, so an edited source is rebuilt. Nothing here runs at import:
-the CPU tests import every module on a machine without nvcc.
+together), linked into `<build root>/<digest>/libvolseg_kernels.so`, and
+loaded with ctypes. The digest covers the sources and flags, so an edited
+source is rebuilt. The build root is `$VOLSEG_KERNEL_BUILD_DIR` when set;
+else `build/volseg_kernels/` of the checkout the package sits in; else,
+for an installed package, `volume_segmantics_tpu_torch/kernels/` under
+`$XDG_CACHE_HOME` (default `~/.cache`). Nothing here runs at import: the
+CPU tests import every module on a machine without nvcc.
 
 Every C entry point launches on the stream it is given and returns
 `cudaGetLastError()`; `launch` raises when that is not 0 and adds one to the
@@ -29,6 +32,7 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC",
 )
 LIB_NAME = "libvolseg_kernels.so"
+BUILD_DIR_ENV = "VOLSEG_KERNEL_BUILD_DIR"
 
 # C entry point -> argument types (pointers and the stream as c_void_p).
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -63,13 +67,23 @@ def _nvcc() -> str:
     return found
 
 
+def build_root() -> Path:
+    """Where kernel builds go (see the module doc)."""
+    if os.environ.get(BUILD_DIR_ENV):
+        return Path(os.environ[BUILD_DIR_ENV])
+    checkout = Path(__file__).resolve().parents[2]
+    if (checkout / "pyproject.toml").exists():
+        return checkout / "build" / "volseg_kernels"
+    cache = os.environ.get("XDG_CACHE_HOME") or Path.home() / ".cache"
+    return Path(cache) / "volume_segmantics_tpu_torch" / "kernels"
+
+
 def build_dir() -> Path:
-    """`build/volseg_kernels/<digest>` next to the package directory."""
+    """`<build root>/<digest>` of the current sources and flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name in SOURCES:
         h.update((CSRC / name).read_bytes())
-    root = Path(__file__).resolve().parents[2] / "build" / "volseg_kernels"
-    return root / h.hexdigest()[:16]
+    return build_root() / h.hexdigest()[:16]
 
 
 def build(verbose: bool = False) -> Path:

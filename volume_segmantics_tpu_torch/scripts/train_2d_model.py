@@ -25,6 +25,9 @@ import volume_segmantics_tpu_torch.utils.base_data_utils as utils
 import volume_segmantics_tpu_torch.utils.config as cfg
 from volume_segmantics_tpu_torch.data import TrainingDataSlicer, get_settings_data
 from volume_segmantics_tpu_torch.model import VolSeg2dTrainer
+from volume_segmantics_tpu_torch.models.pretrained import (
+    pretrained_weights_available,
+)
 from volume_segmantics_tpu_torch.utils import get_2d_training_parser
 
 
@@ -92,23 +95,26 @@ def resolve_training_phases(settings) -> tuple:
     """(frozen_epochs, unfrozen_epochs) for the two-phase schedule.
 
     The frozen phase protects PRETRAINED encoder features while the decoder
-    adapts. The port has no converted ImageNet weights, so with the opt-in
-    setting ``skip_frozen_without_pretrained: True`` the frozen epochs
-    always fold into the unfrozen phase. Default is off: both phases run as
-    the settings give them."""
+    adapts. With the opt-in setting ``skip_frozen_without_pretrained:
+    True``, when the settings do not ask for ImageNet weights or the
+    $VOLSEG_TPU_WEIGHTS_DIR cache has none for the encoder, the frozen
+    epochs fold into the unfrozen phase rather than train a frozen random
+    encoder. Default is off: both phases run as the settings give them."""
     frozen_epochs = int(settings.num_cyc_frozen)
     unfrozen_epochs = int(settings.num_cyc_unfrozen)
     if frozen_epochs > 0 and bool(
         getattr(settings, "skip_frozen_without_pretrained", False)
     ):
         encoder = settings.model.get("encoder_name", "resnet34")
-        logging.warning(
-            f"No pretrained weights available for encoder '{encoder}' "
-            f"(skip_frozen_without_pretrained is on): folding "
-            f"{frozen_epochs} frozen epochs into the unfrozen phase "
-            f"({frozen_epochs + unfrozen_epochs} unfrozen epochs total)."
-        )
-        return 0, frozen_epochs + unfrozen_epochs
+        wants_pretrained = settings.model.get("encoder_weights") == "imagenet"
+        if not (wants_pretrained and pretrained_weights_available(encoder)):
+            logging.warning(
+                f"No pretrained weights available for encoder '{encoder}' "
+                f"(skip_frozen_without_pretrained is on): folding "
+                f"{frozen_epochs} frozen epochs into the unfrozen phase "
+                f"({frozen_epochs + unfrozen_epochs} unfrozen epochs total)."
+            )
+            return 0, frozen_epochs + unfrozen_epochs
     return frozen_epochs, unfrozen_epochs
 
 

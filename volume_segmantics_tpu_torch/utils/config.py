@@ -14,8 +14,8 @@ PREDICT_DATA_ARG = "data"
 DATA_DIR_ARG = "data_dir"
 
 # Accepted file extensions (reference utilities/config.py:10-15). ".vstpu"
-# is the JAX package's native checkpoint: the CLI accepts it as the JAX one
-# does, and loading it raises until it is ported.
+# is the JAX package's native checkpoint name; a checkpoint's format is told
+# from its first bytes, not its name (models/checkpoint.py).
 TIFF_SUFFIXES = {".tiff", ".tif"}
 HDF5_SUFFIXES = {".h5", ".hdf5", ".nxs"}
 TRAIN_DATA_EXT = {*HDF5_SUFFIXES, *TIFF_SUFFIXES}
@@ -39,8 +39,13 @@ HDF5_GZIP_LEVEL = 4  # h5py's default level for compression="gzip"
 BIG_HBM_THRESHOLD = 8  # free device memory (GB) above which BIG_TRAIN_BATCH is used
 BIG_TRAIN_BATCH = 12
 # `performance_profile: throughput` trains at a larger batch, clamped so an
-# epoch keeps MIN_TRAIN_STEPS_PER_EPOCH steps on small datasets.
-THROUGHPUT_TRAIN_BATCH = 128
+# epoch keeps MIN_TRAIN_STEPS_PER_EPOCH steps on small datasets. The rule:
+# the smallest batch within 5% of the best samples/s of chip_smoke.py's
+# train-step sweep (U-Net/ResNet-34, 256x256, bf16, unfrozen). On an
+# NVIDIA H100 80GB HBM3 at a 700 W power limit: 93, 271, 537, 784 and 910
+# samples/s at batches 12, 32, 64, 128 and 256 (peak 2.2, 4.4, 8.0, 15.2
+# and 29.6 GiB); only 256 is within 5% of the best (PERF.md).
+THROUGHPUT_TRAIN_BATCH = 256
 PERFORMANCE_PROFILES = ("parity", "throughput")
 SMALL_BATCH = 2
 # Default prediction batch (slices per forward pass), used when the
