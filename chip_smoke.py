@@ -68,7 +68,27 @@
    file's, and `model-predict-2d` on it must give the torch file's labels
    at every voxel of the 256^3 volume; the torch file must unpickle through
    the reference-path Unpickler and name the reference's module.
-9. Pretrained phase: the slice model's encoder, its first convolution
+9. Large phase, from the slice phase's checkpoint, in `<out-dir>/large`:
+   the 256^3 vessels volume as gzip HDF5 (chunks=True), kept lazy
+   (`lazy_ingest_threshold` below it, clip on, bf16): LOW, MEDIUM, HIGH
+   and one-hot MEDIUM from the slab-streaming predictor (slab = batch)
+   equal, labels and max-probs, to the same source assembled on the card
+   and predicted in memory; the manager's streamed MEDIUM equal too; the
+   eager ingest of the file agrees on >= 99.5% of labels, its data_mean
+   within 1e-9 relative; no read above one slab's largest face. Then
+   MEDIUM on the clipped volume tiled to 512^3, in memory and streamed,
+   twice each, labels equal. Then `model-predict-2d` with the shipped
+   predict settings as written on a (D, 2048, 2048) gzip HDF5 tiling of
+   the raw volume, D the smallest multiple of 256 above 1.15 x
+   `in_memory_limit_voxels` (1024 on an 80 GB card), written from a tiled
+   view that is never materialised: it must stream, write uint8 labels of
+   the input's shape and score MeanIoU >= 0.75 against the tiled truth
+   (counted slab by slab from partial reads). Prints its times by part
+   (lazy mean and sigma, each sweep, each merge, checkpoint load, HDF5
+   write, `main`), the batch it settled on, peak device memory, peak host
+   RSS, the workdir's peak bytes, free disk before, during and after, and
+   the chunks inflated; deletes its files.
+10. Pretrained phase: the slice model's encoder, its first convolution
    widened to 3 channels (the kernel, then zeros), as
    `$VOLSEG_TPU_WEIGHTS_DIR/resnet34.vstpu`; `model-train-2d` on the CLI
    phase's HDF5 pair with the shipped settings plus
@@ -76,11 +96,11 @@
    unless the frozen phase runs, every model the trainer creates starts
    from the slice model's encoder, each kernel launched once per step, the
    autosave is gone at the end and a Chrome trace holds CUDA kernel events.
-10. Train-batch sweep (`THROUGHPUT_TRAIN_BATCH`): 15 timed
+11. Train-batch sweep (`THROUGHPUT_TRAIN_BATCH`): 15 timed
    `build_train_step` steps on one seeded batch at batches 12, 32, 64, 128
    and 256 (bf16, unfrozen), samples/s and peak memory; the smallest batch
    within 5% of the best samples/s is printed beside the configured one.
-11. Prints a `{"kernels": [...]}` line (launches of the slice, CLI, losses
+12. Prints a `{"kernels": [...]}` line (launches of the slice, CLI, losses
    and pretrained phases) and, last, the device line.
 
 Exits non-zero on any failure, without a GPU, and outside a checkout of the
@@ -1063,6 +1083,319 @@ def checkpoint_phase(model_file: Path, dev, out_dir: Path):
     return res
 
 
+LARGE_SIDE = 2048  # slice side of the large phase's volume (full-field micro-CT)
+LARGE_STEP = 256  # its depth is a multiple of this, above 1.15 x the limit
+LARGE_MARGIN = 1.15
+
+
+class TiledVolume:
+    """`tile` repeated to `shape`, read a block at a time by basic slices
+    (the HDF5 writer's reads): never materialised."""
+
+    def __init__(self, tile, shape):
+        self.tile, self.shape, self.dtype = tile, tuple(shape), tile.dtype
+
+    def __getitem__(self, sel):
+        sel = (sel if isinstance(sel, tuple) else (sel,)) + (slice(None),) * 3
+        idx = []
+        for s, n, t in zip(sel, self.shape, self.tile.shape):
+            start, stop, _ = s.indices(n)
+            off = start % t
+            idx.append(slice(off, off + stop - start) if off + stop - start <= t
+                       else np.arange(start, stop) % t)
+        if all(isinstance(i, slice) for i in idx):
+            return self.tile[tuple(idx)]
+        return self.tile[np.ix_(*(np.arange(i.start, i.stop) if isinstance(i, slice)
+                                  else i for i in idx))]
+
+
+@contextlib.contextmanager
+def host_peaks(path: Path, every_s=0.25):
+    """Samples this process's resident set (file-backed memmap pages
+    included) and the free space of `path`'s file system in a thread;
+    yields the running peaks."""
+    import threading
+
+    page = os.sysconf("SC_PAGE_SIZE")
+    peaks = {"rss_bytes": 0, "min_free_bytes": shutil.disk_usage(path).free}
+    stop = threading.Event()
+
+    def sample():
+        while True:
+            with open("/proc/self/statm") as f:
+                rss = int(f.read().split()[1]) * page
+            peaks["rss_bytes"] = max(peaks["rss_bytes"], rss)
+            peaks["min_free_bytes"] = min(peaks["min_free_bytes"],
+                                          shutil.disk_usage(path).free)
+            if stop.wait(every_s):
+                return
+
+    thread = threading.Thread(target=sample, daemon=True)
+    thread.start()
+    try:
+        yield peaks
+    finally:
+        stop.set()
+        thread.join(timeout=10)
+
+
+def tiled_mean_iou(path: Path, truth, dev, slab) -> float:
+    """The port's MeanIoU (per-class IoU, mean over the 2 classes) of the
+    labels in HDF5 file `path` against `truth` tiled to their shape,
+    counted slab by slab with partial reads (slabs within one tile)."""
+    from volume_segmantics_tpu_torch.utils import hdf5
+
+    t = torch.from_numpy(truth).to(dev)
+    inter = torch.zeros(2, dtype=torch.float64, device=dev)
+    union = torch.zeros(2, dtype=torch.float64, device=dev)
+    with hdf5.File(path) as f:
+        ds = f["/data"]
+        reps = [n // s for n, s in zip(ds.shape[1:], truth.shape[1:])]
+        for z in range(0, ds.shape[0], slab):
+            pred = torch.from_numpy(ds[z:z + slab]).to(dev)
+            z0 = z % truth.shape[0]
+            tru = t[z0:z0 + pred.shape[0]].repeat(1, *reps)
+            for c in range(2):
+                p, q = pred == c, tru == c
+                inter[c] += (p & q).sum()
+                union[c] += (p | q).sum()
+    return (inter / union.clamp(min=1e-8)).mean().item()
+
+
+def large_phase(model_file: Path, dev, out_dir: Path):
+    """Volumes beyond the in-memory limit (see the module doc)."""
+    import volume_segmantics_tpu_torch.utils.config as cfg
+    from volume_segmantics_tpu_torch.model import VolSeg2DPredictionManager
+    from volume_segmantics_tpu_torch.model.operations import (
+        vol_seg_2d_predictor,
+        vol_seg_prediction_manager,
+    )
+    from volume_segmantics_tpu_torch.model.operations.vol_seg_large_predictor import (
+        VolSegLargeVolPredictor,
+    )
+    from volume_segmantics_tpu_torch.ops import kernels
+    from volume_segmantics_tpu_torch.scripts import predict_2d_model
+    from volume_segmantics_tpu_torch.utils import base_data_utils, hdf5
+    from volume_segmantics_tpu_torch.utils.base_data_utils import (
+        Axis,
+        LazyHDF5Volume,
+    )
+
+    launches_before = dict(kernels.LAUNCHES)
+    failures, res = [], {"phase": "large"}
+    root = out_dir / "large"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    vol, truth = make_vessel_volume((P, P, P), seed=7)
+
+    # 1. Equality at P^3: a lazy gzip HDF5 source, streamed and assembled
+    # on the device, with the same preprocessing (clip on, bf16).
+    src = root / "vessels.h5"
+    hdf5.write(src, vol, chunks=True)
+    below = P ** 3 - 1
+    lazy_mgr = VolSeg2DPredictionManager(
+        model_file, src, prediction_settings(lazy_ingest_threshold=below), device=dev)
+    if not isinstance(lazy_mgr.data_vol, LazyHDF5Volume):
+        failures.append(f"{P}^3 source not lazy: {type(lazy_mgr.data_vol)}")
+    predictor, lazy = lazy_mgr.predictor, lazy_mgr.data_vol
+    on_device = lazy_mgr._upload_lazy_to_device(lazy)
+    large = VolSegLargeVolPredictor(predictor, temp_parent=root)
+    res["batch"] = predictor.batch_size
+    res["slab"] = large.slab_size
+    equal = {}
+    for name, streamed_fn, in_memory_fn in (
+            ("LOW", lambda v: large.predict_single_axis(v, Axis.Z),
+             lambda v: predictor._predict_single_axis(v, True, Axis.Z)),
+            ("MEDIUM", large.predict_3_ways,
+             lambda v: predictor._predict_3_ways_max_probs(v, True)),
+            ("HIGH", large.predict_12_ways,
+             lambda v: predictor._predict_12_ways_max_probs(v, True)),
+            ("MEDIUM_one_hot", large.predict_3_ways_one_hot,
+             predictor._predict_3_ways_one_hot)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = streamed_fn(lazy)
+        streamed_s = time.perf_counter() - t0
+        ref = in_memory_fn(on_device)
+        torch.cuda.synchronize()
+        got, ref = (got, ref) if isinstance(got, tuple) else ((got,), (ref,))
+        same = all(np.array_equal(np.asarray(a), b) for a, b in zip(got, ref))
+        equal[name] = {"equal": same, "streamed_s": streamed_s,
+                       "in_memory_s": time.perf_counter() - t0 - streamed_s}
+        if not same:
+            failures.append(f"{name} streamed differs from in-memory at {P}^3")
+        if name == "MEDIUM":
+            medium_labels = ref[0]
+        del got, ref
+    res[f"streamed_vs_in_memory_{P}"] = equal
+    del on_device, large
+    res["max_read_voxels"] = lazy.max_read_voxels
+    largest_face = res["slab"] * P * P
+    if not lazy.max_read_voxels <= largest_face:
+        failures.append(f"largest read {lazy.max_read_voxels} > {largest_face}")
+    # Through the manager's dispatch, and against the eager ingest.
+    streamed_mgr = VolSeg2DPredictionManager(
+        model_file, src, prediction_settings(lazy_ingest_threshold=below,
+                                             streaming_threshold=below), device=dev)
+    res["manager_streamed_equal"] = bool(np.array_equal(
+        streamed_mgr.predict_volume_to_path(None), medium_labels))
+    if not res["manager_streamed_equal"]:
+        failures.append("the manager's streamed MEDIUM differs from in-memory")
+    eager = VolSeg2DPredictionManager(model_file, src, prediction_settings(),
+                                      device=dev)
+    res["eager_vs_lazy"] = {
+        "label_agreement": float((eager.predict_volume_to_path(None)
+                                  == medium_labels).mean()),
+        "data_mean_rel_diff": abs(float(lazy_mgr.data_mean) / float(eager.data_mean)
+                                  - 1.0),
+    }
+    if not (res["eager_vs_lazy"]["label_agreement"] >= 0.995
+            and res["eager_vs_lazy"]["data_mean_rel_diff"] <= 1e-9):
+        failures.append(f"eager against lazy ingest: {res['eager_vs_lazy']}")
+    clipped = eager.data_vol
+    del lazy_mgr, streamed_mgr, eager, lazy, medium_labels
+    src.unlink()
+    torch.cuda.empty_cache()
+
+    # 2. Streaming overhead: MEDIUM on one 2P^3 uint8 ndarray, in memory
+    # and streamed (streaming_threshold below it).
+    big = np.tile(clipped, (2, 2, 2))
+    runs = {}
+    for name, more in (("in_memory", {}), ("streamed", {"streaming_threshold":
+                                                        big.size - 1})):
+        mgr = VolSeg2DPredictionManager(
+            model_file, big, prediction_settings(clip_data=False, **more),
+            device=dev)
+        seconds = []
+        for _ in range(2):  # the first run warms cuDNN and the pinned cache
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            labels = mgr.predict_volume_to_path(None)
+            seconds.append(time.perf_counter() - t0)
+        runs[name] = np.array(labels)
+        res[f"medium_{2 * P}_{name}_s"] = seconds
+        del mgr, labels
+    res[f"medium_{2 * P}_streamed_equal"] = bool(
+        np.array_equal(runs["streamed"], runs["in_memory"]))
+    if not res[f"medium_{2 * P}_streamed_equal"]:
+        failures.append(f"{2 * P}^3 MEDIUM streamed differs from in-memory")
+    del big, runs, clipped
+    torch.cuda.empty_cache()
+
+    # 3. model-predict-2d above the limit: the shipped settings as written
+    # on a (D, LARGE_SIDE, LARGE_SIDE) gzip HDF5 tiling of the raw volume.
+    shipped = root / "shipped"
+    (shipped / cfg.SETTINGS_DIR).mkdir(parents=True)
+    (shipped / cfg.SETTINGS_DIR / cfg.PREDICTION_SETTINGS_FN).write_text(
+        settings_text(cfg.PREDICTION_SETTINGS_FN))
+    limit = VolSeg2DPredictionManager(
+        model_file, vol[:4], prediction_settings(), device=dev
+    ).in_memory_limit_voxels(False)
+    face = LARGE_SIDE * LARGE_SIDE
+    depth = (int(LARGE_MARGIN * limit) // face // LARGE_STEP + 1) * LARGE_STEP
+    shape = (depth, LARGE_SIDE, LARGE_SIDE)
+    res["above_limit"] = r = {"shape": list(shape), "voxels": math.prod(shape),
+                              "in_memory_limit_voxels": limit}
+    big = shipped / "vessels_large.h5"
+    t0 = time.perf_counter()
+    hdf5.write(big, TiledVolume(vol, shape), chunks=True)
+    r["input_write_s"] = time.perf_counter() - t0
+    r["input_file_gb"] = big.stat().st_size / 1e9
+    r["free_gb_before"] = shutil.disk_usage(shipped).free / 1e9
+    managers, larges = [], []
+
+    class RecordedManager(predict_2d_model.VolSeg2DPredictionManager):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            managers.append(self)
+
+    class RecordedLarge(VolSegLargeVolPredictor):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.sweep_s, self.merge_s = [], []
+            larges.append(self)
+
+        def _predict_axis_streaming(self, *args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return super()._predict_axis_streaming(*args, **kwargs)
+            finally:
+                self.sweep_s.append(time.perf_counter() - t0)
+
+        def _merge_into(self, *args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return super()._merge_into(*args, **kwargs)
+            finally:
+                self.merge_s.append(time.perf_counter() - t0)
+
+    spans_of = ((base_data_utils, "streaming_nanmean", "lazy_mean_s"),
+                (base_data_utils, "streaming_nanstd", "lazy_std_s"),
+                (vol_seg_2d_predictor, "create_model_from_file", "checkpoint_load_s"),
+                (base_data_utils, "save_data_to_hdf5", "hdf5_write_s"))
+    saved = (predict_2d_model.VolSeg2DPredictionManager,
+             vol_seg_prediction_manager.VolSegLargeVolPredictor)
+    predict_2d_model.VolSeg2DPredictionManager = RecordedManager
+    vol_seg_prediction_manager.VolSegLargeVolPredictor = RecordedLarge
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    try:
+        with timed_spans(spans_of) as spans, host_peaks(shipped) as peaks:
+            t0 = time.perf_counter()
+            predict_2d_model.main([str(model_file), str(big), "--data_dir",
+                                   str(shipped)])
+            spans["main_s"] = time.perf_counter() - t0
+    finally:
+        (predict_2d_model.VolSeg2DPredictionManager,
+         vol_seg_prediction_manager.VolSegLargeVolPredictor) = saved
+    mgr, streamed = managers[0], larges[0]
+    r.update(spans)
+    r.update({
+        "sweeps_s": streamed.sweep_s, "merges_s": streamed.merge_s,
+        "other_s": spans["main_s"] - sum(v for k, v in spans.items() if k != "main_s")
+        - sum(streamed.sweep_s) - sum(streamed.merge_s),
+        "batch": mgr.predictor.batch_size, "slab": streamed.slab_size,
+        "peak_device_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+        "peak_host_rss_gib": peaks["rss_bytes"] / 2**30,
+        "workdir_peak_gb": streamed.peak_workdir_bytes / 1e9,
+        "min_free_gb_during": peaks["min_free_bytes"] / 1e9,
+        "free_gb_after": shutil.disk_usage(shipped).free / 1e9,
+        "inflated_chunks": getattr(mgr.data_vol, "inflated_chunks", None),
+        "chunks_in_file": math.prod(-(-n // c) for n, c in
+                                    zip(shape, mgr.input_data_chunking)),
+        "max_read_voxels": getattr(mgr.data_vol, "max_read_voxels", None),
+    })
+    lazy_ok = isinstance(mgr.data_vol, LazyHDF5Volume)
+    del mgr, streamed, managers, larges
+    out = predict_2d_model.create_output_path(shipped, big)
+    with hdf5.File(out) as f:
+        out_shape, out_dtype = f["/data"].shape, f["/data"].dtype
+    r["output_file_gb"] = out.stat().st_size / 1e9
+    t0 = time.perf_counter()
+    r["mean_iou"] = tiled_mean_iou(out, truth, dev, LARGE_STEP // 2)
+    r["mean_iou_s"] = time.perf_counter() - t0
+    if not lazy_ok:
+        failures.append("the large input was not ingested lazily")
+    if tuple(out_shape) != shape or out_dtype != np.uint8:
+        failures.append(f"large output {out_shape} {out_dtype}")
+    if not r["mean_iou"] >= 0.75:
+        failures.append(f"large MeanIoU {r['mean_iou']} < 0.75")
+    big.unlink()
+    out.unlink()
+    r["workdirs_left"] = [p.name for p in shipped.iterdir()
+                          if p.name.startswith("volseg_large_")]
+    if r["workdirs_left"]:
+        failures.append(f"workdirs left: {r['workdirs_left']}")
+    res["kernel_launches"] = {k: kernels.LAUNCHES[k] - launches_before[k]
+                              for k in kernels.LAUNCHES}
+    if any(res["kernel_launches"].values()):
+        failures.append(f"the large phase launched kernels {res['kernel_launches']}")
+    shutil.rmtree(root, ignore_errors=True)
+    res["failures"] = failures
+    print(json.dumps(res), flush=True)
+    return res
+
+
 def chrome_trace_kernels(path: Path) -> int:
     """CUDA kernel events in a Chrome trace that torch.profiler exported
     (an epoch's trace is hundreds of MB: counted in the text, not parsed)."""
@@ -1302,6 +1635,7 @@ def main() -> int:
         cli = cli_phase(dev, out_dir)
         losses = losses_phase(images, masks, dev)
         ckpt = checkpoint_phase(model_out, dev, out_dir)
+        large = large_phase(model_out, dev, out_dir)
         pretrained = pretrained_phase(model_out, dev, out_dir, cli)
     sweep = train_batch_sweep(images, masks, dev)
     counted = (summary, cli, losses, pretrained)
@@ -1314,7 +1648,8 @@ def main() -> int:
         for k, name, entry, source, replaces in KERNELS
     ]}
     failed = [k for k in kres if not kres[k]["ok"]] + [
-        f for phase in (summary, predicted, cli, losses, ckpt, pretrained, sweep)
+        f for phase in (summary, predicted, cli, losses, ckpt, large, pretrained,
+                        sweep)
         for f in phase["failures"]]
     if failed:
         print(json.dumps({"failed": failed}), file=sys.stderr)

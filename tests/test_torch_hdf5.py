@@ -221,3 +221,98 @@ def test_writer_nested_path_and_bad_input(tmp_path):
         hdf5.write(path, data, chunks=(8, 6, 8))
     with pytest.raises(ValueError, match="cannot write dtype"):
         hdf5.write(path, data.astype(bool))
+
+
+# ----------------------------------------------------------------------
+# Partial reads (h5py's basic selections)
+# ----------------------------------------------------------------------
+
+SELECTIONS = [
+    (), Ellipsis, 3, -1, np.int64(5), (slice(2, 9),), (slice(-5, None),),
+    (slice(0, 100),), (slice(9, 2),), (slice(None), 4), (slice(None), -3),
+    (slice(None), slice(None), slice(30, 33)), (1, 2, slice(3, 17)), (0, 0, 0),
+    (-1, -1, -1), (slice(4, 19), slice(8, 26), slice(5, 31)),
+    (slice(None), slice(26, 27), slice(None, None, 1)), (slice(7, 7), 3),
+]
+SMALL_SELECTIONS = [(), Ellipsis, 3, -1, (slice(1, 3),), (slice(3, 1),),
+                    (slice(None), 4), (1, 2, slice(3, 17)), (0, 0, 0),
+                    (-1, -1, -1), (slice(1, 3), slice(2, 4), slice(5, 6))]
+
+
+def partial_read_file(path, dtype=">f4"):
+    """Datasets of every layout, (20, 27, 33) unless noted: chunked with
+    edge chunks, shuffle+deflate, some chunks never written, contiguous,
+    never-written contiguous, and compact (4, 5, 6)."""
+    vol = volume(dtype)
+    with h5py.File(path, "w") as f:
+        f.create_dataset("edge", data=vol, chunks=(7, 10, 16), compression="gzip")
+        f.create_dataset("shuffle", data=vol, chunks=(5, 9, 11),
+                         compression="gzip", shuffle=True)
+        sparse = f.create_dataset("sparse", shape=SHAPE, dtype=dtype,
+                                  chunks=(8, 8, 8), fillvalue=3)
+        sparse[:9, 2:19, 5:7] = vol[:9, 2:19, 5:7]
+        f.create_dataset("contiguous", data=vol)
+        f.create_dataset("unwritten", shape=SHAPE, dtype=dtype, fillvalue=7)
+    fid = h5py.h5f.open(bytes(path), h5py.h5f.ACC_RDWR)
+    dcpl = h5py.h5p.create(h5py.h5p.DATASET_CREATE)
+    dcpl.set_layout(h5py.h5d.COMPACT)
+    ds = h5py.h5d.create(fid, b"compact", h5py.h5t.STD_I16BE,
+                         h5py.h5s.create_simple((4, 5, 6)), dcpl=dcpl)
+    ds.write(h5py.h5s.ALL, h5py.h5s.ALL, volume("<i2", (4, 5, 6)))
+    ds.close()
+    fid.close()
+    return path
+
+
+@pytest.mark.parametrize("name", ["edge", "shuffle", "sparse", "contiguous",
+                                  "unwritten", "compact"])
+@pytest.mark.parametrize("dtype", [">f4", "<u2"])
+def test_partial_reads_equal_h5py(tmp_path, name, dtype):
+    path = partial_read_file(tmp_path / "p.h5", dtype)
+    with h5py.File(path, "r") as f, hdf5.File(path) as ours:
+        ref_ds, ds = f[name], ours[name]
+        assert (ds.shape, ds.size, ds.ndim) == (ref_ds.shape, ref_ds.size,
+                                                ref_ds.ndim)
+        for sel in SMALL_SELECTIONS if name == "compact" else SELECTIONS:
+            ref, got = ref_ds[sel], ds[sel]
+            assert type(got) is type(ref), sel
+            assert np.shape(got) == np.shape(ref), sel
+            np.testing.assert_array_equal(got, ref)
+            if isinstance(got, np.ndarray):
+                assert got.dtype == ref.dtype.newbyteorder("=")
+                assert got.flags.writeable and got.flags.c_contiguous
+
+
+def test_partial_reads_inflate_only_the_chunks_they_meet(tmp_path):
+    path = partial_read_file(tmp_path / "p.h5")
+    with hdf5.File(path) as f:
+        ds = f["edge"]  # chunks (7, 10, 16) over (20, 27, 33): 3 x 3 x 3
+        ds[0:7, 0:10, 0:16]
+        assert ds.inflated_chunks == 1
+        ds[6:8]  # two chunk rows along Z
+        assert ds.inflated_chunks == 1 + 2 * 9
+        ds[:, 26]  # one chunk row along Y
+        assert ds.inflated_chunks == 19 + 9
+        ds[5:5]  # empty: nothing
+        assert ds.inflated_chunks == 28
+        sparse = f["sparse"]  # chunks never written are not inflated
+        np.testing.assert_array_equal(sparse[16:20], 3)
+        assert sparse.inflated_chunks == 0
+
+
+def test_partial_read_refusals_and_errors_name_the_feature(tmp_path):
+    path = partial_read_file(tmp_path / "p.h5")
+    with hdf5.File(path) as f:
+        ds = f["edge"]
+        for sel, feature in (((slice(0, 8, 2),), "step"),
+                             ((slice(None, None, -1),), "step"),
+                             (([0, 1],), "fancy"), ((np.array([1, 2]),), "fancy"),
+                             ((True,), "boolean"), ((Ellipsis, 1), "Ellipsis")):
+            with pytest.raises(NotImplementedError, match=feature):
+                ds[sel]
+        with pytest.raises(IndexError):
+            ds[20]
+        with pytest.raises(IndexError):
+            ds[:, -28]
+        with pytest.raises(ValueError, match="4 indexing arguments"):
+            ds[0, 0, 0, 0]

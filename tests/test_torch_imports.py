@@ -47,7 +47,8 @@ def test_every_module_imports_and_no_kernel_is_built():
             in names)
     for module in ("scripts.train_2d_model", "scripts.predict_2d_model",
                    "utils.hdf5", "utils.yaml_settings", "data.slicers",
-                   "utils.flax_msgpack", "models.pretrained"):
+                   "utils.flax_msgpack", "models.pretrained", "utils.host_memory",
+                   "model.operations.vol_seg_large_predictor"):
         assert f"volume_segmantics_tpu_torch.{module}" in names
     for name in names:
         importlib.import_module(name)

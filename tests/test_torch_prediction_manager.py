@@ -1,6 +1,6 @@
 """The PyTorch `VolSeg2DPredictionManager` on the CPU: dispatch by quality
-and one-hot, the settings check, HDF5 input and output files, the case the
-port does not cover yet (volumes above the in-memory limit), the CUDA
+and one-hot, the settings check, HDF5 input and output files, streaming
+above the in-memory limit (more in test_torch_large_predictor.py), the CUDA
 default and the prediction batch. Parity of its results with the JAX
 package is in test_torch_predictor.py."""
 
@@ -88,15 +88,34 @@ def test_an_output_path_is_not_ported(ckpt2, vol, tmp_path, one_hot,
     assert asked[-1:] == ([False] if not one_hot else [])
 
 
-def test_volumes_above_the_in_memory_limit_are_not_ported(ckpt2, vol):
+def test_volumes_above_the_in_memory_limit_are_not_ported(ckpt2, vol,
+                                                          monkeypatch):
+    """Above the in-memory limit the manager streams through the slab
+    predictor (prediction-batch slabs), with the in-memory path's labels;
+    at the limit it predicts in memory."""
+    from volume_segmantics_tpu_torch.model.operations import (
+        vol_seg_prediction_manager as vpm,
+    )
+
+    made = []
+
+    class Recorded(vpm.VolSegLargeVolPredictor):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            made.append(self)
+
+    monkeypatch.setattr(vpm, "VolSegLargeVolPredictor", Recorded)
     manager = VolSeg2DPredictionManager(
         ckpt2, vol, predict_settings(quality="low",
                                      streaming_threshold=vol.size - 1),
         device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        manager.predict_volume_to_path(None)
+    streamed = manager.predict_volume_to_path(None)
+    assert len(made) == 1 and made[0].slab_size == manager.predictor.batch_size
+    assert isinstance(streamed, np.memmap)
     manager.settings.streaming_threshold = vol.size
-    assert manager.predict_volume_to_path(None).shape == SHAPE
+    in_memory = manager.predict_volume_to_path(None)
+    assert len(made) == 1 and in_memory.shape == SHAPE
+    np.testing.assert_array_equal(streamed, in_memory)
 
 
 def test_in_memory_limit_from_device_memory(ckpt2, vol):

@@ -13,8 +13,10 @@ Ported so far: both console entry points (`scripts.train_2d_model`,
 read and write (`utils.yaml_settings`, `utils.hdf5`: the port's own
 readers, no PyYAML or h5py); the training path (`data.TrainingDataSlicer`,
 `model.VolSeg2dTrainer`, U-Net/ResNet-34, Dice loss and MeanIoU); and
-in-memory 3-D prediction (`model.VolSeg2DPredictionManager`, at every
-quality, max-prob or one-hot), which launches none of the kernels.
+3-D prediction (`model.VolSeg2DPredictionManager`, at every quality,
+max-prob or one-hot), in the GPU's memory or, for volumes beyond it,
+slab-streamed from a lazily read HDF5 file into host memmaps; prediction
+launches none of the kernels.
 """
 
 __version__ = "0.1.0"

@@ -21,6 +21,9 @@ class TrainingDataSlicer(BaseDataManager):
     """Preprocesses a data volume + label volume pair and slices both along
     the z/y/x axes (or a single axis) into 2D images."""
 
+    # Slicing needs the whole volume in memory (JAX data/slicers.py:31).
+    ALLOW_LAZY_INGEST = False
+
     def __init__(
         self,
         data_vol: Union[str, Path, np.ndarray],

@@ -15,8 +15,10 @@ reference's 12 (rotation, axis) sweeps four repeat an earlier one, so
 max-prob merging may drop them and one-hot voting counts them twice (see
 `_twelve_way_sweeps`).
 
-Not ported, because both served the TPU's slow host link and change no
-result: bit-packing the labels for download and the slab-pipelined upload.
+Volumes larger than the GPU's memory stream through `_sweep_slab` a slab
+at a time (vol_seg_large_predictor.py). Not ported, because both served the
+TPU's slow host link and change no result: bit-packing the labels for
+download and the slab-pipelined upload of an in-memory volume.
 """
 
 import logging
@@ -33,6 +35,9 @@ from volume_segmantics_tpu_torch.model.model_2d import create_model_from_file
 from volume_segmantics_tpu_torch.parallel.train import autocast, normalise
 from volume_segmantics_tpu_torch.utils.base_data_utils import Axis
 from volume_segmantics_tpu_torch.utils.device import resolve_device
+from volume_segmantics_tpu_torch.utils.host_memory import (
+    tune_malloc_for_large_buffers,
+)
 
 
 def _reflect101_indices(start: int, stop: int, size: int) -> np.ndarray:
@@ -64,6 +69,9 @@ class VolSeg2dPredictor:
 
     def __init__(self, model_file_path, settings: SimpleNamespace,
                  device=None) -> None:
+        # Whole-volume label/prob outputs and slab buffers are allocated per
+        # call; keep freed pages in-process (utils/host_memory.py).
+        tune_malloc_for_large_buffers()
         self.model_file_path = Path(model_file_path)
         self.settings = settings
         self.device = resolve_device(device)
@@ -145,6 +153,21 @@ class VolSeg2dPredictor:
         labels = labels[:, top:top + h, left:left + w]
         probs = probs[:, top:top + h, left:left + w]
         return _rotate_to_axis(labels, axis), _rotate_to_axis(probs, axis)
+
+    @torch.inference_mode()
+    def _sweep_slab(self, raw: torch.Tensor, perm, flips):
+        """Sweep a device slab that keeps the source volume's axis order
+        (JAX predictor `_sweep_slab_device`): view axis i draws from source
+        axis perm[i], reversed where flips[i]; the transpose and flips run
+        on the device, then the slab is swept along its leading axis.
+        Returns (labels uint8, max probs float16) in the view orientation.
+        The streaming predictor (vol_seg_large_predictor.py) reads every
+        TTA frame's slabs with basic slicing this way."""
+        view = raw.permute(*perm)
+        dims = [ax for ax, f in enumerate(flips) if f]
+        if dims:
+            view = view.flip(dims)
+        return self._axis_sweep(view, Axis.Z)
 
     def _three_way_sweeps(self, vol: torch.Tensor):
         """Z, Y and X sweeps in the reference's merge order (reference
@@ -255,7 +278,12 @@ class VolSeg2dPredictor:
 
     def _to_device_u8(self, data_vol) -> torch.Tensor:
         """Host volume -> uint8 device tensor (values cast as numpy's
-        astype(np.uint8) does)."""
+        astype(np.uint8) does); a uint8 tensor already on the device (a lazy
+        source the manager assembled there) is taken as it is."""
+        if isinstance(data_vol, torch.Tensor):
+            if data_vol.dtype != torch.uint8:
+                raise ValueError(f"a volume tensor must be uint8, got {data_vol.dtype}")
+            return data_vol.to(self.device)
         arr = np.asarray(data_vol)
         if arr.dtype != np.uint8:
             arr = arr.astype(np.uint8)

@@ -52,6 +52,9 @@ from volume_segmantics_tpu_torch.parallel.train import (
 )
 from volume_segmantics_tpu_torch.utils.device import resolve_device
 from volume_segmantics_tpu_torch.utils.early_stopping import EarlyStopping
+from volume_segmantics_tpu_torch.utils.host_memory import (
+    tune_malloc_for_large_buffers,
+)
 
 
 def is_frozen_parameter(name: str) -> bool:
@@ -78,6 +81,9 @@ class VolSeg2dTrainer:
     def __init__(self, data_slices, label_slices, labels: Union[int, dict],
                  settings: SimpleNamespace, device=None):
         require_settings(settings, self.REQUIRED_SETTINGS, "training")
+        # Slice stacks and epoch shuffles churn large host buffers; keep
+        # freed pages in-process (utils/host_memory.py).
+        tune_malloc_for_large_buffers()
         self.device = resolve_device(device)
         # One seed, three independent streams: data split and order, model
         # initialisation, and on-device augmentation.

@@ -1,8 +1,11 @@
 """Prediction manager: preprocessing + predictor + quality dispatch + HDF5
 (port of the JAX package's `model/operations/vol_seg_prediction_manager.py`,
-reference volume_segmantics/model/operations/vol_seg_prediction_manager.py:12-100)
-for volumes that fit in the GPU's memory. The slab-streaming predictor for
-larger volumes is not ported yet."""
+reference volume_segmantics/model/operations/vol_seg_prediction_manager.py:12-100).
+
+A volume within the in-memory limit (from the GPU's memory) is predicted
+on the GPU whole; a lazy HDF5 source of that size is first assembled there
+slab by slab. A larger one streams through the slab predictor
+(vol_seg_large_predictor.py) into host memmaps. One GPU only."""
 
 import logging
 import os
@@ -19,6 +22,9 @@ from volume_segmantics_tpu_torch.data.base_data_manager import BaseDataManager
 from volume_segmantics_tpu_torch.data.settings_data import require_settings
 from volume_segmantics_tpu_torch.model.operations.vol_seg_2d_predictor import (
     VolSeg2dPredictor,
+)
+from volume_segmantics_tpu_torch.model.operations.vol_seg_large_predictor import (
+    VolSegLargeVolPredictor,
 )
 
 
@@ -64,6 +70,53 @@ class VolSeg2DPredictionManager(BaseDataManager):
         )
         return int(total * cfg.IN_MEMORY_PREDICT_SHARE / per_voxel)
 
+    def _upload_lazy_to_device(self, vol) -> torch.Tensor:
+        """Assemble a lazy (basic-sliceable) volume into one preallocated
+        uint8 tensor on the device, reading and transforming a slab at a
+        time: host memory stays O(slab) and the device holds the volume
+        once (no concatenate)."""
+        logging.info(f"Uploading lazy volume {tuple(vol.shape)} to the device "
+                     "slab by slab for in-memory prediction.")
+        slab = self._streaming_slab_size()
+        out = torch.empty(tuple(vol.shape), dtype=torch.uint8,
+                          device=self.predictor.device)
+        for start in range(0, vol.shape[0], slab):
+            part = np.asarray(vol[start:start + slab])
+            if part.dtype != np.uint8:
+                part = part.astype(np.uint8)
+            out[start:start + slab].copy_(torch.from_numpy(part))
+        return out
+
+    def _streaming_slab_size(self) -> int:
+        """The `streaming_slab_size` setting, else the prediction batch
+        (so that streamed batches are the in-memory path's)."""
+        value = getattr(self.settings, "streaming_slab_size", None)
+        return int(value or self.predictor.batch_size)
+
+    def _predict_streaming(self, output_path, quality, one_hot, axis,
+                           want_probs):
+        """(prediction, probs or None) from VolSegLargeVolPredictor, as
+        views over memmaps in a temporary directory beside `output_path`
+        (the system's when there is none). The directory goes with the
+        streaming predictor when this returns; the files' space comes back
+        once the results are dropped."""
+        large = VolSegLargeVolPredictor(
+            self.predictor, slab_size=self._streaming_slab_size(),
+            temp_parent=None if output_path is None else Path(output_path).parent)
+        vol = self.data_vol
+        if one_hot:
+            if quality == utils.Quality.LOW:
+                return large.predict_single_axis_one_hot(vol, axis=axis), None
+            if quality == utils.Quality.MEDIUM:
+                return large.predict_3_ways_one_hot(vol), None
+            return large.predict_12_ways_one_hot(vol), None
+        if quality == utils.Quality.LOW:
+            return large.predict_single_axis(vol, axis=axis,
+                                             output_probs=want_probs)
+        if quality == utils.Quality.MEDIUM:
+            return large.predict_3_ways(vol)
+        return large.predict_12_ways(vol)
+
     def predict_volume_to_path(self, output_path: Union[Path, None],
                                quality=None) -> np.ndarray:
         """Predict a 3D segmentation at the requested quality and return it:
@@ -71,7 +124,11 @@ class VolSeg2DPredictionManager(BaseDataManager):
         manager :43-100). With an `output_path` it is also written to gzip
         HDF5 with the input's chunking, and, when `output_probs` is set, the
         float16 max-probabilities to `<stem>_probs.h5` beside it; only then
-        are the probabilities downloaded."""
+        are the probabilities downloaded in-memory.
+
+        Above `in_memory_limit_voxels` the volume streams through the slab
+        predictor and the result is a view over a memmap; the HDF5 writer
+        reads it a chunk at a time."""
         one_hot = self.settings.one_hot
         preferred_axis = utils.get_prediction_axis(self.settings)
         if preferred_axis == utils.Axis.ALL:
@@ -81,44 +138,49 @@ class VolSeg2DPredictionManager(BaseDataManager):
             )
         if quality is None:
             quality = utils.get_prediction_quality(self.settings)
-        limit = self.in_memory_limit_voxels(one_hot)
-        if self.data_vol.size > limit:
-            raise NotImplementedError(
-                f"Volume has {self.data_vol.size} voxels (> {limit}, the "
-                "in-memory limit on this device); the slab-streaming "
-                "predictor for larger volumes is not ported to PyTorch yet "
-                "(see ROADMAP.md)."
-            )
-        logging.info(f"Predicting at {quality.name} quality.")
-        predictor = self.predictor
         want_probs = output_path is not None and bool(self.settings.output_probs)
-        probs = None
-        if one_hot:
-            if quality == utils.Quality.LOW:
-                prediction = predictor._predict_single_axis_to_one_hot(
-                    self.data_vol, axis=preferred_axis)
-            elif quality == utils.Quality.MEDIUM:
-                prediction = predictor._predict_3_ways_one_hot(self.data_vol)
-            else:
-                prediction = predictor._predict_12_ways_one_hot(self.data_vol)
-        elif quality == utils.Quality.LOW:
-            prediction, probs = predictor._predict_single_axis(
-                self.data_vol, output_probs=want_probs, axis=preferred_axis)
-        elif quality == utils.Quality.MEDIUM:
-            prediction, probs = predictor._predict_3_ways_max_probs(
-                self.data_vol, output_probs=want_probs)
+        limit = self.in_memory_limit_voxels(one_hot)
+        data_vol = self.data_vol
+        if data_vol.size > limit:
+            logging.info(f"Volume has {data_vol.size} voxels (> {limit}, the "
+                         "in-memory limit); using the slab-streaming predictor "
+                         f"at {quality.name} quality.")
+            prediction, probs = self._predict_streaming(
+                output_path, quality, one_hot, preferred_axis, want_probs)
         else:
-            prediction, probs = predictor._predict_12_ways_max_probs(
-                self.data_vol, output_probs=want_probs)
+            if not isinstance(data_vol, np.ndarray):
+                data_vol = self._upload_lazy_to_device(data_vol)
+            logging.info(f"Predicting at {quality.name} quality.")
+            prediction, probs = self._predict_in_memory(
+                data_vol, quality, one_hot, preferred_axis, want_probs)
         if output_path is not None:
             output_path = Path(output_path)
             utils.save_data_to_hdf5(
                 prediction, output_path, chunking=self.input_data_chunking
             )
-            if probs is not None:
+            if want_probs and probs is not None:
                 utils.save_data_to_hdf5(
                     probs,
                     f"{output_path.parent / output_path.stem}_probs.h5",
                     chunking=self.input_data_chunking,
                 )
         return prediction
+
+    def _predict_in_memory(self, data_vol, quality, one_hot, axis, want_probs):
+        """(prediction, probs or None) from the in-memory predictor."""
+        predictor = self.predictor
+        if one_hot:
+            if quality == utils.Quality.LOW:
+                return predictor._predict_single_axis_to_one_hot(
+                    data_vol, axis=axis), None
+            if quality == utils.Quality.MEDIUM:
+                return predictor._predict_3_ways_one_hot(data_vol), None
+            return predictor._predict_12_ways_one_hot(data_vol), None
+        if quality == utils.Quality.LOW:
+            return predictor._predict_single_axis(
+                data_vol, output_probs=want_probs, axis=axis)
+        if quality == utils.Quality.MEDIUM:
+            return predictor._predict_3_ways_max_probs(
+                data_vol, output_probs=want_probs)
+        return predictor._predict_12_ways_max_probs(
+            data_vol, output_probs=want_probs)

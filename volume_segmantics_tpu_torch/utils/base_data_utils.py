@@ -1,12 +1,13 @@
 """Enums, batch sizing, volume file I/O and host-side volume preprocessing
 (the subset of the JAX package's `utils/base_data_utils.py` that training,
-in-memory prediction and both CLIs read). The array math is numpy on the
+prediction, lazy HDF5 ingest and both CLIs read). The array math is numpy on the
 host, copied so that results equal the JAX package's bit for bit. HDF5 goes
 through the port's own reader and writer (`utils/hdf5.py`)."""
 
 import logging
 import pathlib
 import sys
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from enum import Enum
 from itertools import chain, product
@@ -182,6 +183,122 @@ def downsample_data(data: np.ndarray, factor: int = 2) -> np.ndarray:
 # the GIL on large array ops).
 CLIP_STREAM_THRESHOLD_VOXELS = 512**3
 _CLIP_SLAB_SLICES = 64
+# Slab statistics run at most this many slabs at once: each holds ~18 bytes
+# a voxel of float64 temporaries (4.8 GB for 64 slices of 2048 x 2048).
+STATS_WORKERS = 4
+# The read-time transform of a lazy volume runs over parts of at most this
+# many voxels in a thread pool (128 MB of float64 a part).
+TRANSFORM_PART_VOXELS = 1 << 24
+
+
+def _slab_results(fn, n: int, slab_slices: int) -> list:
+    """[fn(start) for each slab start], in slab order, computed on up to
+    STATS_WORKERS threads (numpy releases the GIL on large ufuncs)."""
+    with ThreadPoolExecutor(max_workers=STATS_WORKERS) as pool:
+        return list(pool.map(fn, range(0, n, slab_slices)))
+
+
+def _exact_in_float64(x: np.ndarray) -> bool:
+    """Whether `x` holds 8- or 16-bit unsigned integers whose float64 sum
+    is exact: every partial sum of non-negative integers below 2**53 is a
+    float64, so the float64 sum in any order, numpy's pairwise one
+    included, equals the integer sum bit for bit."""
+    return (x.dtype.kind == "u" and x.dtype.itemsize <= 2
+            and x.size * np.iinfo(x.dtype).max < 2**53)
+
+
+def streaming_nanmean(vol, slab_slices: int = 64) -> float:
+    """Slab-streamed NaN-ignoring mean over any basic-sliceable volume
+    (float64 accumulation; numerically the two-pass np.nanmean layout).
+    The per-slab sums run on a thread pool and are added in slab order,
+    bit-identical to the JAX package's serial function; a slab of 8- or
+    16-bit unsigned integers is summed exactly in integers (equal to its
+    float64 sum, see `_exact_in_float64`)."""
+
+    def moments(start):
+        x = np.asarray(vol[start:start + slab_slices])
+        if _exact_in_float64(x):
+            return float(x.sum(dtype=np.uint64)), x.size
+        x = np.asarray(x, dtype=np.float64)
+        nan_mask = np.isnan(x)
+        return float(np.where(nan_mask, 0.0, x).sum()), int(x.size - nan_mask.sum())
+
+    total = 0.0
+    n_valid = 0
+    for part, count in _slab_results(moments, vol.shape[0], slab_slices):
+        total += part
+        n_valid += count
+    return total / max(n_valid, 1)
+
+
+def streaming_nanstd(vol, mean: float, slab_slices: int = 64) -> float:
+    """Slab-streamed NaN-ignoring standard deviation about `mean`. The
+    per-slab moments run on a thread pool; the reduction stays in slab
+    order, so the result is bit-identical to the serial path. A slab of 8-
+    or 16-bit unsigned integers takes each voxel's squared deviation from
+    a table over the type's values: the same float64 array, summed the
+    same way, without the float passes over the slab."""
+
+    def moments(start):
+        x = np.asarray(vol[start:start + slab_slices])
+        if x.dtype.kind == "u" and x.dtype.itemsize <= 2:
+            d = np.arange(np.iinfo(x.dtype).max + 1, dtype=np.float64) - mean
+            return float((d * d)[x].sum()), x.size
+        x = np.asarray(x, dtype=np.float64)
+        nan_mask = np.isnan(x)
+        d = np.where(nan_mask, mean, x) - mean
+        return float((d * d).sum()), int(x.size - nan_mask.sum())
+
+    results = _slab_results(moments, vol.shape[0], slab_slices)
+    sq_sum = sum(r[0] for r in results)
+    n_valid = sum(r[1] for r in results)
+    return float(np.sqrt(sq_sum / max(n_valid, 1)))
+
+
+def make_clip_to_uint8_transform(data_mean: float, data_st_dev: float,
+                                 st_dev_factor: float):
+    """Per-chunk clip/rescale closure with clip_to_uint8's exact per-voxel
+    numerics (NaN -> mean, integer promotion to float64, in-place float
+    ops) and precomputed global bounds: the one per-voxel function of the
+    slab-streamed clip and of a lazy volume's read-time transform."""
+    lower_bound = data_mean - (data_st_dev * st_dev_factor)
+    upper_bound = data_mean + (data_st_dev * st_dev_factor)
+    logging.info(f"Lower bound: {lower_bound}, upper bound: {upper_bound}")
+
+    def transform(chunk: np.ndarray) -> np.ndarray:
+        x = np.nan_to_num(chunk, copy=True, nan=data_mean)
+        if np.issubdtype(x.dtype, np.integer):
+            x = x.astype(float)
+        x = np.clip(x, lower_bound, upper_bound, out=x)
+        x = np.subtract(x, lower_bound, out=x)
+        x = np.divide(x, (upper_bound - lower_bound), out=x)
+        x = np.clip(x, 0.0, 1.0, out=x)
+        x = np.multiply(x, 255, out=x)
+        return x.astype(np.uint8)
+
+    return transform
+
+
+def streaming_downsample_to_memmap(vol, out_path, slab_slices: int = 64):
+    """Slab-streamed 2x block-mean downsample into a float64 memmap
+    (bounded host memory; lazy-ingest counterpart of downsample_data).
+
+    float64 keeps the stored block means bit-identical to the eager
+    `downsample_data` path, so downstream clip_to_uint8 quantisation cannot
+    differ by a gray level at rounding boundaries. The memmap is disk-backed
+    and 1/8 the source voxel count, so 8-byte elements cost the same bytes
+    as a uint8 copy of the source volume."""
+    z, y, x = vol.shape
+    out_shape = ((z + 1) // 2, (y + 1) // 2, (x + 1) // 2)
+    out = np.lib.format.open_memmap(
+        out_path, mode="w+", shape=out_shape, dtype=np.float64
+    )
+    slab_slices += slab_slices % 2  # keep slabs aligned to slice pairs
+    for start in range(0, z, slab_slices):
+        stop = min(start + slab_slices, z)
+        chunk = np.asarray(vol[start:stop])
+        out[start // 2: (stop + 1) // 2] = downsample_data(chunk)
+    return out
 
 
 def _clip_to_uint8_streaming(
@@ -197,38 +314,23 @@ def _clip_to_uint8_streaming(
         slice(i, min(i + _CLIP_SLAB_SLICES, data.shape[0]))
         for i in range(0, data.shape[0], _CLIP_SLAB_SLICES)
     ]
-
-    def moments(sl):
-        x = np.asarray(data[sl], dtype=np.float64)
-        nan_mask = np.isnan(x)
-        d = np.where(nan_mask, data_mean, x) - data_mean
-        return float((d * d).sum()), int(x.size - nan_mask.sum())
-
-    with ThreadPoolExecutor() as pool:
-        results = list(pool.map(moments, slabs))
-    sq_sum = sum(r[0] for r in results)
-    n_valid = sum(r[1] for r in results)
-    data_st_dev = float(np.sqrt(sq_sum / max(n_valid, 1)))
+    data_st_dev = streaming_nanstd(data, data_mean, _CLIP_SLAB_SLICES)
     lower_bound = data_mean - (data_st_dev * st_dev_factor)
     upper_bound = data_mean + (data_st_dev * st_dev_factor)
-    logging.info(f"Lower bound: {lower_bound}, upper bound: {upper_bound}")
+    # Per-voxel numerics shared with the lazy read-time transform, which
+    # mirrors the eager clip_to_uint8 op sequence exactly, so outputs cannot
+    # depend on which ingest path a volume took.
+    transform = make_clip_to_uint8_transform(
+        data_mean, data_st_dev, st_dev_factor
+    )
     out = np.empty(data.shape, np.uint8)
 
     def convert(sl):
-        # clip_to_uint8's per-voxel op sequence, a slab at a time.
         x = data[sl]
         with np.errstate(invalid="ignore"):
             gt_ub = int((x > upper_bound).sum())
             lt_lb = int((x < lower_bound).sum())
-        x = np.nan_to_num(x, copy=True, nan=data_mean)
-        if np.issubdtype(x.dtype, np.integer):
-            x = x.astype(float)
-        x = np.clip(x, lower_bound, upper_bound, out=x)
-        x = np.subtract(x, lower_bound, out=x)
-        x = np.divide(x, (upper_bound - lower_bound), out=x)
-        x = np.clip(x, 0.0, 1.0, out=x)
-        x = np.multiply(x, 255, out=x)
-        out[sl] = x.astype(np.uint8)
+        out[sl] = transform(x)
         return gt_ub, lt_lb
 
     with ThreadPoolExecutor() as pool:
@@ -319,6 +421,96 @@ def numpy_from_hdf5(path, hdf5_path: str = "/data", nexus: bool = False):
     with hdf5.File(path) as data_handle:
         dataset = _resolve_hdf5_dataset(data_handle, hdf5_path, nexus)
         return dataset[()], dataset.chunks
+
+
+def _transform_in_parts(transform, chunk: np.ndarray, out_dtype) -> np.ndarray:
+    """An elementwise `transform` of `chunk`, run over axis-0 parts of at
+    most TRANSFORM_PART_VOXELS voxels in a thread pool into one `out_dtype`
+    array: equal to ``transform(chunk)`` element for element."""
+    rows = max(1, TRANSFORM_PART_VOXELS // max(1, chunk[:1].size))
+    if out_dtype is None or chunk.ndim == 0 or chunk.shape[0] <= rows:
+        return transform(chunk)
+    out = np.empty(chunk.shape, out_dtype)
+
+    def run(start):
+        out[start:start + rows] = transform(chunk[start:start + rows])
+
+    with ThreadPoolExecutor() as pool:
+        list(pool.map(run, range(0, chunk.shape[0], rows)))
+    return out
+
+
+class LazyHDF5Volume:
+    """Basic-sliceable lazy view over an HDF5 dataset with an optional
+    per-chunk transform (clip-to-uint8 / NaN scrub) applied at READ time.
+
+    Duck-types the ndarray subset the streaming predictor uses (shape /
+    ndim / size / dtype / __getitem__ with basic slices), so volumes larger
+    than host memory flow through the public prediction-manager API without
+    ever materialising: preprocessing happens slab by slab as the sweeps
+    consume input. The transform acts voxel by voxel; it runs over parts of
+    a read in a thread pool, and for an 8- or 16-bit unsigned source it is
+    tabulated once over the type's values and looked up. `max_read_voxels`
+    records the largest single read (tests pin peak ingest memory at
+    O(slab) with it); `inflated_chunks` counts the chunks the reads
+    inflated."""
+
+    def __init__(self, path, hdf5_path: str = "/data", nexus: bool = False,
+                 transform=None, out_dtype=None):
+        self._file = hdf5.File(path)
+        try:
+            self._ds = _resolve_hdf5_dataset(self._file, hdf5_path, nexus)
+        except BaseException:
+            self._file.close()
+            raise
+        self._lock = threading.Lock()
+        self.max_read_voxels = 0
+        self.chunks = self._ds.chunks
+        self.set_transform(transform, out_dtype)
+
+    @property
+    def shape(self):
+        return self._ds.shape
+
+    @property
+    def ndim(self):
+        return self._ds.ndim
+
+    @property
+    def size(self):
+        return self._ds.size
+
+    @property
+    def dtype(self):
+        return self._out_dtype if self._out_dtype is not None else self._ds.dtype
+
+    @property
+    def inflated_chunks(self) -> int:
+        return self._ds.inflated_chunks
+
+    def set_transform(self, transform, out_dtype=None):
+        self._transform = transform
+        self._out_dtype = np.dtype(out_dtype) if out_dtype is not None else None
+        src = self._ds.dtype
+        if transform is not None and src.kind == "u" and src.itemsize <= 2:
+            table = transform(np.arange(np.iinfo(src).max + 1, dtype=src))
+            self._transform = table.__getitem__
+
+    def __getitem__(self, sel):
+        chunk = self._ds[sel]
+        with self._lock:
+            self.max_read_voxels = max(self.max_read_voxels, int(np.size(chunk)))
+        if self._transform is not None:
+            chunk = _transform_in_parts(self._transform, chunk, self._out_dtype)
+        return chunk
+
+    def close(self):
+        self._file.close()
+
+    def __del__(self):  # best-effort cleanup
+        file = getattr(self, "_file", None)
+        if file is not None:
+            file.close()
 
 
 def get_numpy_from_path(

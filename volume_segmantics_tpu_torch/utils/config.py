@@ -76,8 +76,10 @@ COMPUTE_DTYPE = "bfloat16"  # autocast dtype of the forward pass; params stay fp
 # 32, less the batch's share; PERF.md), plus the one-hot vote volume (C
 # bytes a voxel) when votes are asked for. A volume predicts in memory
 # while that fits in IN_MEMORY_PREDICT_SHARE of the card's memory, leaving
-# the rest to the forward pass's working set; larger volumes need the
-# slab-streaming predictor, which the port does not have yet. The JAX
-# package's thresholds were set for a 16 GB TPU chip and are not used.
+# the rest to the forward pass's working set; a larger one streams through
+# the slab predictor (model/operations/vol_seg_large_predictor.py), whose
+# device memory does not grow with the volume's depth. The
+# `streaming_threshold` setting replaces the limit. The JAX package's
+# thresholds were set for a 16 GB TPU chip and are not used.
 PREDICT_BYTES_PER_VOXEL = 12
 IN_MEMORY_PREDICT_SHARE = 0.5

@@ -9,9 +9,12 @@ bytes) datatypes in either byte order; contiguous, compact and chunked
 layouts, chunks found through the version 1 B-tree, partial edge chunks
 and chunks never written (these take the fill value); and the deflate and
 shuffle filters. It returns arrays in native byte order, and `chunks` as
-h5py's ``dataset.chunks`` gives them. Every other feature raises
-NotImplementedError naming it; a path that is not in the file raises
-KeyError, as h5py does.
+h5py's ``dataset.chunks`` gives them. ``ds[sel]`` takes h5py's basic
+selections (ints and step-1 slices): a chunked dataset indexes its chunks
+once and inflates only those that meet the selection, so a volume larger
+than host memory is read a slab at a time. Every other feature (steps,
+fancy indexing, an Ellipsis inside a tuple) raises NotImplementedError
+naming it; a path that is not in the file raises KeyError, as h5py does.
 
 The writer makes what ``h5py.File(p, "w").create_dataset(path, data=...,
 chunks=..., compression="gzip")`` makes: superblock version 0, one chunked,
@@ -25,6 +28,7 @@ import itertools
 import math
 import mmap
 import struct
+import threading
 import zlib
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -232,8 +236,10 @@ class File:
 
 
 class Dataset:
-    """One dataset of a `File`: `shape`, `dtype` (native byte order),
-    `chunks` (None unless chunked) and `ds[()]`, the whole array."""
+    """One dataset of a `File`: `shape`, `size`, `ndim`, `dtype` (native
+    byte order), `chunks` (None unless chunked), and `ds[sel]` for h5py's
+    basic selections (`ds[()]` is the whole array). `inflated_chunks`
+    counts the chunks its reads have inflated."""
 
     def __init__(self, file: File, addr: int, name: str):
         self._f = file
@@ -255,6 +261,9 @@ class Dataset:
                          if MSG_FILTERS in msgs else [])
         self._fill = self._fill_value(msgs)
         self._layout(msgs[MSG_LAYOUT][0][1])
+        self._index = None  # chunk offset -> storage, read at the first read
+        self._lock = threading.Lock()
+        self.inflated_chunks = 0  # chunks inflated by this object's reads
 
     def _dataspace(self, d) -> tuple:
         u, buf = self._f._u, self._f._buf
@@ -355,54 +364,132 @@ class Dataset:
             raise unsupported("virtual dataset layout")
         self._layout_class = cls
 
-    def _raw(self, offset, size) -> np.ndarray:
-        """A writable, native-order copy of `size` bytes at `offset`."""
-        return np.frombuffer(self._f._buf[offset:offset + size],
-                             self._stored).reshape(self.shape).astype(self.dtype)
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape)
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+    def _selection(self, key):
+        """h5py's basic selection: ([(start, stop)] a dimension, the
+        result's shape). `key` is (), Ellipsis, or an int, a step-1 slice or
+        a tuple of them, negative and empty ranges as numpy takes them."""
+        if key is Ellipsis:
+            key = ()
+        elif not isinstance(key, tuple):
+            key = (key,)
+        if len(key) > len(self.shape):
+            raise ValueError(
+                f"{len(key)} indexing arguments for {len(self.shape)} dimensions")
+        ranges, shape = [], []
+        for dim, size in enumerate(self.shape):
+            k = key[dim] if dim < len(key) else slice(None)
+            if isinstance(k, slice):
+                if k.step not in (None, 1):
+                    raise unsupported(f"selections with a step ({k.step}) other "
+                                      "than 1")
+                start, stop, _ = k.indices(size)
+                stop = max(start, stop)
+                ranges.append((start, stop))
+                shape.append(stop - start)
+            elif isinstance(k, (int, np.integer)) and not isinstance(
+                    k, (bool, np.bool_)):
+                i = int(k) + size if k < 0 else int(k)
+                if not 0 <= i < size:
+                    raise IndexError(f"Index ({k}) out of range for (0-{size - 1})")
+                ranges.append((i, i + 1))
+            elif k is Ellipsis:
+                raise unsupported("Ellipsis inside a selection tuple")
+            else:
+                raise unsupported(f"fancy or boolean indexing ({type(k).__name__} "
+                                  "in a selection)")
+        return ranges, tuple(shape)
 
     def __getitem__(self, key):
-        if key != () and key != Ellipsis:
-            raise unsupported("partial dataset reads (the port reads whole "
-                              "datasets with ds[()])")
-        n = math.prod(self.shape) * self._stored.itemsize
-        if self._layout_class == 0:
-            return self._raw(self._compact[0], n)
-        if self._layout_class == 2:
-            return self._read_chunked()
-        addr, _size = self._contiguous
-        if addr == UNDEF:  # never written
-            return np.full(self.shape, self._fill, self.dtype)
-        return self._raw(addr, n)
+        """The selection `key` (see `_selection`) as a new native-order
+        array, or a numpy scalar when every dimension takes an int, as
+        h5py's ``ds[key]`` returns it. A chunked dataset inflates only the
+        chunks that meet the selection; contiguous and compact ones copy
+        only the selected bytes."""
+        ranges, shape = self._selection(key)
+        full = tuple(b - a for a, b in ranges)
+        if 0 in full:
+            out = np.empty(full, self.dtype)
+        elif self._layout_class == 2:
+            out = self._read_chunked(ranges)
+        else:
+            addr = (self._compact[0] if self._layout_class == 0
+                    else self._contiguous[0])
+            if addr == UNDEF:  # never written
+                out = np.full(full, self._fill, self.dtype)
+            else:
+                stored = np.frombuffer(self._f._buf, self._stored,
+                                       count=self.size, offset=addr)
+                region = tuple(slice(a, b) for a, b in ranges)
+                out = stored.reshape(self.shape)[region].astype(self.dtype)
+                del stored  # the mmap cannot close while a view exports it
+        out = out.reshape(shape)
+        return out[()] if not shape else out
 
-    def _read_chunked(self) -> np.ndarray:
-        f, shape, chunks = self._f, self.shape, self.chunks
-        out = np.full(shape, self._fill, self.dtype)
-        key_size = 8 + 8 * (len(shape) + 1)
-        itemsize = self._stored.itemsize
+    def _chunk_index(self) -> dict:
+        """{chunk offset: (address, stored bytes, filter mask)} of every
+        written chunk, from one walk of the chunk B-tree."""
+        with self._lock:
+            if self._index is None:
+                self._index = self._walk_chunk_btree()
+        return self._index
 
-        def place(entry):
-            key, addr = entry
-            nbytes, mask = f._u("II", key)
-            offset = f._u(f"{len(shape)}Q", key + 8)
-            raw = f._buf[addr:addr + nbytes]
-            for i in reversed(range(len(self._filters))):
-                if mask & (1 << i):
-                    continue
-                if self._filters[i] == FILTER_DEFLATE:
-                    raw = zlib.decompress(raw)
-                else:
-                    raw = (np.frombuffer(raw, np.uint8).reshape(itemsize, -1)
-                           .T.tobytes())
-            block = np.frombuffer(raw, self._stored).reshape(chunks)
-            region = tuple(slice(o, min(o + c, s))
-                           for o, c, s in zip(offset, chunks, shape))
-            out[region] = block[tuple(slice(0, r.stop - r.start) for r in region)]
+    def _walk_chunk_btree(self) -> dict:
+        f, rank, index = self._f, len(self.shape), {}
+        if self._btree != UNDEF:  # else no chunk was ever written
+            for key, addr in f._btree_children(self._btree, 1, 8 + 8 * (rank + 1)):
+                nbytes, mask = f._u("II", key)
+                index[f._u(f"{rank}Q", key + 8)] = (addr, nbytes, mask)
+        return index
 
-        if self._btree == UNDEF:  # no chunk was ever written
-            return out
-        entries = list(f._btree_children(self._btree, 1, key_size))
-        with ThreadPoolExecutor() as pool:
-            list(pool.map(place, entries))
+    def _inflate(self, addr, nbytes, mask) -> np.ndarray:
+        """One stored chunk, unfiltered, as a (chunks) array of the stored
+        type (a read-only view of the inflated bytes)."""
+        raw = self._f._buf[addr:addr + nbytes]
+        for i in reversed(range(len(self._filters))):
+            if mask & (1 << i):
+                continue
+            if self._filters[i] == FILTER_DEFLATE:
+                raw = zlib.decompress(raw)
+            else:
+                raw = (np.frombuffer(raw, np.uint8)
+                       .reshape(self._stored.itemsize, -1).T.tobytes())
+        return np.frombuffer(raw, self._stored).reshape(self.chunks)
+
+    def _read_chunked(self, ranges) -> np.ndarray:
+        """The box `ranges` of a chunked dataset: the written chunks that
+        meet it are inflated in a thread pool (zlib releases the GIL); the
+        rest of the box takes the fill value."""
+        chunks, index = self.chunks, self._chunk_index()
+        out = np.full(tuple(b - a for a, b in ranges), self._fill, self.dtype)
+        grid = itertools.product(*(range(a - a % c, b, c)
+                                   for (a, b), c in zip(ranges, chunks)))
+        hits = [(offset, index[offset]) for offset in grid if offset in index]
+
+        def place(hit):
+            offset, entry = hit
+            block = self._inflate(*entry)
+            src, dst = [], []
+            for o, c, (a, b) in zip(offset, chunks, ranges):
+                lo, hi = max(a, o), min(b, o + c)
+                src.append(slice(lo - o, hi - o))
+                dst.append(slice(lo - a, hi - a))
+            out[tuple(dst)] = block[tuple(src)]
+
+        with self._lock:
+            self.inflated_chunks += len(hits)
+        if len(hits) == 1:
+            place(hits[0])
+        elif hits:
+            with ThreadPoolExecutor() as pool:
+                list(pool.map(place, hits))
         return out
 
 
