@@ -13,7 +13,9 @@
    flags mixing 0 and 1). K2 runs on a second batch too, `K2_saturated`:
    the same images cut to a disc, as a micro-CT slice is outside its field
    of view, so whole tiles fall in one bin. Fails on any excess over the
-   stated tolerance.
+   stated tolerance. K1's plain version is also held against
+   `F.grid_sample` (reflection padding, align_corners=True: reflect-101)
+   on float32 copies of its inputs, images within 1e-3.
    Each kernel and plain version is then timed over runs of >= 64 calls
    (`time_ms`): CUDA events around a run that cycles through k >= 8
    copies of the inputs, k * bytes >= twice the 50 MB L2, so every call
@@ -96,12 +98,33 @@
    unless the frozen phase runs, every model the trainer creates starts
    from the slice model's encoder, each kernel launched once per step, the
    autosave is gone at the end and a Chrome trace holds CUDA kernel events.
-11. Train-batch sweep (`THROUGHPUT_TRAIN_BATCH`): 15 timed
+11. Architectures phase, for each of the seven decoders beside U-Net on
+   resnet34 (U-Net++, FPN, DeepLabV3, DeepLabV3+, MA-Net, LinkNet, PAN), in
+   `<out-dir>/architectures`: a seeded model on the CPU and the same
+   tensors on the card, float32 eval on a 2x1x256x256 batch, within
+   `ARCH_CARD_VS_CPU_RTOL` of the logits' scale (and, recorded as its
+   control, the same with TF32 on); the parameter count equal to the JAX
+   model's (`ARCH_PARAMS`); forward GFLOP a 256^2 sample from the layer
+   shapes; 20 seeded unfrozen train steps (256, batch 12, bf16, DiceLoss):
+   finite losses, each kernel launched once a step, median step ms and
+   peak memory; the same 20 steps again from the same weights and seeds,
+   with cuDNN's flags as the port leaves them: equal losses; for FPN and
+   DeepLabV3 one more run with another dropout seed: other losses; one step at
+   `THROUGHPUT_TRAIN_BATCH` (peak memory, or the OOM recorded, not failed);
+   the trained weights written by the trainer's checkpoint writer, MEDIUM
+   on the 256^3 vessels volume (seconds, peak memory) equal to the merge of
+   its LOW sweeps, and the same weights as a JAX `VSTPU1` file through
+   `model-predict-2d` giving the same labels. Then `model-train-2d` with the
+   shipped settings as written but `type: U_Net_Plus_Plus` (1+1 epochs,
+   seed 0) on the CLI phase's pair: last eval score >= 0.5, each kernel
+   launched once a step; `model-predict-2d` on 256^3 equal to the manager's
+   labels.
+12. Train-batch sweep (`THROUGHPUT_TRAIN_BATCH`): 15 timed
    `build_train_step` steps on one seeded batch at batches 12, 32, 64, 128
    and 256 (bf16, unfrozen), samples/s and peak memory; the smallest batch
    within 5% of the best samples/s is printed beside the configured one.
-12. Prints a `{"kernels": [...]}` line (launches of the slice, CLI, losses
-   and pretrained phases) and, last, the device line.
+13. Prints a `{"kernels": [...]}` line (launches of the slice, CLI, losses,
+   pretrained and architectures phases) and, last, the device line.
 
 Exits non-zero on any failure, without a GPU, and outside a checkout of the
 repository (the package is imported from beside this file).
@@ -141,8 +164,16 @@ GPU_BANDWIDTH = (  # bytes/s by card name (NVIDIA data sheets)
 L2_BYTES = 50e6  # H100 and H200 L2 cache (NVIDIA data sheets)
 MIN_SETS, MIN_LAUNCHES = 8, 64  # rotating input sets and calls per timed run
 MAX_SPIN_MS = 200.0  # longest GPU spin ahead of a timed run
-NO_LIBRARY = ("no single PyTorch call computes the same function "
-              "(grid_sample has no reflect-101 border mode; no CLAHE op)")
+LIBRARY_NOTES = {
+    "K1": ("no single PyTorch call computes the same function: grid_sample "
+           "(reflection, align_corners=True) is reflect-101 but takes no "
+           "uint8 input and rounds the mask's nearest pick half to even; "
+           "grid_sample_pair_ms times its two calls as a yardstick"),
+    "K2": "no PyTorch call computes CLAHE",
+    "K3": "no PyTorch call computes CLAHE",
+}
+LIBRARY_NOTES["K2_saturated"] = LIBRARY_NOTES["K2"]
+GRID_SAMPLE_RTOL = 1e-3  # image values in [0, 1]; another border rule is off by ~0.1-1
 
 
 def nvidia_smi_line() -> str:
@@ -406,10 +437,58 @@ def kernel_phase(images_u8, masks_u8, bw, dev):
         r["copy_same_bytes_ms"] = copy_same_bytes_ms(r["bytes"], dev)
         r["bound_ms"] = r["bytes"] / bw * 1e3
         r["launches"] = kernels.LAUNCHES[kernel_entry]  # comparisons and timing only
+        if name == "K1":
+            r.update(grid_sample_yardstick(images_u8, masks_u8, inp.coord_sets,
+                                           dev))
+            if not r["grid_sample_ok"]:
+                r["ok"] = False
         print(json.dumps({"phase": "kernel", "kernel": name, **r,
-                          "library_ms": None, "library_note": NO_LIBRARY}),
+                          "library_ms": None,
+                          "library_note": LIBRARY_NOTES[name]}),
               flush=True)
     return results
+
+
+def grid_sample_pair(imgs_f, msks_f, grid):
+    """`F.grid_sample` bilinear on the images and nearest on the masks,
+    both with reflection padding and align_corners=True."""
+    gs = torch.nn.functional.grid_sample
+    return (gs(imgs_f, grid, "bilinear", "reflection", True),
+            gs(msks_f, grid, "nearest", "reflection", True))
+
+
+def grid_sample_yardstick(images_u8, masks_u8, coord_sets, dev):
+    """K1's plain version against `grid_sample_pair` on float32 copies of
+    its inputs: images within GRID_SAMPLE_RTOL on the augmentation's
+    coordinates (reflect-101 borders), and mask mismatches counted (half
+    to even against K1's wy > 0.5 at exact .5 fractions); then the pair
+    timed as K1 is, a two-call yardstick that does not compute K1's
+    function."""
+    from volume_segmantics_tpu_torch.ops import warp as wp
+
+    n, s, _ = images_u8.shape
+    imgs_f = (images_u8.float() / 255.0)[:, None].contiguous()
+    msks_f = masks_u8.float()[:, None].contiguous()
+    r = {}
+    for name, coords in coord_sets.items():
+        grid = (torch.stack((coords[:, 1], coords[:, 0]), -1) * (2.0 / (s - 1))
+                - 1.0).contiguous()
+        gs_img, gs_msk = grid_sample_pair(imgs_f, msks_f, grid)
+        ref_img, ref_msk = wp.warp_pair_u8(images_u8, masks_u8, coords)
+        r[f"grid_sample_image_max_abs_err_{name}"] = (
+            gs_img[:, 0] - ref_img).abs().max().item()
+        r[f"grid_sample_mask_mismatches_{name}"] = int(
+            (gs_msk[:, 0].to(torch.uint8) != ref_msk).sum())
+        if name == "augment":
+            timed_args = (imgs_f, msks_f, grid)
+    r["grid_sample_ok"] = (r["grid_sample_image_max_abs_err_augment"]
+                           <= GRID_SAMPLE_RTOL)
+    nbytes = n * s * s * (4 + 4 + 8 + 4 + 4)
+    sets = rotating_sets(timed_args, nbytes)
+    r["grid_sample_pair_ms"], r["grid_sample_pair_device_only"] = time_ms(
+        grid_sample_pair, sets)
+    r["grid_sample_pair_bytes"] = nbytes
+    return r
 
 
 def slice_phase(dev, model_out: Path):
@@ -1578,6 +1657,309 @@ def train_batch_sweep(images_u8, masks_u8, dev):
     return res
 
 
+# The seven decoders beside U-Net, each on resnet34, at 2 classes, with
+# their parameter counts from the JAX package (tests/
+# test_torch_architectures_pyramid.py holds these constants to it).
+ARCH_PARAMS = {
+    "U_Net_Plus_Plus": 26072482, "FPN": 23149250, "DeepLabV3": 26001090,
+    "DeepLabV3_Plus": 22431442, "MA_Net": 31777506, "Linknet": 21765442,
+    "PAN": 21469833,
+}
+ARCH_STEPS = 20
+DROPOUT_ARCHS = ("FPN", "DeepLabV3")
+# Card against CPU, float32 eval, TF32 off, over the logits' largest
+# magnitude (at least 1). The CPU tests hold the port to JAX within 3e-5
+# (one float32 library against another); cuDNN's float32 algorithms round
+# differently again but no coarser: the card read 6.6e-7 to 4.2e-6 here
+# (NVIDIA H100 80GB HBM3, 700 W). So the CPU tests' bound, which a TF32 or
+# bf16 leak (10 or 8 mantissa bits over 40-90 layers) would exceed: each
+# type's TF32-on reading is recorded beside it as the control.
+ARCH_CARD_VS_CPU_RTOL = 3e-5
+
+
+def forward_gflop_per_sample(model, side, dev) -> float:
+    """Multiply-adds x 2 of every convolution in one forward pass of one
+    side x side sample, from the layer shapes (forward hooks); the few
+    matrix products (MA-Net's attention, the align-corners resizes) are
+    left out."""
+    flops = []
+
+    def conv_hook(m, inputs, out):
+        k = m.kernel_size[0] * m.kernel_size[1] // m.groups
+        if isinstance(m, torch.nn.ConvTranspose2d):
+            flops.append(2 * inputs[0][0].numel() * m.out_channels * k)
+        else:
+            flops.append(2 * out[0].numel() * m.in_channels * k)
+
+    hooks = [m.register_forward_hook(conv_hook) for m in model.modules()
+             if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d))]
+    model.eval()
+    with torch.no_grad():
+        model(torch.zeros(1, 1, side, side, device=dev))
+    for h in hooks:
+        h.remove()
+    return sum(flops) / 1e9
+
+
+def arch_train_run(model, images_u8, masks_u8, dev, dropout_seed, steps,
+                   timed=False):
+    """`steps` seeded unfrozen train steps (DiceLoss, bf16) from `model`'s
+    current weights; returns the losses and each step's synchronised ms."""
+    from volume_segmantics_tpu_torch.data.losses import get_loss_fn
+    from volume_segmantics_tpu_torch.parallel.train import (
+        build_train_step,
+        make_base_optimizer,
+    )
+
+    step = build_train_step(
+        model, get_loss_fn(loss_settings("DiceLoss")),
+        make_base_optimizer(model.parameters()), num_labels=2,
+        image_size=images_u8.shape[-1], compute_dtype=torch.bfloat16,
+        generator=torch.Generator(dev).manual_seed(21),
+        dropout_generator=torch.Generator(dev).manual_seed(dropout_seed))
+    losses, step_ms = [], []
+    for _ in range(steps):
+        if timed:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(images_u8, masks_u8, 1e-4)
+        if timed:
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(loss.item())
+    return losses, step_ms
+
+
+def architectures_phase(images_u8, masks_u8, dev, out_dir: Path):
+    """The seven other decoders through training and prediction (see the
+    module doc)."""
+    import volume_segmantics_tpu_torch.utils.config as cfg
+    from volume_segmantics_tpu_torch.data import get_settings_data
+    from volume_segmantics_tpu_torch.model import VolSeg2DPredictionManager
+    from volume_segmantics_tpu_torch.model.model_2d import create_model_on_device
+    from volume_segmantics_tpu_torch.models.checkpoint import save_checkpoint
+    from volume_segmantics_tpu_torch.ops import kernels
+    from volume_segmantics_tpu_torch.scripts import predict_2d_model, train_2d_model
+    from volume_segmantics_tpu_torch.utils import hdf5
+    from volume_segmantics_tpu_torch.utils.base_data_utils import Axis, ModelType
+
+    failures, res = [], {"phase": "architectures", "steps": ARCH_STEPS,
+                         "card_vs_cpu_rtol": ARCH_CARD_VS_CPU_RTOL,
+                         "archs": {}}
+    root = out_dir / "architectures"
+    shutil.rmtree(root, ignore_errors=True)
+    (root / cfg.SETTINGS_DIR).mkdir(parents=True)
+    predict_file = root / cfg.SETTINGS_DIR / cfg.PREDICTION_SETTINGS_FN
+    predict_file.write_text(settings_text(cfg.PREDICTION_SETTINGS_FN))
+    predict_settings = get_settings_data(predict_file, kind="prediction")
+    vol, truth = make_vessel_volume((P, P, P), seed=7)
+    hdf5.write(root / "vessels_256.h5", vol, chunks=True)
+    x_card = torch.randn(2, 1, S, S, generator=torch.Generator().manual_seed(3))
+    reps = -(-cfg.THROUGHPUT_TRAIN_BATCH // images_u8.shape[0])
+    big_imgs = images_u8.repeat(reps, 1, 1)[:cfg.THROUGHPUT_TRAIN_BATCH].contiguous()
+    big_msks = masks_u8.repeat(reps, 1, 1)[:cfg.THROUGHPUT_TRAIN_BATCH].contiguous()
+    launches = dict.fromkeys(kernels.LAUNCHES, 0)
+
+    for arch, jax_params in ARCH_PARAMS.items():
+        r, struc = {}, dict(STRUC, type=ModelType[arch.upper()])
+        res["archs"][arch] = r
+        # 1. The same seeded weights on the CPU and on the card.
+        cpu_model = create_model_on_device(
+            "cpu", struc, generator=torch.Generator().manual_seed(31)).eval()
+        model = create_model_on_device(dev, struc)
+        model.load_state_dict(cpu_model.state_dict())
+        model.eval()
+        with torch.no_grad():
+            ref = cpu_model(x_card)
+            got = model(x_card.to(dev)).cpu()
+        tf32 = (torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            with torch.no_grad():
+                got_tf32 = model(x_card.to(dev)).cpu()
+        finally:
+            (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32) = tf32
+        scale = max(1.0, ref.abs().max().item())
+        r["card_vs_cpu_rel_err"] = (got - ref).abs().max().item() / scale
+        r["card_vs_cpu_rel_err_tf32_control"] = (
+            (got_tf32 - ref).abs().max().item() / scale)
+        if not r["card_vs_cpu_rel_err"] <= ARCH_CARD_VS_CPU_RTOL:
+            failures.append(f"{arch}: card against CPU {r['card_vs_cpu_rel_err']}")
+        r["params"] = sum(p.numel() for p in model.parameters())
+        if r["params"] != jax_params:
+            failures.append(f"{arch}: {r['params']} parameters, JAX {jax_params}")
+        r["forward_gflop_per_sample"] = forward_gflop_per_sample(model, S, dev)
+        initial = {k: v.clone() for k, v in model.state_dict().items()}
+        del cpu_model, ref, got, got_tf32
+
+        # 2. 20 seeded train steps at the shipped settings; each kernel
+        # launched once a step.
+        kernels.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats(dev)
+        losses, step_ms = arch_train_run(model, images_u8, masks_u8, dev, 22,
+                                         ARCH_STEPS, timed=True)
+        r["launches"] = dict(kernels.LAUNCHES)
+        r.update(first_loss=losses[0], last_loss=losses[-1],
+                 median_step_ms=statistics.median(step_ms),
+                 first_step_ms=step_ms[0],
+                 peak_memory_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
+        for entry, count in r["launches"].items():
+            launches[entry] += count
+            if count != ARCH_STEPS:
+                failures.append(f"{arch}: {entry} launched {count} times in "
+                                f"{ARCH_STEPS} train steps")
+        if not all(np.isfinite(losses)):
+            failures.append(f"{arch}: non-finite losses {losses}")
+        trained = {k: v.clone() for k, v in model.state_dict().items()}
+
+        # 3. The seeded run repeats as the trainer runs it (cuDNN's flags as
+        # the port leaves them): the same weights, augmentation and dropout
+        # seeds give step 2's losses bit for bit; for FPN and DeepLabV3
+        # another dropout seed gives other losses.
+        r["cudnn_deterministic"] = torch.backends.cudnn.deterministic
+        model.load_state_dict(initial)
+        repeat = arch_train_run(model, images_u8, masks_u8, dev, 22,
+                                ARCH_STEPS)[0]
+        r["repeats"] = repeat == losses
+        if not r["repeats"]:
+            failures.append(f"{arch}: a seeded run gave {repeat}, then {losses}")
+        if arch in DROPOUT_ARCHS:
+            model.load_state_dict(initial)
+            other = arch_train_run(model, images_u8, masks_u8, dev, 24,
+                                   ARCH_STEPS)[0]
+            r["dropout_seed_changes_losses"] = other != losses
+            r["other_dropout_seed_last_loss"] = other[-1]
+            if not r["dropout_seed_changes_losses"]:
+                failures.append(f"{arch}: another dropout seed gave the same "
+                                "losses")
+
+        # 4. One unfrozen step at the throughput batch: peak memory or OOM.
+        model.load_state_dict(initial)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        try:
+            big_ms = arch_train_run(model, big_imgs, big_msks, dev, 25, 2,
+                                    timed=True)[1]
+            r["throughput_batch"] = {
+                "batch": cfg.THROUGHPUT_TRAIN_BATCH, "oom": False,
+                "second_step_ms": big_ms[1],
+                "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+        except torch.cuda.OutOfMemoryError as e:
+            r["throughput_batch"] = {"batch": cfg.THROUGHPUT_TRAIN_BATCH,
+                                     "oom": True, "error": str(e)[:200]}
+        torch.cuda.empty_cache()
+
+        # 5. MEDIUM on 256^3 from the trained weights, written by the
+        # trainer's checkpoint writer; equal to its LOW sweeps' merge; the
+        # same weights as a JAX VSTPU1 file through model-predict-2d.
+        model.load_state_dict(trained)
+        ckpt = root / f"{arch}.pytorch"
+        save_checkpoint(ckpt, model, struc)
+        del model, initial, trained
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        manager = VolSeg2DPredictionManager(ckpt, vol, predict_settings,
+                                            device=dev)
+        labels = manager.predict_volume_to_path(None)
+        r["medium_256_s"] = time.perf_counter() - t0
+        r["medium_256_peak_memory_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+        r["mean_iou_after_training"] = volume_mean_iou(labels, truth, dev)
+        predictor = manager.predictor
+        lows = [predictor._predict_single_axis(manager.data_vol, True, axis)
+                for axis in (Axis.Z, Axis.Y, Axis.X)]
+        med = predictor._predict_3_ways_max_probs(manager.data_vol, True)
+        low_merge = merge_max_prob(lows)
+        r["medium_equals_low_merge"] = bool(
+            np.array_equal(med[0], low_merge[0])
+            and np.array_equal(med[1], low_merge[1])
+            and np.array_equal(med[0], labels))
+        if not r["medium_equals_low_merge"]:
+            failures.append(f"{arch}: MEDIUM differs from its LOW sweeps' merge")
+        del manager, predictor, lows, med, low_merge
+        native = write_native_checkpoint(ckpt, root / f"{arch}_native.pytorch")
+        predict_2d_model.main([str(native), str(root / "vessels_256.h5"),
+                               "--data_dir", str(root)])
+        out = predict_2d_model.create_output_path(root, Path("vessels_256.h5"))
+        r["native_labels_equal"] = bool(np.array_equal(hdf5.read(out)[0], labels))
+        out.unlink()
+        native.unlink()
+        if not r["native_labels_equal"]:
+            failures.append(f"{arch}: model-predict-2d on the VSTPU1 file gave "
+                            "other labels")
+        torch.cuda.empty_cache()
+        print(json.dumps({"phase": "architectures", "arch": arch, **r}),
+              flush=True)
+
+    # 6. model-train-2d then model-predict-2d with the shipped files as
+    # written, type U_Net_Plus_Plus, on the CLI phase's pair.
+    cli = root / "cli"
+    (cli / cfg.SETTINGS_DIR).mkdir(parents=True)
+    text = settings_text(cfg.TRAIN_SETTINGS_FN, num_cyc_frozen=1,
+                         num_cyc_unfrozen=1, seed=0)
+    (cli / cfg.SETTINGS_DIR / cfg.TRAIN_SETTINGS_FN).write_text(
+        text.replace('type: "U_Net"', 'type: "U_Net_Plus_Plus"'))
+    shutil.copy(predict_file, cli / cfg.SETTINGS_DIR)
+    trainers = []
+
+    class RecordedTrainer(train_2d_model.VolSeg2dTrainer):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            trainers.append(self)
+
+    train_2d_model.VolSeg2dTrainer = RecordedTrainer
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        train_2d_model.main(["--data", str(out_dir / "cli" / "train_data.h5"),
+                             "--labels", str(out_dir / "cli" / "train_labels.h5"),
+                             "--data_dir", str(cli)])
+    finally:
+        train_2d_model.VolSeg2dTrainer = RecordedTrainer.__bases__[0]
+    torch.cuda.synchronize()
+    trainer = trainers[0]
+    ckpt = train_2d_model._model_output_path(trainer.settings, cli)
+    with open(cli / f"{ckpt.stem}_train_stats.csv", newline="") as f:
+        scores = [float(row["Eval Score"]) for row in csv.DictReader(f)]
+    rt = {"train_main_s": time.perf_counter() - t0, "checkpoint": ckpt.name,
+          "train_steps": trainer.train_steps, "eval_scores": scores,
+          "launches": dict(kernels.LAUNCHES),
+          "median_lr_find_step_ms": 1e3 * statistics.median(
+              trainer.lr_find_step_seconds)}
+    for entry, count in rt["launches"].items():
+        launches[entry] += count
+        if count != trainer.train_steps:
+            failures.append(f"U-Net++ CLI: {entry} launched {count} times in "
+                            f"{trainer.train_steps} train steps")
+    if not scores or not scores[-1] >= 0.5:
+        failures.append(f"U-Net++ CLI: last eval score {scores} < 0.5")
+    del trainers, trainer
+    t0 = time.perf_counter()
+    predict_2d_model.main([str(ckpt), str(root / "vessels_256.h5"),
+                           "--data_dir", str(cli)])
+    rt["predict_256_main_s"] = time.perf_counter() - t0
+    cli_labels = hdf5.read(predict_2d_model.create_output_path(
+        cli, Path("vessels_256.h5")))[0]
+    ref = VolSeg2DPredictionManager(ckpt, vol, predict_settings,
+                                    device=dev).predict_volume_to_path(None)
+    rt["labels_equal_manager"] = bool(np.array_equal(cli_labels, ref))
+    rt["mean_iou"] = volume_mean_iou(cli_labels, truth, dev)
+    if not rt["labels_equal_manager"]:
+        failures.append("U-Net++ CLI: model-predict-2d labels differ from the "
+                        "manager's")
+    res["unetpp_cli"] = rt
+    res["launches"] = launches
+    res["failures"] = failures
+    shutil.rmtree(root, ignore_errors=True)
+    print(json.dumps({k: v for k, v in res.items() if k != "archs"}),
+          flush=True)
+    return res
+
+
 KERNELS = (
     ("K1", "warp_u8", "volseg_warp_u8", "volume_segmantics_tpu_torch/ops/csrc/warp.cu",
      "volume_segmantics_tpu/ops/warp.py:420"),
@@ -1637,8 +2019,9 @@ def main() -> int:
         ckpt = checkpoint_phase(model_out, dev, out_dir)
         large = large_phase(model_out, dev, out_dir)
         pretrained = pretrained_phase(model_out, dev, out_dir, cli)
+        archs = architectures_phase(images, masks, dev, out_dir)
     sweep = train_batch_sweep(images, masks, dev)
-    counted = (summary, cli, losses, pretrained)
+    counted = (summary, cli, losses, pretrained, archs)
     kernels_line = {"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": sum(phase["launches"][entry] for phase in counted),
@@ -1649,7 +2032,7 @@ def main() -> int:
     ]}
     failed = [k for k in kres if not kres[k]["ok"]] + [
         f for phase in (summary, predicted, cli, losses, ckpt, large, pretrained,
-                        sweep)
+                        archs, sweep)
         for f in phase["failures"]]
     if failed:
         print(json.dumps({"failed": failed}), file=sys.stderr)

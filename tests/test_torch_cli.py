@@ -162,6 +162,55 @@ def test_train_cli_writes_the_csv_and_a_checkpoint_jax_loads(
     assert ref["model_struc_dict"]["type"].name == "U_NET"
 
 
+def run_jax_predict(argv):
+    saved = sys.argv
+    sys.argv = ["model-predict-2d", *argv]
+    try:
+        jax_predict.main()
+    finally:
+        sys.argv = saved
+
+
+@pytest.mark.parametrize("model_type", ["U_Net_Plus_Plus"])
+def test_train_then_predict_cli_round_trip(volumes, tmp_path, monkeypatch,
+                                           model_type):
+    """`model-train-2d` with another decoder in the shipped file's
+    `model: type:`, then `model-predict-2d` on its checkpoint: a dated
+    checkpoint named by the type, which the JAX package loads as that
+    type, and labels equal to the JAX CLI's from the same file on >= 99.9%
+    of voxels (the near-tie rule of test_torch_predictor.py)."""
+    monkeypatch.setattr(cfg, "MIN_LR_FIND_STEPS", 6)
+    write_settings(tmp_path, cfg.TRAIN_SETTINGS_FN,
+                   **train_edits(training_axes="Z"))
+    path = tmp_path / cfg.SETTINGS_DIR / cfg.TRAIN_SETTINGS_FN
+    text = path.read_text()
+    assert 'type: "U_Net"' in text
+    path.write_text(text.replace('type: "U_Net"', f'type: "{model_type}"'))
+    train.main(train_argv(volumes, tmp_path, pairs=(0,)), device="cpu")
+    ckpt = train._model_output_path(
+        train.get_settings_data(path, "training"), tmp_path)
+    assert ckpt.name.endswith(f"_{model_type}_trained_2d_model.pytorch")
+    assert (tmp_path / f"{ckpt.stem}_train_stats.csv").exists()
+    ref = jax_load_checkpoint(ckpt)
+    assert ref["model_struc_dict"]["type"].name == model_type.upper()
+
+    labels = {}
+    for name in ("ours", "jax"):
+        write_settings(tmp_path / name, cfg.PREDICTION_SETTINGS_FN,
+                       compute_dtype="float32", prediction_batch_size=4,
+                       data_parallel=False)
+        argv = [str(ckpt), str(volumes / "d0.h5"), "--data_dir",
+                str(tmp_path / name)]
+        if name == "ours":
+            predict.main(argv, device="cpu")
+        else:
+            run_jax_predict(argv)
+        labels[name] = hdf5.read(predict.create_output_path(
+            tmp_path / name, volumes / "d0.h5"))[0]
+    assert labels["ours"].shape == (12, 40, 48)
+    assert (labels["ours"] != labels["jax"]).mean() <= 1e-3
+
+
 @pytest.fixture(scope="module")
 def prediction_runs(tmp_path_factory):
     """The port's and the JAX package's `model-predict-2d` on one float32
@@ -180,12 +229,7 @@ def prediction_runs(tmp_path_factory):
         argv[name] = [str(ckpt), str(folder / "vol.h5"), "--data_dir",
                       str(folder / name)]
     predict.main(argv["ours"], device="cpu")
-    saved = sys.argv
-    sys.argv = ["model-predict-2d", *argv["jax"]]
-    try:
-        jax_predict.main()
-    finally:
-        sys.argv = saved
+    run_jax_predict(argv["jax"])
     return folder / "ours", folder / "jax", vol
 
 

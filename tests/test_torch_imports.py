@@ -48,7 +48,9 @@ def test_every_module_imports_and_no_kernel_is_built():
     for module in ("scripts.train_2d_model", "scripts.predict_2d_model",
                    "utils.hdf5", "utils.yaml_settings", "data.slicers",
                    "utils.flax_msgpack", "models.pretrained", "utils.host_memory",
-                   "model.operations.vol_seg_large_predictor"):
+                   "model.operations.vol_seg_large_predictor",
+                   *(f"models.decoders.{d}" for d in (
+                       "unetpp", "fpn", "deeplab", "manet", "linknet", "pan"))):
         assert f"volume_segmantics_tpu_torch.{module}" in names
     for name in names:
         importlib.import_module(name)

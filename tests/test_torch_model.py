@@ -22,6 +22,7 @@ from volume_segmantics_tpu_torch.model.model_2d import create_model_on_device
 from volume_segmantics_tpu_torch.models.registry import create_model
 from volume_segmantics_tpu_torch.models.torch_export import (
     smp_state_dict_from_variables,
+    variables_from_smp_state_dict,
 )
 from volume_segmantics_tpu_torch.utils.base_data_utils import ModelType
 
@@ -136,10 +137,15 @@ def test_init_is_seeded_lecun_normal():
 
 
 def test_unported_architecture_raises():
-    with pytest.raises(NotImplementedError):
-        create_model(dict(STRUC, type="FPN"))
-    with pytest.raises(NotImplementedError):
-        create_model(dict(STRUC, type="U_Net", encoder_name="resnet50"))
+    """Every decoder runs on resnet34; any other encoder raises, naming
+    itself, when the model is built and when its weights are carried."""
+    for mtype, encoder in (("FPN", "resnet50"), ("U_Net", "efficientnet-b3"),
+                           ("PAN", "timm-resnest50d")):
+        struc = dict(STRUC, type=mtype, encoder_name=encoder)
+        with pytest.raises(NotImplementedError, match=encoder):
+            create_model(struc)
+        with pytest.raises(NotImplementedError, match=encoder):
+            variables_from_smp_state_dict({}, struc)
 
 
 def test_cuda_entry_point_raises_without_gpu():

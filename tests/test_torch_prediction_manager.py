@@ -9,6 +9,9 @@ import pytest
 import torch
 
 from test_torch_predictor import SHAPE, predict_settings, write_checkpoint
+from volume_segmantics_tpu.model.operations.vol_seg_prediction_manager import (
+    VolSeg2DPredictionManager as JaxPredictionManager,
+)
 from volume_segmantics_tpu_torch.data.settings_data import SettingsError
 from volume_segmantics_tpu_torch.model import VolSeg2DPredictionManager
 from volume_segmantics_tpu_torch.model.operations.vol_seg_2d_predictor import (
@@ -18,6 +21,7 @@ from volume_segmantics_tpu_torch.utils import config as cfg
 from volume_segmantics_tpu_torch.utils import hdf5
 from volume_segmantics_tpu_torch.utils.base_data_utils import (
     Axis,
+    ModelType,
     Quality,
     get_batch_size,
 )
@@ -187,6 +191,30 @@ def test_cuda_is_the_default_and_raises_without_a_gpu(ckpt2, vol, monkeypatch):
         VolSeg2dPredictor(ckpt2, predict_settings())
     with pytest.raises(RuntimeError, match="No CUDA device"):
         VolSeg2DPredictionManager(ckpt2, vol, predict_settings())
+
+
+@pytest.mark.parametrize("model_type", [
+    "U_NET_PLUS_PLUS", "FPN", "DEEPLABV3", "DEEPLABV3_PLUS", "MA_NET",
+    "LINKNET", "PAN"])
+def test_medium_matches_the_jax_manager_for_each_decoder(model_type,
+                                                         tmp_path):
+    """MEDIUM on a 32^3 volume, unclipped, from one checkpoint of each
+    decoder (seeded, head scaled x20 and centred on the volume's Z slices,
+    see test_torch_predictor.py), against the JAX manager on the same file,
+    by test_torch_predictor.py's near-tie rule for merged labels: equal on
+    >= 99.9% of voxels."""
+    vol = np.random.default_rng(2).integers(0, 256, (32, 32, 32),
+                                            dtype=np.uint8)
+    ckpt = write_checkpoint(tmp_path / "m.pytorch", 2, ModelType[model_type],
+                            slices=vol)
+    settings = predict_settings(clip_data=False)
+    labels = VolSeg2DPredictionManager(
+        ckpt, vol, settings, device="cpu").predict_volume_to_path(None)
+    ref = JaxPredictionManager(ckpt, vol, settings).predict_volume_to_path(None)
+    assert labels.shape == ref.shape == vol.shape
+    assert (labels != ref).mean() <= 1e-3
+    shares = np.bincount(ref.ravel(), minlength=2) / ref.size
+    assert shares.min() >= 0.05, shares  # both classes take a real share
 
 
 def test_prediction_batch_size_setting_and_default():

@@ -67,21 +67,24 @@ def predict_settings(**overrides):
     return SimpleNamespace(**settings)
 
 
-def write_checkpoint(path, classes):
-    struc = {"type": ModelType.U_NET, "encoder_name": "resnet34",
+def write_checkpoint(path, classes, model_type=ModelType.U_NET, slices=None):
+    """A seeded model whose head is scaled x20 and centred on `slices`
+    (uint8, (n, h, w); default 8 noise images of 64 x 64)."""
+    struc = {"type": model_type, "encoder_name": "resnet34",
              "encoder_weights": None, "in_channels": 1, "classes": classes}
     model = create_model_on_device(
         "cpu", struc, generator=torch.Generator().manual_seed(classes))
     head = model.segmentation_head[0]
-    noise = torch.from_numpy(np.random.default_rng(classes).integers(
-        0, 256, (8, 64, 64), dtype=np.uint8))
+    if slices is None:
+        slices = np.random.default_rng(classes).integers(
+            0, 256, (8, 64, 64), dtype=np.uint8)
     model.eval()
     with torch.no_grad():
         head.weight.mul_(HEAD_SCALE)
         head.bias.mul_(HEAD_SCALE)
-        # Centre each class's logit on noise, so that every class wins a
-        # real share of the voxels.
-        logits = model(normalise(noise.float() / 255.0))
+        # Centre each class's logit on the slices, so that every class wins
+        # a real share of the voxels.
+        logits = model(normalise(torch.from_numpy(slices).float() / 255.0))
         head.bias.sub_(logits.transpose(0, 1).flatten(1).median(dim=1).values)
     save_checkpoint(path, model, struc)
     return path

@@ -85,10 +85,12 @@ class VolSeg2dTrainer:
         # freed pages in-process (utils/host_memory.py).
         tune_malloc_for_large_buffers()
         self.device = resolve_device(device)
-        # One seed, three independent streams: data split and order, model
-        # initialisation, and on-device augmentation.
+        # One seed, four independent streams: data split and order, model
+        # initialisation, on-device augmentation and dropout masks (the
+        # first three are spawned as they were before the fourth).
         seed = int(getattr(settings, "seed", 0))
-        data_ss, init_ss, aug_ss = np.random.SeedSequence(seed).spawn(3)
+        data_ss, init_ss, aug_ss, drop_ss = np.random.SeedSequence(
+            seed).spawn(4)
         self.training_loader, self.validation_loader = get_2d_training_dataloaders(
             data_slices, label_slices, settings, self.device,
             rng=np.random.default_rng(data_ss),
@@ -98,6 +100,9 @@ class VolSeg2dTrainer:
         )
         self._aug_gen = torch.Generator(self.device).manual_seed(
             int(aug_ss.generate_state(1)[0])
+        )
+        self._dropout_gen = torch.Generator(self.device).manual_seed(
+            int(drop_ss.generate_state(1)[0])
         )
         self.label_no = labels if isinstance(labels, int) else len(labels)
         self.codes = labels if isinstance(labels, dict) else {}
@@ -181,7 +186,7 @@ class VolSeg2dTrainer:
             self.model, self.loss_fn, self.optimizer,
             num_labels=self.label_no, image_size=self.image_size,
             compute_dtype=self.compute_dtype, augment=self.augment_on_device,
-            generator=self._aug_gen,
+            generator=self._aug_gen, dropout_generator=self._dropout_gen,
         )
         self._eval_step = build_eval_step(
             self.model, self.loss_fn, self.eval_metric_fn,

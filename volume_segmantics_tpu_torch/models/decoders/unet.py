@@ -13,6 +13,8 @@ import torch.nn as nn
 
 from volume_segmantics_tpu_torch.models.layers import ConvBnAct, upsample
 
+DECODER_CHANNELS = (256, 128, 64, 32, 16)
+
 
 class UnetDecoderBlock(nn.Module):
     def __init__(self, in_ch: int, skip_ch: int, out_ch: int):
@@ -28,15 +30,16 @@ class UnetDecoderBlock(nn.Module):
 
 
 class UnetDecoder(nn.Module):
-    def __init__(self, encoder_channels: Sequence[int],
-                 decoder_channels: Sequence[int] = (256, 128, 64, 32, 16)):
+    out_channels = DECODER_CHANNELS[-1]
+
+    def __init__(self, encoder_channels: Sequence[int]):
         super().__init__()
         enc = list(encoder_channels[1:])[::-1]  # deepest first
-        in_chs = [enc[0]] + list(decoder_channels[:-1])
+        in_chs = [enc[0]] + list(DECODER_CHANNELS[:-1])
         skip_chs = enc[1:] + [0]
         self.blocks = nn.ModuleList(
             UnetDecoderBlock(i, s, o)
-            for i, s, o in zip(in_chs, skip_chs, decoder_channels)
+            for i, s, o in zip(in_chs, skip_chs, DECODER_CHANNELS)
         )
 
     def forward(self, features):

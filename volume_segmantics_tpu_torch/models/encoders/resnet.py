@@ -1,8 +1,13 @@
 """ResNet-34 encoder, NCHW, with torchvision/smp submodule names (port of
-the JAX package's `models/encoders/resnet.py`, output stride 32).
+the JAX package's `models/encoders/resnet.py`).
 
 Calling the encoder returns 6 feature maps at strides [1, 2, 4, 8, 16, 32]
-with channels (1, 64, 64, 128, 256, 512).
+with channels (1, 64, 64, 128, 256, 512). `output_stride` 16 or 8 swaps
+stride for dilation in the deepest stages, as the JAX encoder does for the
+DeepLab and PAN decoders: at 16 stage 4 runs at stride 1, dilation 2; at 8
+stages 3 and 4 at stride 1, dilations 2 and 4. Every 3x3 conv of a dilated
+stage, its first block's included, pads by its dilation, and a first
+block keeps its 1x1 `downsample` wherever the channel count changes.
 """
 
 from typing import List
@@ -13,20 +18,30 @@ import torch.nn.functional as F
 
 from volume_segmantics_tpu_torch.models.layers import BnAct, max_pool
 
+STAGE_PLANES = (64, 128, 256, 512)
+# output stride -> (strides, dilations) of stages 1-4
+DILATION_PLANS = {
+    32: ((1, 2, 2, 2), (1, 1, 1, 1)),
+    16: ((1, 2, 2, 1), (1, 1, 1, 2)),
+    8: ((1, 2, 1, 1), (1, 1, 2, 4)),
+}
 
-def _conv(in_ch, out_ch, k, stride=1):
-    return nn.Conv2d(in_ch, out_ch, k, stride, k // 2, bias=False)
+
+def _conv(in_ch, out_ch, k, stride=1, dilation=1):
+    return nn.Conv2d(in_ch, out_ch, k, stride, (k // 2) * dilation, dilation,
+                     bias=False)
 
 
 class BasicBlock(nn.Module):
-    def __init__(self, in_ch: int, planes: int, stride: int = 1):
+    def __init__(self, in_ch: int, planes: int, stride: int = 1,
+                 dilation: int = 1, downsample: bool = False):
         super().__init__()
-        self.conv1 = _conv(in_ch, planes, 3, stride)
+        self.conv1 = _conv(in_ch, planes, 3, stride, dilation)
         self.bn1 = BnAct(planes, act="relu")
-        self.conv2 = _conv(planes, planes, 3)
+        self.conv2 = _conv(planes, planes, 3, 1, dilation)
         self.bn2 = BnAct(planes, act=None)
         self.downsample = None
-        if stride != 1 or in_ch != planes:
+        if downsample:
             self.downsample = nn.Sequential(
                 _conv(in_ch, planes, 1, stride), BnAct(planes, act=None)
             )
@@ -40,18 +55,24 @@ class BasicBlock(nn.Module):
 class ResNetEncoder(nn.Module):
     """torchvision-style ResNet trunk emitting a 6-level feature pyramid."""
 
-    def __init__(self, layers=(3, 4, 6, 3), in_channels: int = 1):
+    def __init__(self, layers=(3, 4, 6, 3), in_channels: int = 1,
+                 output_stride: int = 32):
         super().__init__()
+        if output_stride not in DILATION_PLANS:
+            raise ValueError(f"output_stride {output_stride} is not one of "
+                             f"{sorted(DILATION_PLANS)}")
+        strides, dilations = DILATION_PLANS[output_stride]
         self.conv1 = nn.Conv2d(in_channels, 64, 7, 2, 3, bias=False)
         self.bn1 = BnAct(64, act="relu")
         in_ch = 64
-        for stage, (planes, n_blocks) in enumerate(
-            zip((64, 128, 256, 512), layers), start=1
+        for stage, (planes, n_blocks, stride, dilation) in enumerate(
+            zip(STAGE_PLANES, layers, strides, dilations), start=1
         ):
             blocks = []
             for b in range(n_blocks):
-                stride = 2 if (b == 0 and stage > 1) else 1
-                blocks.append(BasicBlock(in_ch, planes, stride))
+                s = stride if b == 0 else 1
+                down = b == 0 and (s != 1 or in_ch != planes)
+                blocks.append(BasicBlock(in_ch, planes, s, dilation, down))
                 in_ch = planes
             self.add_module(f"layer{stage}", nn.Sequential(*blocks))
 
@@ -66,7 +87,7 @@ class ResNetEncoder(nn.Module):
         return features
 
 
-def resnet34(in_channels: int = 1):
-    return ResNetEncoder((3, 4, 6, 3), in_channels), (
+def resnet34(in_channels: int = 1, output_stride: int = 32):
+    return ResNetEncoder((3, 4, 6, 3), in_channels, output_stride), (
         in_channels, 64, 64, 128, 256, 512
     )

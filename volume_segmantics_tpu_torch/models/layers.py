@@ -1,11 +1,14 @@
 """Building blocks of the segmentation models, NCHW (port of the JAX
-package's `models/layers.py`: ConvBnAct, BnAct, upsample, max_pool).
+package's `models/layers.py`: ConvBnAct, BnAct, upsample, resize_to,
+resize_align_corners, max_pool, global_avg_pool), plus the flax Dropout
+that the FPN and DeepLab decoders use.
 
 The TPU re-expressions of a plain convolution there (space-to-depth stem,
 phase-decomposed upsample+conv) are not ported: a plain conv computes the
 same function.
 """
 
+import functools
 import math
 from typing import Optional
 
@@ -14,10 +17,14 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 
-def lecun_normal_(weight: torch.Tensor, generator: torch.Generator = None):
+
+def lecun_normal_(weight: torch.Tensor, generator: torch.Generator = None,
+                  fan_in: int = None):
     """flax's `lecun_normal` initialiser: truncated normal at +-2 std with
-    variance 1/fan_in (the std is corrected for the truncation)."""
-    fan_in = weight.shape[1] * weight.shape[2] * weight.shape[3]
+    variance 1/fan_in (the std is corrected for the truncation). `fan_in`
+    defaults to a conv weight's (O, I, kh, kw) I * kh * kw."""
+    if fan_in is None:
+        fan_in = weight.shape[1] * weight.shape[2] * weight.shape[3]
     std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
     with torch.no_grad():
         return nn.init.trunc_normal_(
@@ -32,7 +39,8 @@ class BnAct(nn.Module):
     0.9 * old + 0.1 * batch, the normalize in affine form
     x * mul + (bias - mean * mul), and the result cast back to the input's
     dtype. (`nn.BatchNorm2d` keeps the unbiased variance in its running
-    statistics, which would drift from the reference.)
+    statistics, which would drift from the reference, and refuses a batch
+    of one value per channel, which the image-pool branches give.)
 
     Parameter and buffer names are BatchNorm2d's, so `state_dict()` keys
     are the reference checkpoint's."""
@@ -77,18 +85,108 @@ class BnAct(nn.Module):
 
 
 class ConvBnAct(nn.Sequential):
-    """conv3x3 (no bias) -> BatchNorm -> ReLU, smp's Conv2dReLU: the
-    submodules are named `0` (conv) and `1` (BN) as in smp."""
+    """conv (no bias, symmetric padding ((k - 1) * dilation) // 2) ->
+    BatchNorm -> ReLU, smp's Conv2dReLU: the submodules are named `0`
+    (conv) and `1` (BN) as in smp."""
 
-    def __init__(self, in_ch: int, out_ch: int):
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3,
+                 dilation: int = 1):
         super().__init__(
-            nn.Conv2d(in_ch, out_ch, 3, 1, 1, bias=False), BnAct(out_ch),
+            nn.Conv2d(in_ch, out_ch, kernel_size,
+                      padding=((kernel_size - 1) * dilation) // 2,
+                      dilation=dilation, bias=False),
+            BnAct(out_ch),
         )
+
+
+class Dropout(nn.Module):
+    """flax `nn.Dropout`: in training mode each element (or, with
+    `channelwise`, each (sample, channel) map: flax's broadcast_dims (1, 2)
+    of NHWC, torch's Dropout2d) is kept with probability 1 - rate and scaled
+    by 1 / (1 - rate). The mask comes from `generator` (a torch.Generator on
+    the input's device; None draws from the device's default generator), so
+    a seeded run repeats. Eval mode and rate 0 draw nothing."""
+
+    def __init__(self, rate: float, channelwise: bool = False):
+        super().__init__()
+        self.rate = rate
+        self.channelwise = channelwise
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x):
+        if not self.training or self.rate == 0.0:
+            return x
+        keep_prob = 1.0 - self.rate
+        shape = x.shape[:2] + (1, 1) if self.channelwise else x.shape
+        keep = torch.rand(shape, generator=self.generator,
+                          device=x.device) < keep_prob
+        return torch.where(keep, x / keep_prob, 0.0)
+
+
+def set_dropout_generator(model: nn.Module,
+                          generator: Optional[torch.Generator]) -> None:
+    """Every Dropout of `model` draws its masks from `generator`."""
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.generator = generator
 
 
 def upsample(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
     """Nearest-neighbour integer-factor upsampling, NCHW."""
     return F.interpolate(x, scale_factor=factor, mode="nearest")
+
+
+def resize_to(x: torch.Tensor, out_h: int, out_w: int,
+              align_corners: bool = False) -> torch.Tensor:
+    """Bilinear resize of an NCHW tensor to (out_h, out_w). Half-pixel
+    centres (`jax.image.resize`, antialiased when shrinking as it is) or,
+    with `align_corners`, torch's align_corners=True mapping."""
+    if align_corners:
+        return resize_align_corners(x, out_h, out_w)
+    shrink = out_h < x.shape[2] or out_w < x.shape[3]
+    return F.interpolate(x, size=(out_h, out_w), mode="bilinear",
+                         align_corners=False, antialias=shrink)
+
+
+@functools.lru_cache(maxsize=128)
+def _align_corners_matrix(out_len: int, in_len: int, device: torch.device,
+                          dtype: torch.dtype) -> torch.Tensor:
+    """(out_len, in_len) weights of torch's align_corners=True bilinear
+    mapping (source = i * (in - 1) / (out - 1)), computed in float32 and
+    cast to `dtype`. Cached per shape, device and dtype: the JAX package
+    folds them into its programs as constants. Built outside inference
+    mode, so a matrix first made while predicting can be saved for a
+    training backward."""
+    with torch.inference_mode(False), torch.no_grad():
+        if in_len == 1:
+            return torch.ones((out_len, 1), device=device, dtype=dtype)
+        src = (torch.arange(out_len, dtype=torch.float32, device=device)
+               * (in_len - 1) / (out_len - 1))
+        i0 = torch.clamp(torch.floor(src).long(), 0, in_len - 2)
+        frac = src - i0
+        w = torch.zeros((out_len, in_len), device=device)
+        rows = torch.arange(out_len, device=device)
+        w[rows, i0] += 1.0 - frac
+        w[rows, i0 + 1] += frac
+        return w.to(dtype)
+
+
+def resize_align_corners(x: torch.Tensor, out_h: int,
+                         out_w: int) -> torch.Tensor:
+    """Bilinear resize with torch's align_corners=True mapping, NCHW, as
+    the JAX package computes it: two products with interpolation matrices,
+    in x's dtype (autocast: bf16 with float32 sums). Unlike
+    `F.interpolate`, whose CUDA backward accumulates with atomics, its
+    backward is deterministic, so a seeded training run repeats."""
+    in_h, in_w = x.shape[2], x.shape[3]
+    y = x
+    if in_h != out_h:
+        y = torch.matmul(_align_corners_matrix(out_h, in_h, x.device, y.dtype),
+                         y)
+    if in_w != out_w:
+        y = torch.matmul(
+            y, _align_corners_matrix(out_w, in_w, x.device, y.dtype).t())
+    return y.to(x.dtype)
 
 
 def max_pool(x: torch.Tensor, window: int = 3, stride: int = 2,
@@ -97,13 +195,32 @@ def max_pool(x: torch.Tensor, window: int = 3, stride: int = 2,
     return F.max_pool2d(x, window, stride, padding)
 
 
+def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
+    """Mean over H and W, kept as 1 x 1 (AdaptiveAvgPool2d(1))."""
+    return x.mean(dim=(2, 3), keepdim=True)
+
+
+class GlobalAvgPool(nn.Module):
+    """`global_avg_pool` as a module, holding an index in smp's
+    Sequentials (`convs.4.0`, `SE_ll.0`) so the convs after it keep
+    their names."""
+
+    def forward(self, x):
+        return global_avg_pool(x)
+
+
 def init_like_flax(module: nn.Module, generator: torch.Generator = None):
-    """Initialise every conv as flax does: lecun_normal kernels, zero
-    biases; BnAct keeps its ones/zeros. Convs are visited in module order,
-    so a seeded generator gives the same weights every time."""
+    """Initialise every conv as flax does: lecun_normal kernels (fan-in of
+    a transposed conv's (I, O, kh, kw) weight: I * kh * kw), zero biases;
+    BnAct and GroupNorm keep their ones/zeros. Convs are visited in module
+    order, so a seeded generator gives the same weights every time."""
     for m in module.modules():
-        if isinstance(m, nn.Conv2d):
-            lecun_normal_(m.weight, generator)
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+            fan_in = None
+            if isinstance(m, nn.ConvTranspose2d):
+                w = m.weight
+                fan_in = w.shape[0] * w.shape[2] * w.shape[3]
+            lecun_normal_(m.weight, generator, fan_in)
             if m.bias is not None:
                 with torch.no_grad():
                     m.bias.zero_()

@@ -17,8 +17,8 @@ import numpy as np
 import torch
 
 from volume_segmantics_tpu_torch.models.torch_export import (
-    _inverse_resnet_encoder,
-    variables_from_smp_state_dict,
+    encoder_state_dict_from_variables,
+    encoder_variables_from_state_dict,
 )
 from volume_segmantics_tpu_torch.utils.flax_msgpack import msgpack_restore
 
@@ -68,17 +68,16 @@ def load_pretrained_encoder(model: torch.nn.Module, encoder_name: str,
         return False
     blob = msgpack_restore(path.read_bytes())
     params = dict(blob["params"])
-    stats = blob.get("batch_stats") or variables_from_smp_state_dict(
-        model.state_dict(), {"type": "U_NET", "encoder_name": encoder_name}
-    )["batch_stats"]["encoder"]
     stem = dict(params["stem_conv"])
     stem["conv"] = dict(stem["conv"])
     stem["conv"]["kernel"] = _adapt_first_conv(
         np.asarray(stem["conv"]["kernel"]), in_channels)
     params["stem_conv"] = stem
-    sd = {}
-    _inverse_resnet_encoder(sd, params, stats)
     own = model.state_dict()
+    stats = (blob.get("batch_stats")
+             or encoder_variables_from_state_dict(own)["batch_stats"])
+    sd = {k: v for k, v in encoder_state_dict_from_variables(params, stats).items()
+          if not k.endswith("num_batches_tracked")}
     unknown = sorted(set(sd) - set(own))
     missing = sorted(k for k in own if k.startswith("encoder.")
                      and not k.endswith("num_batches_tracked") and k not in sd)
@@ -92,6 +91,6 @@ def load_pretrained_encoder(model: torch.nn.Module, encoder_name: str,
             if own[key].shape != value.shape:
                 raise ValueError(f"{path}: {key} has shape {value.shape}, the "
                                  f"model's is {tuple(own[key].shape)}")
-            own[key].copy_(torch.tensor(value))
+            own[key].copy_(value)
     logging.info(f"Loaded pretrained '{encoder_name}' encoder weights from {path}.")
     return True

@@ -1,5 +1,6 @@
 """Model factory: ModelType + encoder name -> segmentation nn.Module (port
-of the JAX package's `models/registry.py`; U_Net x resnet34 only so far).
+of the JAX package's `models/registry.py`; all eight decoders, on resnet34
+only so far).
 
 Submodule names follow smp's (`encoder.conv1`, `encoder.layer1.0.bn1`,
 `decoder.blocks.0.conv1.0`, `segmentation_head.0`), so `state_dict()` keys
@@ -11,30 +12,69 @@ import logging
 import torch
 import torch.nn as nn
 
+from volume_segmantics_tpu_torch.models.decoders.deeplab import (
+    DeepLabV3Decoder,
+    DeepLabV3PlusDecoder,
+)
+from volume_segmantics_tpu_torch.models.decoders.fpn import FPNDecoder
+from volume_segmantics_tpu_torch.models.decoders.linknet import LinknetDecoder
+from volume_segmantics_tpu_torch.models.decoders.manet import MAnetDecoder
+from volume_segmantics_tpu_torch.models.decoders.pan import PANDecoder
 from volume_segmantics_tpu_torch.models.decoders.unet import UnetDecoder
+from volume_segmantics_tpu_torch.models.decoders.unetpp import UnetPlusPlusDecoder
 from volume_segmantics_tpu_torch.models.encoders.resnet import resnet34
-from volume_segmantics_tpu_torch.models.layers import init_like_flax
+from volume_segmantics_tpu_torch.models.layers import init_like_flax, resize_to
 from volume_segmantics_tpu_torch.utils.base_data_utils import (
     ModelType,
     create_enum_from_setting,
 )
 
+PORTED_ENCODERS = {"resnet34": resnet34}
+
 
 class SegmentationModel(nn.Module):
-    """Encoder + decoder + 3x3 segmentation head (smp SegmentationHead).
+    """Encoder + decoder + segmentation head (smp SegmentationHead): a
+    k x k conv, then an align-corners bilinear upsample by
+    `head_upsampling`, then, where the decoder's output stride leaves the
+    logits at another size than the input, a half-pixel resize to it.
     Input and output NCHW; logits are float32."""
 
-    def __init__(self, encoder: nn.Module, decoder: nn.Module,
-                 decoder_out: int, classes: int):
+    def __init__(self, encoder: nn.Module, decoder: nn.Module, classes: int,
+                 head_kernel: int = 3, head_upsampling: int = 1):
         super().__init__()
         self.encoder = encoder
         self.decoder = decoder
+        self.head_upsampling = head_upsampling
         self.segmentation_head = nn.Sequential(
-            nn.Conv2d(decoder_out, classes, 3, padding=1, bias=True)
+            nn.Conv2d(decoder.out_channels, classes, head_kernel,
+                      padding=head_kernel // 2, bias=True)
         )
 
     def forward(self, x):
-        return self.segmentation_head(self.decoder(self.encoder(x))).float()
+        in_h, in_w = x.shape[2], x.shape[3]
+        logits = self.segmentation_head(self.decoder(self.encoder(x)))
+        if self.head_upsampling > 1:
+            logits = resize_to(logits, logits.shape[2] * self.head_upsampling,
+                               logits.shape[3] * self.head_upsampling,
+                               align_corners=True)
+        if logits.shape[2:] != (in_h, in_w):
+            logits = resize_to(logits, in_h, in_w)
+        return logits.float()
+
+
+# ModelType -> (decoder class, head kernel, head upsampling, encoder output
+# stride), as the JAX `_ARCH_BUILDERS`; each decoder class names its output
+# width (`out_channels`).
+ARCHITECTURES = {
+    ModelType.U_NET: (UnetDecoder, 3, 1, 32),
+    ModelType.U_NET_PLUS_PLUS: (UnetPlusPlusDecoder, 3, 1, 32),
+    ModelType.FPN: (FPNDecoder, 1, 4, 32),
+    ModelType.DEEPLABV3: (DeepLabV3Decoder, 1, 8, 8),
+    ModelType.DEEPLABV3_PLUS: (DeepLabV3PlusDecoder, 1, 4, 16),
+    ModelType.MA_NET: (MAnetDecoder, 3, 1, 32),
+    ModelType.LINKNET: (LinknetDecoder, 1, 1, 32),
+    ModelType.PAN: (PANDecoder, 3, 4, 16),
+}
 
 
 def create_model(model_struc_dict: dict,
@@ -47,14 +87,17 @@ def create_model(model_struc_dict: dict,
     encoder_name = struct.get("encoder_name", "resnet34")
     classes = struct.get("classes", 2)
     in_channels = struct.get("in_channels", 1)
-    if model_type != ModelType.U_NET or encoder_name != "resnet34":
+    if encoder_name not in PORTED_ENCODERS:
         raise NotImplementedError(
-            f"{model_type.name} with encoder {encoder_name!r} is not ported "
-            "to PyTorch yet; only U_Net with resnet34 is."
+            f"Encoder {encoder_name!r} ({model_type.name}) is not ported to "
+            f"PyTorch yet; ported: {sorted(PORTED_ENCODERS)}."
         )
-    encoder, enc_channels = resnet34(in_channels)
+    decoder_cls, head_kernel, head_up, output_stride = (
+        ARCHITECTURES[model_type])
+    encoder, enc_channels = PORTED_ENCODERS[encoder_name](
+        in_channels, output_stride)
     model = SegmentationModel(
-        encoder, UnetDecoder(enc_channels), decoder_out=16, classes=classes
+        encoder, decoder_cls(enc_channels), classes, head_kernel, head_up,
     )
     init_like_flax(model, generator)
     logging.info(

@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 import volume_segmantics_tpu_torch.utils.config as cfg
+from volume_segmantics_tpu_torch.models.layers import set_dropout_generator
 from volume_segmantics_tpu_torch.ops.augment import augment_batch_u8
 
 
@@ -51,10 +52,13 @@ def build_train_step(model: torch.nn.Module, loss_fn: Callable,
                      image_size: int = 256,
                      compute_dtype: torch.dtype = torch.bfloat16,
                      augment: bool = True,
-                     generator: torch.Generator = None) -> Callable:
+                     generator: torch.Generator = None,
+                     dropout_generator: torch.Generator = None) -> Callable:
     """Returns step(images_u8, masks_u8, lr) -> loss (a device scalar;
     reading it waits for the step). `generator` draws the augmentation and
-    must live on the batch's device."""
+    `dropout_generator` the masks of the model's dropout layers (FPN,
+    DeepLabV3/V3+); both must live on the batch's device."""
+    set_dropout_generator(model, dropout_generator)
 
     def step(images_u8: torch.Tensor, masks_u8: torch.Tensor, lr: float):
         device = images_u8.device
