@@ -119,12 +119,36 @@
    seed 0) on the CLI phase's pair: last eval score >= 0.5, each kernel
    launched once a step; `model-predict-2d` on 256^3 equal to the manager's
    labels.
-12. Train-batch sweep (`THROUGHPUT_TRAIN_BATCH`): 15 timed
+12. Encoders phase, for each of the six encoders beside resnet34
+   (ResNet-50, ResNeXt-50 32x4d, EfficientNet-B3/-B4, ResNeSt-50d/-101e)
+   under U-Net, in `<out-dir>/encoders`: card against CPU as the
+   architectures phase but with every BatchNorm randomised, for U-Net and
+   the dilated forms under DeepLabV3+ (output stride 16) and DeepLabV3
+   (8), each with its TF32 control and the logits' scale; the
+   JAX parameter count (`ENCODER_PARAMS`); forward GFLOP a sample; 5
+   seeded frozen train steps as the trainer freezes (256, batch 12, bf16,
+   DiceLoss): exactly the parameters the JAX freeze mask leaves trainable
+   move (their count is the JAX one: EfficientNet's BatchNorms and
+   ResNeSt's split-attention BatchNorms), every other parameter keeps its
+   bits, every BatchNorm's running statistics move; then 20 unfrozen steps,
+   run twice from the same weights and seeds: finite, equal losses, each
+   kernel launched once a step (25 with the frozen steps); median frozen
+   and unfrozen step ms and peak memory; one step at
+   `THROUGHPUT_TRAIN_BATCH` (or the OOM, recorded); MEDIUM on 256^3 from the
+   trained weights equal to its LOW sweeps' merge and to `model-predict-2d`
+   on the same weights as a `VSTPU1` file. Then `model-train-2d` with the
+   shipped settings as written but `encoder_name: efficientnet-b3`, from a
+   cached encoder (the phase's trained B3 encoder, first convolution
+   widened to 3 channels): the frozen phase runs from the cache, last eval
+   score >= 0.5, each kernel launched once a step; `model-predict-2d` on
+   256^3 equal to the manager's labels.
+13. Train-batch sweep (`THROUGHPUT_TRAIN_BATCH`): 15 timed
    `build_train_step` steps on one seeded batch at batches 12, 32, 64, 128
    and 256 (bf16, unfrozen), samples/s and peak memory; the smallest batch
    within 5% of the best samples/s is printed beside the configured one.
-13. Prints a `{"kernels": [...]}` line (launches of the slice, CLI, losses,
-   pretrained and architectures phases) and, last, the device line.
+14. Prints a `{"kernels": [...]}` line (launches of the slice, CLI, losses,
+   pretrained, architectures and encoders phases) and, last, the device
+   line.
 
 Exits non-zero on any failure, without a GPU, and outside a checkout of the
 repository (the package is imported from beside this file).
@@ -1701,10 +1725,64 @@ def forward_gflop_per_sample(model, side, dev) -> float:
     return sum(flops) / 1e9
 
 
+def randomize_batchnorms(model, seed):
+    """Every BatchNorm's scale, bias and running statistics drawn from a
+    seeded generator (scale and variance in [0.5, 1.5), bias N(0, 0.2),
+    mean N(0, 0.5)): fresh-init BatchNorm is an identity in eval mode, and
+    through EfficientNet's DeepLabV3 it leaves logits of ~3e-7, where any
+    two results agree."""
+    from volume_segmantics_tpu_torch.models.layers import BnAct
+
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, BnAct):
+                n = m.weight.numel()
+                m.weight.copy_(0.5 + torch.rand(n, generator=g))
+                m.bias.copy_(0.2 * torch.randn(n, generator=g))
+                m.running_mean.copy_(0.5 * torch.randn(n, generator=g))
+                m.running_var.copy_(0.5 + torch.rand(n, generator=g))
+
+
+def card_against_cpu(struc, x, dev, seed=31, randomize_bn=False):
+    """A seeded model on the CPU (its BatchNorms randomised with
+    `randomize_bn`) and the same tensors on the card, float32 eval on `x`:
+    returns the card model and the largest |card - CPU| over the logits'
+    scale (at least 1), with TF32 off as the script runs and, as the
+    control, on, and the scale."""
+    from volume_segmantics_tpu_torch.model.model_2d import create_model_on_device
+
+    cpu_model = create_model_on_device(
+        "cpu", struc, generator=torch.Generator().manual_seed(seed)).eval()
+    if randomize_bn:
+        randomize_batchnorms(cpu_model, seed)
+    model = create_model_on_device(dev, struc)
+    model.load_state_dict(cpu_model.state_dict())
+    model.eval()
+    with torch.no_grad():
+        ref = cpu_model(x)
+        got = model(x.to(dev)).cpu()
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        with torch.no_grad():
+            got_tf32 = model(x.to(dev)).cpu()
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    scale = max(1.0, ref.abs().max().item())
+    return model, {"rel_err": (got - ref).abs().max().item() / scale,
+                   "rel_err_tf32_control": (got_tf32 - ref).abs().max().item()
+                   / scale, "logits_scale": ref.abs().max().item()}
+
+
 def arch_train_run(model, images_u8, masks_u8, dev, dropout_seed, steps,
-                   timed=False):
-    """`steps` seeded unfrozen train steps (DiceLoss, bf16) from `model`'s
-    current weights; returns the losses and each step's synchronised ms."""
+                   timed=False, params=None):
+    """`steps` seeded train steps (DiceLoss, bf16) from `model`'s current
+    weights, AdamW over `params` (default all: unfrozen); returns the
+    losses and each step's synchronised ms."""
     from volume_segmantics_tpu_torch.data.losses import get_loss_fn
     from volume_segmantics_tpu_torch.parallel.train import (
         build_train_step,
@@ -1713,8 +1791,9 @@ def arch_train_run(model, images_u8, masks_u8, dev, dropout_seed, steps,
 
     step = build_train_step(
         model, get_loss_fn(loss_settings("DiceLoss")),
-        make_base_optimizer(model.parameters()), num_labels=2,
-        image_size=images_u8.shape[-1], compute_dtype=torch.bfloat16,
+        make_base_optimizer(model.parameters() if params is None else params),
+        num_labels=2, image_size=images_u8.shape[-1],
+        compute_dtype=torch.bfloat16,
         generator=torch.Generator(dev).manual_seed(21),
         dropout_generator=torch.Generator(dev).manual_seed(dropout_seed))
     losses, step_ms = [], []
@@ -1734,58 +1813,26 @@ def architectures_phase(images_u8, masks_u8, dev, out_dir: Path):
     """The seven other decoders through training and prediction (see the
     module doc)."""
     import volume_segmantics_tpu_torch.utils.config as cfg
-    from volume_segmantics_tpu_torch.data import get_settings_data
-    from volume_segmantics_tpu_torch.model import VolSeg2DPredictionManager
-    from volume_segmantics_tpu_torch.model.model_2d import create_model_on_device
     from volume_segmantics_tpu_torch.models.checkpoint import save_checkpoint
     from volume_segmantics_tpu_torch.ops import kernels
-    from volume_segmantics_tpu_torch.scripts import predict_2d_model, train_2d_model
-    from volume_segmantics_tpu_torch.utils import hdf5
-    from volume_segmantics_tpu_torch.utils.base_data_utils import Axis, ModelType
+    from volume_segmantics_tpu_torch.utils.base_data_utils import ModelType
 
     failures, res = [], {"phase": "architectures", "steps": ARCH_STEPS,
                          "card_vs_cpu_rtol": ARCH_CARD_VS_CPU_RTOL,
                          "archs": {}}
-    root = out_dir / "architectures"
-    shutil.rmtree(root, ignore_errors=True)
-    (root / cfg.SETTINGS_DIR).mkdir(parents=True)
-    predict_file = root / cfg.SETTINGS_DIR / cfg.PREDICTION_SETTINGS_FN
-    predict_file.write_text(settings_text(cfg.PREDICTION_SETTINGS_FN))
-    predict_settings = get_settings_data(predict_file, kind="prediction")
-    vol, truth = make_vessel_volume((P, P, P), seed=7)
-    hdf5.write(root / "vessels_256.h5", vol, chunks=True)
+    root, predict_settings, vol, truth = prediction_root(out_dir /
+                                                         "architectures")
     x_card = torch.randn(2, 1, S, S, generator=torch.Generator().manual_seed(3))
-    reps = -(-cfg.THROUGHPUT_TRAIN_BATCH // images_u8.shape[0])
-    big_imgs = images_u8.repeat(reps, 1, 1)[:cfg.THROUGHPUT_TRAIN_BATCH].contiguous()
-    big_msks = masks_u8.repeat(reps, 1, 1)[:cfg.THROUGHPUT_TRAIN_BATCH].contiguous()
+    big = throughput_batch(images_u8, masks_u8)
     launches = dict.fromkeys(kernels.LAUNCHES, 0)
 
     for arch, jax_params in ARCH_PARAMS.items():
         r, struc = {}, dict(STRUC, type=ModelType[arch.upper()])
         res["archs"][arch] = r
         # 1. The same seeded weights on the CPU and on the card.
-        cpu_model = create_model_on_device(
-            "cpu", struc, generator=torch.Generator().manual_seed(31)).eval()
-        model = create_model_on_device(dev, struc)
-        model.load_state_dict(cpu_model.state_dict())
-        model.eval()
-        with torch.no_grad():
-            ref = cpu_model(x_card)
-            got = model(x_card.to(dev)).cpu()
-        tf32 = (torch.backends.cuda.matmul.allow_tf32,
-                torch.backends.cudnn.allow_tf32)
-        torch.backends.cuda.matmul.allow_tf32 = True
-        torch.backends.cudnn.allow_tf32 = True
-        try:
-            with torch.no_grad():
-                got_tf32 = model(x_card.to(dev)).cpu()
-        finally:
-            (torch.backends.cuda.matmul.allow_tf32,
-             torch.backends.cudnn.allow_tf32) = tf32
-        scale = max(1.0, ref.abs().max().item())
-        r["card_vs_cpu_rel_err"] = (got - ref).abs().max().item() / scale
-        r["card_vs_cpu_rel_err_tf32_control"] = (
-            (got_tf32 - ref).abs().max().item() / scale)
+        model, c = card_against_cpu(struc, x_card, dev)
+        r["card_vs_cpu_rel_err"] = c["rel_err"]
+        r["card_vs_cpu_rel_err_tf32_control"] = c["rel_err_tf32_control"]
         if not r["card_vs_cpu_rel_err"] <= ARCH_CARD_VS_CPU_RTOL:
             failures.append(f"{arch}: card against CPU {r['card_vs_cpu_rel_err']}")
         r["params"] = sum(p.numel() for p in model.parameters())
@@ -1793,7 +1840,6 @@ def architectures_phase(images_u8, masks_u8, dev, out_dir: Path):
             failures.append(f"{arch}: {r['params']} parameters, JAX {jax_params}")
         r["forward_gflop_per_sample"] = forward_gflop_per_sample(model, S, dev)
         initial = {k: v.clone() for k, v in model.state_dict().items()}
-        del cpu_model, ref, got, got_tf32
 
         # 2. 20 seeded train steps at the shipped settings; each kernel
         # launched once a step.
@@ -1838,19 +1884,7 @@ def architectures_phase(images_u8, masks_u8, dev, out_dir: Path):
 
         # 4. One unfrozen step at the throughput batch: peak memory or OOM.
         model.load_state_dict(initial)
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats(dev)
-        try:
-            big_ms = arch_train_run(model, big_imgs, big_msks, dev, 25, 2,
-                                    timed=True)[1]
-            r["throughput_batch"] = {
-                "batch": cfg.THROUGHPUT_TRAIN_BATCH, "oom": False,
-                "second_step_ms": big_ms[1],
-                "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
-        except torch.cuda.OutOfMemoryError as e:
-            r["throughput_batch"] = {"batch": cfg.THROUGHPUT_TRAIN_BATCH,
-                                     "oom": True, "error": str(e)[:200]}
-        torch.cuda.empty_cache()
+        r["throughput_batch"] = throughput_step(model, *big, dev)
 
         # 5. MEDIUM on 256^3 from the trained weights, written by the
         # trainer's checkpoint writer; equal to its LOW sweeps' merge; the
@@ -1859,58 +1893,152 @@ def architectures_phase(images_u8, masks_u8, dev, out_dir: Path):
         ckpt = root / f"{arch}.pytorch"
         save_checkpoint(ckpt, model, struc)
         del model, initial, trained
-        torch.cuda.empty_cache()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(dev)
-        t0 = time.perf_counter()
-        manager = VolSeg2DPredictionManager(ckpt, vol, predict_settings,
-                                            device=dev)
-        labels = manager.predict_volume_to_path(None)
-        r["medium_256_s"] = time.perf_counter() - t0
-        r["medium_256_peak_memory_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
-        r["mean_iou_after_training"] = volume_mean_iou(labels, truth, dev)
-        predictor = manager.predictor
-        lows = [predictor._predict_single_axis(manager.data_vol, True, axis)
-                for axis in (Axis.Z, Axis.Y, Axis.X)]
-        med = predictor._predict_3_ways_max_probs(manager.data_vol, True)
-        low_merge = merge_max_prob(lows)
-        r["medium_equals_low_merge"] = bool(
-            np.array_equal(med[0], low_merge[0])
-            and np.array_equal(med[1], low_merge[1])
-            and np.array_equal(med[0], labels))
-        if not r["medium_equals_low_merge"]:
-            failures.append(f"{arch}: MEDIUM differs from its LOW sweeps' merge")
-        del manager, predictor, lows, med, low_merge
-        native = write_native_checkpoint(ckpt, root / f"{arch}_native.pytorch")
-        predict_2d_model.main([str(native), str(root / "vessels_256.h5"),
-                               "--data_dir", str(root)])
-        out = predict_2d_model.create_output_path(root, Path("vessels_256.h5"))
-        r["native_labels_equal"] = bool(np.array_equal(hdf5.read(out)[0], labels))
-        out.unlink()
-        native.unlink()
-        if not r["native_labels_equal"]:
-            failures.append(f"{arch}: model-predict-2d on the VSTPU1 file gave "
-                            "other labels")
-        torch.cuda.empty_cache()
+        prediction_checks(arch, ckpt, vol, truth, predict_settings, root, dev,
+                          r, failures)
         print(json.dumps({"phase": "architectures", "arch": arch, **r}),
               flush=True)
 
     # 6. model-train-2d then model-predict-2d with the shipped files as
     # written, type U_Net_Plus_Plus, on the CLI phase's pair.
-    cli = root / "cli"
-    (cli / cfg.SETTINGS_DIR).mkdir(parents=True)
     text = settings_text(cfg.TRAIN_SETTINGS_FN, num_cyc_frozen=1,
                          num_cyc_unfrozen=1, seed=0)
-    (cli / cfg.SETTINGS_DIR / cfg.TRAIN_SETTINGS_FN).write_text(
-        text.replace('type: "U_Net"', 'type: "U_Net_Plus_Plus"'))
-    shutil.copy(predict_file, cli / cfg.SETTINGS_DIR)
-    trainers = []
+    rt = cli_round_trip("U-Net++", text.replace('type: "U_Net"',
+                                                'type: "U_Net_Plus_Plus"'),
+                        root, out_dir, vol, truth, predict_settings, dev,
+                        failures)
+    for entry, count in rt["launches"].items():
+        launches[entry] += count
+    res["unetpp_cli"] = rt
+    res["launches"] = launches
+    res["failures"] = failures
+    shutil.rmtree(root, ignore_errors=True)
+    print(json.dumps({k: v for k, v in res.items() if k != "archs"}),
+          flush=True)
+    return res
 
-    class RecordedTrainer(train_2d_model.VolSeg2dTrainer):
+
+def prediction_root(root: Path):
+    """`root` made anew with the shipped prediction settings and the 256^3
+    vessels volume as `vessels_256.h5`; returns it, the settings, the
+    volume and its truth."""
+    import volume_segmantics_tpu_torch.utils.config as cfg
+    from volume_segmantics_tpu_torch.data import get_settings_data
+    from volume_segmantics_tpu_torch.utils import hdf5
+
+    shutil.rmtree(root, ignore_errors=True)
+    (root / cfg.SETTINGS_DIR).mkdir(parents=True)
+    predict_file = root / cfg.SETTINGS_DIR / cfg.PREDICTION_SETTINGS_FN
+    predict_file.write_text(settings_text(cfg.PREDICTION_SETTINGS_FN))
+    vol, truth = make_vessel_volume((P, P, P), seed=7)
+    hdf5.write(root / "vessels_256.h5", vol, chunks=True)
+    return (root, get_settings_data(predict_file, kind="prediction"), vol,
+            truth)
+
+
+def throughput_batch(images_u8, masks_u8):
+    """The batch tiled to `THROUGHPUT_TRAIN_BATCH`."""
+    import volume_segmantics_tpu_torch.utils.config as cfg
+
+    n = cfg.THROUGHPUT_TRAIN_BATCH
+    reps = -(-n // images_u8.shape[0])
+    return (images_u8.repeat(reps, 1, 1)[:n].contiguous(),
+            masks_u8.repeat(reps, 1, 1)[:n].contiguous())
+
+
+def throughput_step(model, big_imgs, big_msks, dev):
+    """Two unfrozen steps at the throughput batch: the second's ms and the
+    peak memory, or the OOM (recorded, not failed)."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    n = big_imgs.shape[0]
+    try:
+        big_ms = arch_train_run(model, big_imgs, big_msks, dev, 25, 2,
+                                timed=True)[1]
+        out = {"batch": n, "oom": False, "second_step_ms": big_ms[1],
+               "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+    except torch.cuda.OutOfMemoryError as e:
+        out = {"batch": n, "oom": True, "error": str(e)[:200]}
+    torch.cuda.empty_cache()
+    return out
+
+
+def prediction_checks(name, ckpt, vol, truth, predict_settings, root: Path,
+                      dev, r, failures):
+    """MEDIUM on `vol` from `ckpt` through the manager (seconds, peak
+    memory, MeanIoU against `truth`), equal to the merge of its three LOW
+    sweeps, and `model-predict-2d` on the same weights as a JAX `VSTPU1`
+    file giving the same labels; `root` holds `vol` as `vessels_256.h5`
+    and the prediction settings. Results go into `r`, misses into
+    `failures`."""
+    from volume_segmantics_tpu_torch.model import VolSeg2DPredictionManager
+    from volume_segmantics_tpu_torch.scripts import predict_2d_model
+    from volume_segmantics_tpu_torch.utils import hdf5
+    from volume_segmantics_tpu_torch.utils.base_data_utils import Axis
+
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    manager = VolSeg2DPredictionManager(ckpt, vol, predict_settings,
+                                        device=dev)
+    labels = manager.predict_volume_to_path(None)
+    r["medium_256_s"] = time.perf_counter() - t0
+    r["medium_256_peak_memory_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    r["mean_iou_after_training"] = volume_mean_iou(labels, truth, dev)
+    predictor = manager.predictor
+    lows = [predictor._predict_single_axis(manager.data_vol, True, axis)
+            for axis in (Axis.Z, Axis.Y, Axis.X)]
+    med = predictor._predict_3_ways_max_probs(manager.data_vol, True)
+    low_merge = merge_max_prob(lows)
+    r["medium_equals_low_merge"] = bool(
+        np.array_equal(med[0], low_merge[0])
+        and np.array_equal(med[1], low_merge[1])
+        and np.array_equal(med[0], labels))
+    if not r["medium_equals_low_merge"]:
+        failures.append(f"{name}: MEDIUM differs from its LOW sweeps' merge")
+    del manager, predictor, lows, med, low_merge
+    native = write_native_checkpoint(ckpt, root / f"{ckpt.stem}_native.pytorch")
+    predict_2d_model.main([str(native), str(root / "vessels_256.h5"),
+                           "--data_dir", str(root)])
+    out = predict_2d_model.create_output_path(root, Path("vessels_256.h5"))
+    r["native_labels_equal"] = bool(np.array_equal(hdf5.read(out)[0], labels))
+    out.unlink()
+    native.unlink()
+    if not r["native_labels_equal"]:
+        failures.append(f"{name}: model-predict-2d on the VSTPU1 file gave "
+                        "other labels")
+    torch.cuda.empty_cache()
+
+
+def cli_round_trip(name, train_text, root: Path, out_dir: Path, vol, truth,
+                   predict_settings, dev, failures, trainer_cls=None):
+    """`model-train-2d` with `train_text` as the train settings file on the
+    CLI phase's pair, in `root`/cli: the last eval score >= 0.5 and each
+    kernel launched once a step; then `model-predict-2d` on `vol` (`root`
+    holds it as `vessels_256.h5`, and the prediction settings) equal to the
+    manager's labels. `trainer_cls` (default the CLI's) records the run.
+    Returns the results; misses go into `failures`."""
+    import volume_segmantics_tpu_torch.utils.config as cfg
+    from volume_segmantics_tpu_torch.model import VolSeg2DPredictionManager
+    from volume_segmantics_tpu_torch.ops import kernels
+    from volume_segmantics_tpu_torch.scripts import predict_2d_model, train_2d_model
+    from volume_segmantics_tpu_torch.utils import hdf5
+
+    cli = root / "cli"
+    shutil.rmtree(cli, ignore_errors=True)
+    (cli / cfg.SETTINGS_DIR).mkdir(parents=True)
+    (cli / cfg.SETTINGS_DIR / cfg.TRAIN_SETTINGS_FN).write_text(train_text)
+    shutil.copy(root / cfg.SETTINGS_DIR / cfg.PREDICTION_SETTINGS_FN,
+                cli / cfg.SETTINGS_DIR)
+    trainers = []
+    base = trainer_cls or train_2d_model.VolSeg2dTrainer
+
+    class RecordedTrainer(base):
         def __init__(self, *args, **kwargs):
             super().__init__(*args, **kwargs)
             trainers.append(self)
 
+    saved = train_2d_model.VolSeg2dTrainer
     train_2d_model.VolSeg2dTrainer = RecordedTrainer
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
@@ -1919,7 +2047,7 @@ def architectures_phase(images_u8, masks_u8, dev, out_dir: Path):
                              "--labels", str(out_dir / "cli" / "train_labels.h5"),
                              "--data_dir", str(cli)])
     finally:
-        train_2d_model.VolSeg2dTrainer = RecordedTrainer.__bases__[0]
+        train_2d_model.VolSeg2dTrainer = saved
     torch.cuda.synchronize()
     trainer = trainers[0]
     ckpt = train_2d_model._model_output_path(trainer.settings, cli)
@@ -1931,12 +2059,11 @@ def architectures_phase(images_u8, masks_u8, dev, out_dir: Path):
           "median_lr_find_step_ms": 1e3 * statistics.median(
               trainer.lr_find_step_seconds)}
     for entry, count in rt["launches"].items():
-        launches[entry] += count
         if count != trainer.train_steps:
-            failures.append(f"U-Net++ CLI: {entry} launched {count} times in "
+            failures.append(f"{name} CLI: {entry} launched {count} times in "
                             f"{trainer.train_steps} train steps")
     if not scores or not scores[-1] >= 0.5:
-        failures.append(f"U-Net++ CLI: last eval score {scores} < 0.5")
+        failures.append(f"{name} CLI: last eval score {scores} < 0.5")
     del trainers, trainer
     t0 = time.perf_counter()
     predict_2d_model.main([str(ckpt), str(root / "vessels_256.h5"),
@@ -1949,13 +2076,243 @@ def architectures_phase(images_u8, masks_u8, dev, out_dir: Path):
     rt["labels_equal_manager"] = bool(np.array_equal(cli_labels, ref))
     rt["mean_iou"] = volume_mean_iou(cli_labels, truth, dev)
     if not rt["labels_equal_manager"]:
-        failures.append("U-Net++ CLI: model-predict-2d labels differ from the "
+        failures.append(f"{name} CLI: model-predict-2d labels differ from the "
                         "manager's")
-    res["unetpp_cli"] = rt
+    return rt
+
+
+# The six encoders beside ResNet-34, each under U-Net at 2 classes: the
+# JAX model's parameter count, and the encoder parameters (leaves,
+# elements) that the JAX freeze mask leaves trainable (tests/
+# torch_encoder_cases.py holds both to the JAX package).
+ENCODER_PARAMS = {
+    "resnet50": (32514978, 0, 0),
+    "resnext50_32x4d": (31986850, 0, 0),
+    "efficientnet-b3": (12565562, 154, 84224),
+    "efficientnet-b4": (19418570, 190, 121616),
+    "timm-resnest50d": (34446882, 64, 18880),
+    "timm-resnest101e": (55256514, 132, 40640),
+}
+ENCODER_FROZEN_STEPS = 5
+ENCODER_STEPS = 20
+# The dilated forms held card against CPU beside U-Net (output stride 16
+# and 8).
+ENCODER_DILATED = ("DeepLabV3_Plus", "DeepLabV3")
+ENCODER_CLI = "efficientnet-b3"
+
+
+def bn_running_means(model):
+    """Each BatchNorm's running mean (a clone), by module name."""
+    from volume_segmantics_tpu_torch.models.layers import BnAct
+
+    return {name: m.running_mean.clone() for name, m in model.named_modules()
+            if isinstance(m, BnAct)}
+
+
+def encoders_phase(images_u8, masks_u8, dev, out_dir: Path):
+    """The six other encoders through training and prediction (see the
+    module doc)."""
+    import volume_segmantics_tpu_torch.utils.config as cfg
+    from volume_segmantics_tpu_torch.model.operations.vol_seg_2d_trainer import (
+        frozen_parameter_names,
+    )
+    from volume_segmantics_tpu_torch.models.checkpoint import save_checkpoint
+    from volume_segmantics_tpu_torch.models.pretrained import (
+        WEIGHTS_DIR_ENV,
+        first_conv_path,
+    )
+    from volume_segmantics_tpu_torch.models.torch_export import (
+        variables_from_smp_state_dict,
+    )
+    from volume_segmantics_tpu_torch.ops import kernels
+    from volume_segmantics_tpu_torch.scripts import train_2d_model
+    from volume_segmantics_tpu_torch.utils.base_data_utils import ModelType
+    from volume_segmantics_tpu_torch.utils.flax_msgpack import msgpack_serialize
+
+    failures, res = [], {"phase": "encoders",
+                         "frozen_steps": ENCODER_FROZEN_STEPS,
+                         "steps": ENCODER_STEPS,
+                         "card_vs_cpu_rtol": ARCH_CARD_VS_CPU_RTOL,
+                         "encoders": {}}
+    root, predict_settings, vol, truth = prediction_root(out_dir / "encoders")
+    x_card = torch.randn(2, 1, S, S, generator=torch.Generator().manual_seed(3))
+    big = throughput_batch(images_u8, masks_u8)
+    launches = dict.fromkeys(kernels.LAUNCHES, 0)
+    cache_tree = None
+
+    for name, (jax_params, jax_leaves, jax_elements) in ENCODER_PARAMS.items():
+        r = {}
+        struc = dict(STRUC, encoder_name=name, type=ModelType.U_NET)
+        res["encoders"][name] = r
+        # 1. The same seeded weights, BatchNorms randomised, on the CPU and
+        # on the card, float32 eval: U-Net, then the dilated forms (output
+        # stride 16 and 8).
+        for mtype in ENCODER_DILATED:
+            m, r[f"{mtype}_card_vs_cpu"] = card_against_cpu(
+                dict(struc, type=ModelType[mtype.upper()]), x_card, dev,
+                randomize_bn=True)
+            del m
+        model, r["U_Net_card_vs_cpu"] = card_against_cpu(
+            struc, x_card, dev, randomize_bn=True)
+        for mtype in ("U_Net",) + ENCODER_DILATED:
+            err = r[f"{mtype}_card_vs_cpu"]["rel_err"]
+            if not err <= ARCH_CARD_VS_CPU_RTOL:
+                failures.append(f"{name} {mtype}: card against CPU {err}")
+        r["params"] = sum(p.numel() for p in model.parameters())
+        if r["params"] != jax_params:
+            failures.append(f"{name}: {r['params']} parameters, JAX {jax_params}")
+        r["forward_gflop_per_sample"] = forward_gflop_per_sample(model, S, dev)
+        initial = {k: v.clone() for k, v in model.state_dict().items()}
+
+        # 2. Frozen steps as the trainer sets them up: exactly the
+        # parameters the JAX mask leaves trainable move; the running
+        # statistics of every BatchNorm move.
+        frozen = frozen_parameter_names(model, struc)
+        trainable = []
+        for n, p in model.named_parameters():
+            p.requires_grad_(n not in frozen)
+            if p.requires_grad:
+                trainable.append(p)
+        enc = [p for n, p in model.named_parameters()
+               if n.startswith("encoder.") and n not in frozen]
+        r["trainable_encoder"] = [len(enc), sum(p.numel() for p in enc)]
+        if r["trainable_encoder"] != [jax_leaves, jax_elements]:
+            failures.append(f"{name}: trainable encoder {r['trainable_encoder']}"
+                            f", JAX {[jax_leaves, jax_elements]}")
+        stats = bn_running_means(model)
+        kernels.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats(dev)
+        frozen_losses, frozen_ms = arch_train_run(
+            model, images_u8, masks_u8, dev, 22, ENCODER_FROZEN_STEPS,
+            timed=True, params=trainable)
+        r["frozen_peak_memory_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+        after = model.state_dict()
+        changed = {n for n, _ in model.named_parameters()
+                   if not torch.equal(after[n], initial[n])}
+        r["frozen_changed_exactly_trainable"] = (
+            changed == {n for n, _ in model.named_parameters()} - frozen)
+        if not r["frozen_changed_exactly_trainable"]:
+            failures.append(f"{name}: frozen steps changed "
+                            f"{len(changed)} parameters, "
+                            f"{len(trainable)} trainable")
+        still = [k for k, v in bn_running_means(model).items()
+                 if torch.equal(v, stats[k])]
+        r["frozen_stats_moved"] = not still
+        if still:
+            failures.append(f"{name}: frozen steps left running statistics "
+                            f"of {still[:3]}")
+        if not all(np.isfinite(frozen_losses)):
+            failures.append(f"{name}: non-finite frozen losses {frozen_losses}")
+
+        # 3. Unfrozen steps from there, twice from the same weights and
+        # seeds, with cuDNN's flags as the trainer leaves them: equal
+        # losses; each kernel launched once a step in the first run.
+        for p in model.parameters():
+            p.requires_grad_(True)
+        start = {k: v.clone() for k, v in model.state_dict().items()}
+        torch.cuda.reset_peak_memory_stats(dev)
+        losses, step_ms = arch_train_run(model, images_u8, masks_u8, dev, 22,
+                                         ENCODER_STEPS, timed=True)
+        r["launches"] = dict(kernels.LAUNCHES)
+        r.update(frozen_last_loss=frozen_losses[-1],
+                 median_frozen_step_ms=statistics.median(frozen_ms),
+                 first_loss=losses[0], last_loss=losses[-1],
+                 median_step_ms=statistics.median(step_ms),
+                 first_step_ms=step_ms[0],
+                 peak_memory_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
+        steps = ENCODER_FROZEN_STEPS + ENCODER_STEPS
+        for entry, count in r["launches"].items():
+            launches[entry] += count
+            if count != steps:
+                failures.append(f"{name}: {entry} launched {count} times in "
+                                f"{steps} train steps")
+        if not all(np.isfinite(losses)):
+            failures.append(f"{name}: non-finite losses {losses}")
+        trained = {k: v.clone() for k, v in model.state_dict().items()}
+        r["cudnn_deterministic"] = torch.backends.cudnn.deterministic
+        model.load_state_dict(start)
+        repeat = arch_train_run(model, images_u8, masks_u8, dev, 22,
+                                ENCODER_STEPS)[0]
+        r["repeats"] = repeat == losses
+        if not r["repeats"]:
+            failures.append(f"{name}: a seeded run gave {repeat}, then {losses}")
+
+        # 4. One unfrozen step at the throughput batch: peak memory or OOM.
+        model.load_state_dict(initial)
+        r["throughput_batch"] = throughput_step(model, *big, dev)
+
+        # 5. MEDIUM on 256^3 from the trained weights (the trainer's
+        # checkpoint writer), equal to its LOW sweeps' merge; the same
+        # weights as a JAX VSTPU1 file through model-predict-2d.
+        model.load_state_dict(trained)
+        ckpt = root / f"{name}.pytorch"
+        save_checkpoint(ckpt, model, struc)
+        if name == ENCODER_CLI:
+            cache_tree = variables_from_smp_state_dict(trained, struc)
+        del model, initial, start, trained, after
+        prediction_checks(name, ckpt, vol, truth, predict_settings, root, dev,
+                          r, failures)
+        ckpt.unlink()
+        print(json.dumps({"phase": "encoders", "encoder": name, **r}),
+              flush=True)
+
+    # 6. model-train-2d with the shipped files as written but
+    # `encoder_name: ENCODER_CLI`, from a cached encoder (the trained one
+    # above, its first convolution widened to 3 channels: the kernel, then
+    # zeros), so the frozen phase runs; then model-predict-2d.
+    params = cache_tree["params"]["encoder"]
+    node = params
+    path = first_conv_path(params)
+    for key in path[:-1]:
+        node = node[key]
+    kernel = node[path[-1]]  # HWIO, I = 1
+    node[path[-1]] = np.concatenate(
+        [kernel, np.zeros_like(kernel), np.zeros_like(kernel)], axis=2)
+    (root / "weights").mkdir()
+    (root / "weights" / f"{ENCODER_CLI}.vstpu").write_bytes(msgpack_serialize(
+        {"params": params, "batch_stats": cache_tree["batch_stats"]["encoder"]}))
+    phases, loaded = [], []
+
+    class CachedTrainer(train_2d_model.VolSeg2dTrainer):
+        """Records the phases it trains and whether each model it creates
+        took the cached encoder."""
+
+        def _create_model_and_optimiser(self, learning_rate, frozen=False):
+            super()._create_model_and_optimiser(learning_rate, frozen)
+            loaded.append(self.model.pretrained_loaded)
+
+        def train_model(self, output_path, num_epochs, patience, create=True,
+                        frozen=False):
+            phases.append(frozen)
+            return super().train_model(output_path, num_epochs, patience,
+                                       create, frozen)
+
+    text = settings_text(cfg.TRAIN_SETTINGS_FN, num_cyc_frozen=1,
+                         num_cyc_unfrozen=1, seed=0)
+    saved_env = os.environ.get(WEIGHTS_DIR_ENV)
+    os.environ[WEIGHTS_DIR_ENV] = str(root / "weights")
+    try:
+        rt = cli_round_trip(
+            ENCODER_CLI, text.replace('encoder_name: "resnet34"',
+                                      f'encoder_name: "{ENCODER_CLI}"'),
+            root, out_dir, vol, truth, predict_settings, dev, failures,
+            trainer_cls=CachedTrainer)
+    finally:
+        if saved_env is None:
+            del os.environ[WEIGHTS_DIR_ENV]
+        else:
+            os.environ[WEIGHTS_DIR_ENV] = saved_env
+    rt.update(phases_frozen=phases, models_from_cache=loaded)
+    if phases[:1] != [True] or not loaded or not all(loaded):
+        failures.append(f"{ENCODER_CLI} CLI: frozen phases {phases}, models "
+                        f"from the cache {loaded}")
+    for entry, count in rt["launches"].items():
+        launches[entry] += count
+    res["cli"] = rt
     res["launches"] = launches
     res["failures"] = failures
     shutil.rmtree(root, ignore_errors=True)
-    print(json.dumps({k: v for k, v in res.items() if k != "archs"}),
+    print(json.dumps({k: v for k, v in res.items() if k != "encoders"}),
           flush=True)
     return res
 
@@ -2020,8 +2377,9 @@ def main() -> int:
         large = large_phase(model_out, dev, out_dir)
         pretrained = pretrained_phase(model_out, dev, out_dir, cli)
         archs = architectures_phase(images, masks, dev, out_dir)
+        encoders = encoders_phase(images, masks, dev, out_dir)
     sweep = train_batch_sweep(images, masks, dev)
-    counted = (summary, cli, losses, pretrained, archs)
+    counted = (summary, cli, losses, pretrained, archs, encoders)
     kernels_line = {"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": sum(phase["launches"][entry] for phase in counted),
@@ -2032,7 +2390,7 @@ def main() -> int:
     ]}
     failed = [k for k in kres if not kres[k]["ok"]] + [
         f for phase in (summary, predicted, cli, losses, ckpt, large, pretrained,
-                        archs, sweep)
+                        archs, encoders, sweep)
         for f in phase["failures"]]
     if failed:
         print(json.dumps({"failed": failed}), file=sys.stderr)

@@ -50,7 +50,7 @@ def test_dilated_encoder_features_match_jax(output_stride, strides):
     encoder, channels = resnet34(1, output_stride)
     encoder.load_state_dict({
         k[len("encoder."):]: v for k, v in encoder_state_dict_from_variables(
-            tree["params"], tree["batch_stats"]).items()})
+            tree["params"], tree["batch_stats"], "resnet34").items()})
     encoder.eval()
     with torch.no_grad():
         feats = encoder(torch.from_numpy(x).permute(0, 3, 1, 2))

@@ -171,21 +171,27 @@ def run_jax_predict(argv):
         sys.argv = saved
 
 
-@pytest.mark.parametrize("model_type", ["U_Net_Plus_Plus"])
+@pytest.mark.parametrize("model_type,encoder", [
+    pytest.param("U_Net_Plus_Plus", "resnet34", id="U_Net_Plus_Plus"),
+    pytest.param("U_Net", "efficientnet-b3", id="U_Net-efficientnet-b3"),
+])
 def test_train_then_predict_cli_round_trip(volumes, tmp_path, monkeypatch,
-                                           model_type):
+                                           model_type, encoder):
     """`model-train-2d` with another decoder in the shipped file's
-    `model: type:`, then `model-predict-2d` on its checkpoint: a dated
-    checkpoint named by the type, which the JAX package loads as that
-    type, and labels equal to the JAX CLI's from the same file on >= 99.9%
-    of voxels (the near-tie rule of test_torch_predictor.py)."""
+    `model: type:`, or another `encoder_name:`, then `model-predict-2d` on
+    its checkpoint: a dated checkpoint named by the type, which the JAX
+    package loads as that type and encoder, and labels equal to the JAX
+    CLI's from the same file on >= 99.9% of voxels (the near-tie rule of
+    test_torch_predictor.py)."""
     monkeypatch.setattr(cfg, "MIN_LR_FIND_STEPS", 6)
     write_settings(tmp_path, cfg.TRAIN_SETTINGS_FN,
                    **train_edits(training_axes="Z"))
     path = tmp_path / cfg.SETTINGS_DIR / cfg.TRAIN_SETTINGS_FN
     text = path.read_text()
-    assert 'type: "U_Net"' in text
-    path.write_text(text.replace('type: "U_Net"', f'type: "{model_type}"'))
+    assert 'type: "U_Net"' in text and 'encoder_name: "resnet34"' in text
+    path.write_text(text.replace('type: "U_Net"', f'type: "{model_type}"')
+                    .replace('encoder_name: "resnet34"',
+                             f'encoder_name: "{encoder}"'))
     train.main(train_argv(volumes, tmp_path, pairs=(0,)), device="cpu")
     ckpt = train._model_output_path(
         train.get_settings_data(path, "training"), tmp_path)
@@ -193,6 +199,7 @@ def test_train_then_predict_cli_round_trip(volumes, tmp_path, monkeypatch,
     assert (tmp_path / f"{ckpt.stem}_train_stats.csv").exists()
     ref = jax_load_checkpoint(ckpt)
     assert ref["model_struc_dict"]["type"].name == model_type.upper()
+    assert ref["model_struc_dict"]["encoder_name"] == encoder
 
     labels = {}
     for name in ("ours", "jax"):

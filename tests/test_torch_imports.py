@@ -50,7 +50,9 @@ def test_every_module_imports_and_no_kernel_is_built():
                    "utils.flax_msgpack", "models.pretrained", "utils.host_memory",
                    "model.operations.vol_seg_large_predictor",
                    *(f"models.decoders.{d}" for d in (
-                       "unetpp", "fpn", "deeplab", "manet", "linknet", "pan"))):
+                       "unetpp", "fpn", "deeplab", "manet", "linknet", "pan")),
+                   *(f"models.encoders.{e}" for e in (
+                       "resnet", "efficientnet", "resnest"))):
         assert f"volume_segmantics_tpu_torch.{module}" in names
     for name in names:
         importlib.import_module(name)

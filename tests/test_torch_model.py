@@ -14,12 +14,19 @@ from flax import serialization
 from volume_segmantics_tpu.model.model_2d import (
     create_model_on_device as jax_create_model_on_device,
 )
+from volume_segmantics_tpu.models.registry import (
+    available_encoders as jax_available_encoders,
+)
+from volume_segmantics_tpu.models.registry import create_model as jax_create_model
 from volume_segmantics_tpu.models.torch_export import (
     smp_state_dict_from_variables as jax_smp_state_dict,
 )
 from volume_segmantics_tpu.utils.base_data_utils import ModelType as JaxModelType
 from volume_segmantics_tpu_torch.model.model_2d import create_model_on_device
-from volume_segmantics_tpu_torch.models.registry import create_model
+from volume_segmantics_tpu_torch.models.registry import (
+    available_encoders,
+    create_model,
+)
 from volume_segmantics_tpu_torch.models.torch_export import (
     smp_state_dict_from_variables,
     variables_from_smp_state_dict,
@@ -136,16 +143,31 @@ def test_init_is_seeded_lecun_normal():
                        torch.zeros_like(a.segmentation_head[0].bias))
 
 
-def test_unported_architecture_raises():
-    """Every decoder runs on resnet34; any other encoder raises, naming
-    itself, when the model is built and when its weights are carried."""
-    for mtype, encoder in (("FPN", "resnet50"), ("U_Net", "efficientnet-b3"),
-                           ("PAN", "timm-resnest50d")):
-        struc = dict(STRUC, type=mtype, encoder_name=encoder)
-        with pytest.raises(NotImplementedError, match=encoder):
-            create_model(struc)
-        with pytest.raises(NotImplementedError, match=encoder):
+@pytest.mark.parametrize("mtype,encoder", [
+    ("PAN", "timm-resnest50d"), ("PAN", "timm-resnest101e"),
+    ("U_Net", "resnet18"), ("FPN", "timm-efficientnet-b3"),
+])
+def test_unported_architecture_raises(mtype, encoder):
+    """What the JAX registry refuses, the port refuses with the JAX
+    package's ValueError: PAN on a ResNeSt, and an encoder neither package
+    builds (named, beside the available ones), when the model is built
+    and, for the unknown encoder, when its weights are carried."""
+    struc = dict(STRUC, type=mtype, encoder_name=encoder)
+    with pytest.raises(ValueError) as ref:
+        jax_create_model(dict(struc, type=JaxModelType[mtype.upper()]))
+    with pytest.raises(ValueError) as got:
+        create_model(struc)
+    assert str(got.value) == str(ref.value)
+    if "resnest" not in encoder:
+        assert f"'{encoder}'" in str(got.value)
+        with pytest.raises(ValueError, match=encoder):
             variables_from_smp_state_dict({}, struc)
+        with pytest.raises(ValueError, match=encoder):
+            smp_state_dict_from_variables({"params": {}}, struc)
+
+
+def test_available_encoders_match_jax():
+    assert available_encoders() == list(jax_available_encoders())
 
 
 def test_cuda_entry_point_raises_without_gpu():

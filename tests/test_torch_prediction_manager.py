@@ -217,6 +217,26 @@ def test_medium_matches_the_jax_manager_for_each_decoder(model_type,
     assert shares.min() >= 0.05, shares  # both classes take a real share
 
 
+@pytest.mark.parametrize("encoder_name", ["resnext50_32x4d", "timm-resnest50d"])
+def test_medium_matches_the_jax_manager_for_each_encoder(encoder_name,
+                                                         tmp_path):
+    """MEDIUM on a 32^3 volume, as the decoders' test above, from a U-Net
+    on a grouped-conv and a split-attention encoder: equal to the JAX
+    manager's labels on >= 99.9% of voxels."""
+    vol = np.random.default_rng(3).integers(0, 256, (32, 32, 32),
+                                            dtype=np.uint8)
+    ckpt = write_checkpoint(tmp_path / "m.pytorch", 2, slices=vol,
+                            encoder_name=encoder_name)
+    settings = predict_settings(clip_data=False)
+    labels = VolSeg2DPredictionManager(
+        ckpt, vol, settings, device="cpu").predict_volume_to_path(None)
+    ref = JaxPredictionManager(ckpt, vol, settings).predict_volume_to_path(None)
+    assert labels.shape == ref.shape == vol.shape
+    assert (labels != ref).mean() <= 1e-3
+    shares = np.bincount(ref.ravel(), minlength=2) / ref.size
+    assert shares.min() >= 0.05, shares
+
+
 def test_prediction_batch_size_setting_and_default():
     assert get_batch_size(predict_settings(prediction_batch_size=6), "cpu",
                           prediction=True) == 6

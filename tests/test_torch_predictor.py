@@ -67,10 +67,11 @@ def predict_settings(**overrides):
     return SimpleNamespace(**settings)
 
 
-def write_checkpoint(path, classes, model_type=ModelType.U_NET, slices=None):
+def write_checkpoint(path, classes, model_type=ModelType.U_NET, slices=None,
+                     encoder_name="resnet34"):
     """A seeded model whose head is scaled x20 and centred on `slices`
     (uint8, (n, h, w); default 8 noise images of 64 x 64)."""
-    struc = {"type": model_type, "encoder_name": "resnet34",
+    struc = {"type": model_type, "encoder_name": encoder_name,
              "encoder_weights": None, "in_channels": 1, "classes": classes}
     model = create_model_on_device(
         "cpu", struc, generator=torch.Generator().manual_seed(classes))

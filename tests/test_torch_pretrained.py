@@ -86,6 +86,33 @@ def test_cached_encoder_equals_the_jax_merge(tmp_path, monkeypatch, stats):
         assert torch.equal(ours["encoder.bn1.running_var"], torch.ones(64))
 
 
+@pytest.mark.parametrize("tree", [
+    {"stem_conv": {"conv": {"kernel": None}, "bn": {}}},  # ResNet
+    {"conv_stem": {"kernel": None}, "bnact_stem": {}},  # EfficientNet
+    {"stem_conv1": {"conv": {"kernel": None}}, "stem_conv2": {}},  # ResNeSt
+    {"layer1_0": {}},
+], ids=["resnet", "efficientnet", "resnest", "none"])
+def test_first_conv_path_matches_jax(tree):
+    """The cache's first convolution is found as the JAX package finds it,
+    and only it is adapted (a 3-channel kernel summed to one channel)."""
+    path = pretrained.first_conv_path(tree)
+    assert path == jax_pretrained._first_conv_path(tree)
+    if path is None:
+        return
+    kernel = np.random.default_rng(0).normal(size=(3, 3, 3, 8)).astype(
+        np.float32)
+    node = tree
+    for key in path[:-1]:
+        node = node[key]
+    node[path[-1]] = kernel
+    adapted = pretrained._with_adapted_first_conv(tree, 1)
+    got = adapted
+    for key in path:
+        got = got[key]
+    np.testing.assert_array_equal(got, kernel.sum(axis=2, keepdims=True))
+    assert node[path[-1]] is kernel  # the cache's tree is left as it was
+
+
 @pytest.mark.parametrize("in_channels", [1, 2, 3, 5])
 def test_adapt_first_conv_matches_jax(in_channels):
     kernel = np.random.default_rng(in_channels).normal(

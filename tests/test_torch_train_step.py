@@ -39,6 +39,7 @@ from volume_segmantics_tpu_torch.data.losses import get_loss_fn
 from volume_segmantics_tpu_torch.data.metrics import mean_iou
 from volume_segmantics_tpu_torch.model.operations.vol_seg_2d_trainer import (
     VolSeg2dTrainer,
+    frozen_parameter_names,
 )
 from volume_segmantics_tpu_torch.models.registry import create_model
 from volume_segmantics_tpu_torch.models.torch_export import (
@@ -180,17 +181,16 @@ def test_train_step_matches_jax(setup, frozen):
 def test_trainable_parameter_counts_match_jax(setup):
     bundle, _, _ = setup
     model = carried(bundle.variables)
+    trainer = SimpleNamespace(
+        model=model, _freezable=frozen_parameter_names(model, STRUC))
     for frozen in (True, False):
         ref = JaxTrainer._count_trainable_parameters(
             SimpleNamespace(bundle=bundle), frozen
         )
-        got = VolSeg2dTrainer._count_trainable_parameters(
-            SimpleNamespace(model=model), frozen
-        )
+        got = VolSeg2dTrainer._count_trainable_parameters(trainer, frozen)
         assert got == ref, frozen
-    assert VolSeg2dTrainer._count_trainable_parameters(
-        SimpleNamespace(model=model), True
-    ) < sum(p.numel() for p in model.parameters())
+    assert VolSeg2dTrainer._count_trainable_parameters(trainer, True) < sum(
+        p.numel() for p in model.parameters())
 
 
 def test_eval_step_with_padded_tail_matches_jax(setup):

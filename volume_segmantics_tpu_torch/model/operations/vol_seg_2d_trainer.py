@@ -6,10 +6,14 @@ volume_segmantics/model/operations/vol_seg_2d_trainer.py:35-535).
 The train step fuses augmentation, normalisation, forward, loss, backward
 and AdamW (`parallel/train.py`). The learning rate is an argument of the
 step, so the LR finder and OneCycle schedule only change a number.
-Freezing follows the JAX package's mask: every leaf whose path holds
-"encoder" and "conv" is frozen, and in its ResNet every encoder module is a
+Freezing follows the JAX package's mask: every leaf whose flax path holds
+"encoder" and "conv" is frozen. Each port parameter is given the path that
+`models/torch_export.variables_from_smp_state_dict` maps it to, and the
+rule is applied to that path. In the ResNets every encoder module is a
 `stem_conv`, `convbn*` or `conv_down`, so the whole encoder is frozen,
-BatchNorm scale and bias included. Running statistics still update.
+BatchNorm scale and bias included; EfficientNet's `bnact_*` BatchNorms and
+ResNeSt's split-attention `bn0`/`bn1` stay trainable. Running statistics
+still update.
 
 With `autosave: True` each epoch writes `<output>.autosave` (model and
 AdamW state, early-stopping state, the loss lists), and an interrupted run
@@ -45,6 +49,7 @@ from volume_segmantics_tpu_torch.models.checkpoint import (
     load_checkpoint,
     save_checkpoint,
 )
+from volume_segmantics_tpu_torch.models.torch_export import flax_param_paths
 from volume_segmantics_tpu_torch.parallel.train import (
     build_eval_step,
     build_train_step,
@@ -57,9 +62,15 @@ from volume_segmantics_tpu_torch.utils.host_memory import (
 )
 
 
-def is_frozen_parameter(name: str) -> bool:
-    """The JAX package freezes every encoder parameter (see module doc)."""
-    return name.startswith("encoder.")
+def frozen_parameter_names(model: torch.nn.Module,
+                           model_struc_dict: dict) -> frozenset:
+    """The parameters the JAX package's `_freeze_mask` freezes: those whose
+    flax path holds "encoder" and "conv" (see module doc)."""
+    paths = flax_param_paths(model.state_dict(), model_struc_dict)
+    return frozenset(
+        name for name, _ in model.named_parameters()
+        if any("encoder" in n for n in paths[name])
+        and any("conv" in n for n in paths[name]))
 
 
 class VolSeg2dTrainer:
@@ -158,6 +169,8 @@ class VolSeg2dTrainer:
         self.model = create_model_on_device(
             self.device, self.model_struc_dict, generator=self._init_gen
         )
+        self._freezable = frozen_parameter_names(self.model,
+                                                 self.model_struc_dict)
         self._set_frozen(frozen)
         logging.info(
             f"Model has {self._count_trainable_parameters()} trainable "
@@ -178,7 +191,7 @@ class VolSeg2dTrainer:
         self._frozen = frozen
         trainable = []
         for name, p in self.model.named_parameters():
-            p.requires_grad_(not (frozen and is_frozen_parameter(name)))
+            p.requires_grad_(not (frozen and name in self._freezable))
             if p.requires_grad:
                 trainable.append(p)
         self.optimizer = make_base_optimizer(trainable, self._weight_decay)
@@ -203,7 +216,7 @@ class VolSeg2dTrainer:
             frozen = self._frozen
         return sum(
             p.numel() for name, p in self.model.named_parameters()
-            if not (frozen and is_frozen_parameter(name))
+            if not (frozen and name in self._freezable)
         )
 
     # ------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """Building blocks of the segmentation models, NCHW (port of the JAX
 package's `models/layers.py`: ConvBnAct, BnAct, upsample, resize_to,
 resize_align_corners, max_pool, global_avg_pool), plus the flax Dropout
-that the FPN and DeepLab decoders use.
+that the FPN and DeepLab decoders use and the TF-"SAME" convolution of
+the EfficientNet encoders.
 
 The TPU re-expressions of a plain convolution there (space-to-depth stem,
 phase-decomposed upsample+conv) are not ported: a plain conv computes the
@@ -42,15 +43,18 @@ class BnAct(nn.Module):
     statistics, which would drift from the reference, and refuses a batch
     of one value per channel, which the image-pool branches give.)
 
+    The activation ("relu", "silu" or None) runs after the cast, as the
+    JAX `bn_apply_act` does: for SiLU under bf16 the order matters.
     Parameter and buffer names are BatchNorm2d's, so `state_dict()` keys
     are the reference checkpoint's."""
 
     momentum = 0.9
-    eps = 1e-5
 
-    def __init__(self, features: int, act: Optional[str] = "relu"):
+    def __init__(self, features: int, act: Optional[str] = "relu",
+                 eps: float = 1e-5):
         super().__init__()
         self.act = act
+        self.eps = eps
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
@@ -81,7 +85,9 @@ class BnAct(nn.Module):
         shift = self.bias - mean * mul
         y = x.float() * mul[:, None, None] + shift[:, None, None]
         y = y.to(x.dtype)
-        return F.relu(y) if self.act == "relu" else y
+        if self.act == "relu":
+            return F.relu(y)
+        return F.silu(y) if self.act == "silu" else y
 
 
 class ConvBnAct(nn.Sequential):
@@ -97,6 +103,34 @@ class ConvBnAct(nn.Sequential):
                       dilation=dilation, bias=False),
             BnAct(out_ch),
         )
+
+
+class SameConv2d(nn.Conv2d):
+    """nn.Conv2d with TF "SAME" padding, the JAX EfficientNet's: the total
+    padding of a side of size n is (ceil(n / s) - 1) * s + (k - 1) * d + 1
+    - n (at least 0), computed from the input at run time, its smaller half
+    before and the larger after (a stride-2 conv pads bottom and right
+    more). Symmetric padding goes to the convolution itself, uneven
+    padding through `F.pad` first."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int,
+                 stride: int = 1, dilation: int = 1, groups: int = 1,
+                 bias: bool = False):
+        super().__init__(in_ch, out_ch, kernel_size, stride, 0, dilation,
+                         groups, bias)
+
+    def forward(self, x):
+        pads = []
+        for n, k, s, d in zip(x.shape[2:], self.kernel_size, self.stride,
+                              self.dilation):
+            total = max((-(-n // s) - 1) * s + (k - 1) * d + 1 - n, 0)
+            pads.append((total // 2, total - total // 2))
+        (top, bottom), (left, right) = pads
+        if top == bottom and left == right:
+            return F.conv2d(x, self.weight, self.bias, self.stride,
+                            (top, left), self.dilation, self.groups)
+        return F.conv2d(F.pad(x, (left, right, top, bottom)), self.weight,
+                        self.bias, self.stride, 0, self.dilation, self.groups)
 
 
 class Dropout(nn.Module):

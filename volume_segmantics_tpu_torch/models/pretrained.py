@@ -52,6 +52,37 @@ def _adapt_first_conv(kernel: np.ndarray, in_channels: int) -> np.ndarray:
     return tiled * (kernel.shape[2] / in_channels)
 
 
+def first_conv_path(params: dict):
+    """The path of the encoder's first convolution kernel, as the JAX
+    package finds it: ResNet's `stem_conv`, EfficientNet's `conv_stem`,
+    ResNeSt's `stem_conv1`."""
+    for name in ("stem_conv", "conv_stem", "stem_conv1"):
+        node = params.get(name)
+        if node is None:
+            continue
+        if "conv" in node and "kernel" in node["conv"]:
+            return (name, "conv", "kernel")
+        if "kernel" in node:
+            return (name, "kernel")
+    return None
+
+
+def _with_adapted_first_conv(params: dict, in_channels: int) -> dict:
+    """`params` with its first convolution adapted to `in_channels` (the
+    nodes on its path copied, nothing else)."""
+    path = first_conv_path(params)
+    if path is None:
+        return params
+    params = dict(params)
+    node = params
+    for key in path[:-1]:
+        node[key] = dict(node[key])
+        node = node[key]
+    node[path[-1]] = _adapt_first_conv(np.asarray(node[path[-1]]),
+                                       in_channels)
+    return params
+
+
 def load_pretrained_encoder(model: torch.nn.Module, encoder_name: str,
                             in_channels: int) -> bool:
     """Copy the cached encoder weights into `model`'s `encoder.*` in place;
@@ -67,16 +98,12 @@ def load_pretrained_encoder(model: torch.nn.Module, encoder_name: str,
         )
         return False
     blob = msgpack_restore(path.read_bytes())
-    params = dict(blob["params"])
-    stem = dict(params["stem_conv"])
-    stem["conv"] = dict(stem["conv"])
-    stem["conv"]["kernel"] = _adapt_first_conv(
-        np.asarray(stem["conv"]["kernel"]), in_channels)
-    params["stem_conv"] = stem
+    params = _with_adapted_first_conv(blob["params"], in_channels)
     own = model.state_dict()
-    stats = (blob.get("batch_stats")
-             or encoder_variables_from_state_dict(own)["batch_stats"])
-    sd = {k: v for k, v in encoder_state_dict_from_variables(params, stats).items()
+    stats = (blob.get("batch_stats") or encoder_variables_from_state_dict(
+        own, encoder_name)["batch_stats"])
+    sd = {k: v for k, v in encoder_state_dict_from_variables(
+              params, stats, encoder_name).items()
           if not k.endswith("num_batches_tracked")}
     unknown = sorted(set(sd) - set(own))
     missing = sorted(k for k in own if k.startswith("encoder.")

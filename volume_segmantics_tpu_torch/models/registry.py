@@ -1,10 +1,11 @@
 """Model factory: ModelType + encoder name -> segmentation nn.Module (port
-of the JAX package's `models/registry.py`; all eight decoders, on resnet34
-only so far).
+of the JAX package's `models/registry.py`: all eight decoders on all seven
+encoders, except PAN on a ResNeSt, which the JAX package refuses too).
 
 Submodule names follow smp's (`encoder.conv1`, `encoder.layer1.0.bn1`,
-`decoder.blocks.0.conv1.0`, `segmentation_head.0`), so `state_dict()` keys
-are the reference checkpoint's.
+`decoder.blocks.0.conv1.0`, `segmentation_head.0`; lukemelas' for
+"efficientnet-bX", timm's for "timm-resnest*"), so `state_dict()` keys are
+the reference checkpoint's.
 """
 
 import logging
@@ -22,14 +23,38 @@ from volume_segmantics_tpu_torch.models.decoders.manet import MAnetDecoder
 from volume_segmantics_tpu_torch.models.decoders.pan import PANDecoder
 from volume_segmantics_tpu_torch.models.decoders.unet import UnetDecoder
 from volume_segmantics_tpu_torch.models.decoders.unetpp import UnetPlusPlusDecoder
-from volume_segmantics_tpu_torch.models.encoders.resnet import resnet34
+from volume_segmantics_tpu_torch.models.encoders import (
+    efficientnet,
+    resnest,
+    resnet,
+)
 from volume_segmantics_tpu_torch.models.layers import init_like_flax, resize_to
 from volume_segmantics_tpu_torch.utils.base_data_utils import (
     ModelType,
     create_enum_from_setting,
 )
 
-PORTED_ENCODERS = {"resnet34": resnet34}
+# encoder name -> builder(in_channels, output_stride) -> (module, channels)
+ENCODERS = {
+    "resnet34": resnet.resnet34,
+    "resnet50": resnet.resnet50,
+    "resnext50_32x4d": resnet.resnext50_32x4d,
+    "efficientnet-b3": efficientnet.efficientnet_b3,
+    "efficientnet-b4": efficientnet.efficientnet_b4,
+    "timm-resnest50d": resnest.resnest50d,
+    "timm-resnest101e": resnest.resnest101e,
+}
+
+
+def available_encoders():
+    return list(ENCODERS)
+
+
+def check_encoder_name(encoder_name: str) -> None:
+    """Raise ValueError, naming the available encoders, for any other."""
+    if encoder_name not in ENCODERS:
+        raise ValueError(f"Encoder '{encoder_name}' is not supported. "
+                         f"Available: {sorted(ENCODERS)}")
 
 
 class SegmentationModel(nn.Module):
@@ -87,15 +112,12 @@ def create_model(model_struc_dict: dict,
     encoder_name = struct.get("encoder_name", "resnet34")
     classes = struct.get("classes", 2)
     in_channels = struct.get("in_channels", 1)
-    if encoder_name not in PORTED_ENCODERS:
-        raise NotImplementedError(
-            f"Encoder {encoder_name!r} ({model_type.name}) is not ported to "
-            f"PyTorch yet; ported: {sorted(PORTED_ENCODERS)}."
-        )
+    if model_type == ModelType.PAN and "resnest" in encoder_name:
+        raise ValueError("ResNeSt encoders are not compatible with PAN.")
+    check_encoder_name(encoder_name)
     decoder_cls, head_kernel, head_up, output_stride = (
         ARCHITECTURES[model_type])
-    encoder, enc_channels = PORTED_ENCODERS[encoder_name](
-        in_channels, output_stride)
+    encoder, enc_channels = ENCODERS[encoder_name](in_channels, output_stride)
     model = SegmentationModel(
         encoder, decoder_cls(enc_channels), classes, head_kernel, head_up,
     )

@@ -2,23 +2,34 @@
 
 The JAX package keeps a model as a nested {"params", "batch_stats"} tree
 (flax naming, HWIO kernels). The port's modules use smp naming, so the
-inverse mapping of that package's `models/torch_export.py` (resnet encoder,
-the eight decoders, head) gives a `state_dict` the port loads directly, and
-`variables_from_smp_state_dict` maps back (that package's
-`models/torch_convert.convert_smp_state_dict`). The tree is taken as plain
-nested dicts of numpy arrays (e.g. the JAX side's
+inverse mapping of that package's `models/torch_export.py` (the three
+encoder families, the eight decoders, head) gives a `state_dict` the port
+loads directly, and `variables_from_smp_state_dict` maps back (that
+package's `models/torch_convert.convert_smp_state_dict`). The tree is
+taken as plain nested dicts of numpy arrays (e.g. the JAX side's
 `flax.serialization.to_state_dict` output); nothing of JAX is imported.
+
+Encoders dispatch on their family, as in the JAX package: `resnet*` and
+`resnext*` (torchvision names), `efficientnet-bX` (lukemelas names, with
+the inert `_conv_head`/`_bn1` tail written as a zero conv and an identity
+BatchNorm and dropped on the way back) and `timm-resnest*` (timm names).
 
 A flax ConvTranspose kernel (kh, kw, I, O) is applied without a spatial
 flip, torch's ConvTranspose2d weight (I, O, kh, kw) with one: the kernel
 is flipped on the way across, both ways.
 """
 
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
 
+from volume_segmantics_tpu_torch.models.encoders.efficientnet import (
+    VARIANTS as EFFICIENTNETS,
+    stage_repeats,
+    tail_channels,
+)
+from volume_segmantics_tpu_torch.models.registry import check_encoder_name
 from volume_segmantics_tpu_torch.utils.base_data_utils import ModelType
 
 ASPP_RATES = (12, 24, 36)
@@ -29,6 +40,17 @@ PAN_FPA = (("branch1.1", "branch1"), ("mid.0", "mid"), ("down1.1", "down1"),
 # smp MA-Net PAB convs -> the JAX PAB's names.
 MANET_PAB = (("top_conv", "conv_top"), ("center_conv", "conv_center"),
              ("bottom_conv", "conv_bottom"), ("out_conv", "conv_map"))
+# EfficientNet block: (JAX conv, JAX BnAct, lukemelas conv, lukemelas BN);
+# the expand pair is absent at expand 1.
+EFFICIENTNET_BLOCK = (
+    ("conv_expand", "bnact_expand", "_expand_conv", "_bn0"),
+    ("conv_depthwise", "bnact_depthwise", "_depthwise_conv", "_bn1"),
+    ("conv_project", "bnact_project", "_project_conv", "_bn2"),
+)
+# ResNeSt deep stem: (timm conv, timm BN, JAX ConvBnAct)
+RESNEST_STEM = (("conv1.0", "conv1.1", "stem_conv1"),
+                ("conv1.3", "conv1.4", "stem_conv2"),
+                ("conv1.6", "bn1", "stem_conv3"))
 
 
 # ---------------------------------------------------------------------------
@@ -79,6 +101,91 @@ def _inverse_resnet_encoder(sd, p, s):
         if "conv_down" in blk:
             _inverse_convbn(sd, blk["conv_down"], bst["conv_down"],
                             f"{t}.downsample.0", f"{t}.downsample.1")
+
+
+def _efficientnet_blocks(p):
+    """The JAX tree's `stage{s}_block{b}` names in lukemelas' flat order."""
+    return sorted((name for name in p if name.startswith("stage")),
+                  key=lambda n: tuple(map(int, n[5:].split("_block"))))
+
+
+def _inverse_efficientnet_encoder(sd, p, s):
+    """EfficientNetEncoder tree (conv_stem, bnact_stem,
+    stage{s}_block{b}) -> lukemelas naming (flat `_blocks.{i}`)."""
+    _inverse_conv(sd, "encoder._conv_stem", p["conv_stem"])
+    _inverse_bn(sd, "encoder._bn0", p["bnact_stem"]["bn"],
+                s["bnact_stem"]["bn"])
+    for i, name in enumerate(_efficientnet_blocks(p)):
+        t = f"encoder._blocks.{i}"
+        blk, bst = p[name], s[name]
+        for f_conv, f_bn, t_conv, t_bn in EFFICIENTNET_BLOCK:
+            if f_conv in blk:
+                _inverse_conv(sd, f"{t}.{t_conv}", blk[f_conv])
+                _inverse_bn(sd, f"{t}.{t_bn}", blk[f_bn]["bn"],
+                            bst[f_bn]["bn"])
+        _inverse_conv(sd, f"{t}._se_reduce", blk["se"]["conv_reduce"])
+        _inverse_conv(sd, f"{t}._se_expand", blk["se"]["conv_expand"])
+
+
+def _inverse_inert_tail(sd, encoder_name):
+    """lukemelas' classification tail, which the forward never runs, as the
+    JAX exporter writes it: a zero `_conv_head` and an identity `_bn1`."""
+    last_ch, head_ch = tail_channels(EFFICIENTNETS[encoder_name][0])
+    sd["encoder._conv_head.weight"] = np.zeros((head_ch, last_ch, 1, 1),
+                                               np.float32)
+    ones, zeros = np.ones(head_ch, np.float32), np.zeros(head_ch, np.float32)
+    _inverse_bn(sd, "encoder._bn1", {"scale": ones, "bias": zeros},
+                {"mean": zeros, "var": ones})
+
+
+def _inverse_resnest_encoder(sd, p, s):
+    """ResNeStEncoder tree (stem_conv{1,2,3}, layer{stage}_{block} with
+    convbn1, splat, convbn3, conv_down) -> timm resnest naming."""
+    for t_conv, t_bn, f_name in RESNEST_STEM:
+        _inverse_convbn(sd, p[f_name], s[f_name], f"encoder.{t_conv}",
+                        f"encoder.{t_bn}")
+    for name in p:
+        if not name.startswith("layer"):
+            continue
+        st, bl = name.replace("layer", "").split("_")
+        t = f"encoder.layer{st}.{bl}"
+        blk, bst = p[name], s[name]
+        _inverse_convbn(sd, blk["convbn1"], bst["convbn1"], f"{t}.conv1",
+                        f"{t}.bn1")
+        sp, sps = blk["splat"], bst["splat"]
+        _inverse_conv(sd, f"{t}.conv2.conv", sp["conv"])
+        for bn in ("bn0", "bn1"):
+            _inverse_bn(sd, f"{t}.conv2.{bn}", sp[bn], sps[bn])
+        _inverse_conv(sd, f"{t}.conv2.fc1", sp["conv_fc1"])
+        _inverse_conv(sd, f"{t}.conv2.fc2", sp["conv_fc2"])
+        _inverse_convbn(sd, blk["convbn3"], bst["convbn3"], f"{t}.conv3",
+                        f"{t}.bn3")
+        if "conv_down" in blk:
+            _inverse_convbn(sd, blk["conv_down"], bst["conv_down"],
+                            f"{t}.downsample.1", f"{t}.downsample.2")
+
+
+ENCODER_INVERSES = {
+    "resnet": _inverse_resnet_encoder,
+    "efficientnet": _inverse_efficientnet_encoder,
+    "resnest": _inverse_resnest_encoder,
+}
+
+
+def _encoder_family(encoder_name: str) -> str:
+    """The JAX package's dispatch: resnet/resnext, efficientnet, resnest.
+    An encoder the registry does not build raises ValueError."""
+    check_encoder_name(encoder_name)
+    if encoder_name.startswith(("resnet", "resnext")):
+        return "resnet"
+    return "efficientnet" if "efficientnet" in encoder_name else "resnest"
+
+
+def _inverse_encoder(sd, params, stats, encoder_name):
+    family = _encoder_family(encoder_name)
+    ENCODER_INVERSES[family](sd, params, stats)
+    if family == "efficientnet":
+        _inverse_inert_tail(sd, encoder_name)
 
 
 def _inverse_unet_block(sd, p, s, t):
@@ -210,19 +317,15 @@ DECODER_INVERSES = {
 }
 
 
-def _model_type(struc: dict) -> ModelType:
-    """The structure dict's type, refused by name unless its encoder is
-    ported."""
+def _structure(struc: dict) -> Tuple[ModelType, str]:
+    """The structure dict's type and encoder name; an encoder the registry
+    does not build raises ValueError naming it."""
     encoder = struc.get("encoder_name", "resnet34")
     mtype = struc.get("type")
     if not isinstance(mtype, ModelType):
         mtype = ModelType[str(getattr(mtype, "name", mtype)).upper()]
-    if encoder != "resnet34":
-        raise NotImplementedError(
-            f"Carrying weights of {mtype.name} / {encoder} is not ported yet: "
-            "only the resnet34 encoder is."
-        )
-    return mtype
+    _encoder_family(encoder)
+    return mtype, encoder
 
 
 def _as_tensors(sd: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
@@ -237,25 +340,27 @@ def _as_tensors(sd: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
 
 
 def encoder_state_dict_from_variables(params: Dict[str, Any],
-                                      stats: Dict[str, Any]
+                                      stats: Dict[str, Any],
+                                      encoder_name: str
                                       ) -> Dict[str, torch.Tensor]:
-    """The encoder subtrees of a resnet tree -> the port's `encoder.*`
-    state_dict entries; needs no decoder type (the encoder cache)."""
+    """The encoder subtrees of `encoder_name`'s tree -> the port's
+    `encoder.*` state_dict entries; needs no decoder type (the encoder
+    cache)."""
     sd: Dict[str, np.ndarray] = {}
-    _inverse_resnet_encoder(sd, params, stats)
+    _inverse_encoder(sd, params, stats, encoder_name)
     return _as_tensors(sd)
 
 
 def smp_state_dict_from_variables(
     variables: Dict[str, Any], struc: dict
 ) -> Dict[str, torch.Tensor]:
-    """{"params", "batch_stats"} tree of a resnet34 model of any of the
-    eight types -> the port's smp-named state_dict (float32 tensors;
-    `num_batches_tracked` 0)."""
-    mtype = _model_type(struc)
+    """{"params", "batch_stats"} tree of a model of any of the eight types
+    on any of the seven encoders -> the port's smp-named state_dict
+    (float32 tensors; `num_batches_tracked` 0)."""
+    mtype, encoder = _structure(struc)
     params, stats = variables["params"], variables.get("batch_stats", {})
     sd: Dict[str, np.ndarray] = {}
-    _inverse_resnet_encoder(sd, params["encoder"], stats["encoder"])
+    _inverse_encoder(sd, params["encoder"], stats["encoder"], encoder)
     DECODER_INVERSES[mtype](sd, params["decoder"], stats.get("decoder", {}))
     _inverse_conv(sd, "segmentation_head.0", params["head_conv"])
     return _as_tensors(sd)
@@ -314,6 +419,64 @@ def _resnet_encoder(params, stats, sd):
                         f"{t}.downsample.1", path + ("conv_down",))
             block += 1
         stage += 1
+
+
+def _efficientnet_encoder(params, stats, sd, repeats):
+    """lukemelas naming -> EfficientNetEncoder tree; `repeats` are the
+    blocks of each stage (the flat `_blocks.{i}` do not say). The inert
+    `_conv_head`/`_bn1` tail is not read."""
+    _conv(params, sd, "encoder._conv_stem", ("encoder", "conv_stem"))
+    _bn(params, stats, sd, "encoder._bn0", ("encoder", "bnact_stem", "bn"))
+    i = 0
+    for stage, n_blocks in enumerate(repeats, start=1):
+        for block in range(n_blocks):
+            t = f"encoder._blocks.{i}"
+            path = ("encoder", f"stage{stage}_block{block}")
+            for f_conv, f_bn, t_conv, t_bn in EFFICIENTNET_BLOCK:
+                if f"{t}.{t_conv}.weight" in sd:
+                    _conv(params, sd, f"{t}.{t_conv}", path + (f_conv,))
+                    _bn(params, stats, sd, f"{t}.{t_bn}", path + (f_bn, "bn"))
+            _conv(params, sd, f"{t}._se_reduce", path + ("se", "conv_reduce"))
+            _conv(params, sd, f"{t}._se_expand", path + ("se", "conv_expand"))
+            i += 1
+
+
+def _resnest_encoder(params, stats, sd):
+    for t_conv, t_bn, f_name in RESNEST_STEM:
+        _convbn(params, stats, sd, f"encoder.{t_conv}", f"encoder.{t_bn}",
+                ("encoder", f_name))
+    stage = 1
+    while f"encoder.layer{stage}.0.conv1.weight" in sd:
+        block = 0
+        while f"encoder.layer{stage}.{block}.conv1.weight" in sd:
+            t = f"encoder.layer{stage}.{block}"
+            path = ("encoder", f"layer{stage}_{block}")
+            _convbn(params, stats, sd, f"{t}.conv1", f"{t}.bn1",
+                    path + ("convbn1",))
+            sp = path + ("splat",)
+            _conv(params, sd, f"{t}.conv2.conv", sp + ("conv",))
+            for bn in ("bn0", "bn1"):
+                _bn(params, stats, sd, f"{t}.conv2.{bn}", sp + (bn,))
+            _conv(params, sd, f"{t}.conv2.fc1", sp + ("conv_fc1",))
+            _conv(params, sd, f"{t}.conv2.fc2", sp + ("conv_fc2",))
+            _convbn(params, stats, sd, f"{t}.conv3", f"{t}.bn3",
+                    path + ("convbn3",))
+            if f"{t}.downsample.1.weight" in sd:
+                _convbn(params, stats, sd, f"{t}.downsample.1",
+                        f"{t}.downsample.2", path + ("conv_down",))
+            block += 1
+        stage += 1
+
+
+def _encoder(params, stats, sd, encoder_name):
+    family = _encoder_family(encoder_name)
+    if family == "efficientnet":
+        _efficientnet_encoder(params, stats, sd,
+                              stage_repeats(EFFICIENTNETS[encoder_name][1]))
+    elif family == "resnest":
+        _resnest_encoder(params, stats, sd)
+    else:
+        _resnet_encoder(params, stats, sd)
 
 
 def _unet_block(params, stats, sd, t, path):
@@ -458,27 +621,53 @@ def _numpy(state_dict: Dict[str, Any]) -> Dict[str, np.ndarray]:
             for k, v in state_dict.items()}
 
 
-def encoder_variables_from_state_dict(state_dict: Dict[str, Any]
-                                      ) -> Dict[str, Any]:
-    """The `encoder.*` entries of a resnet state_dict -> the encoder's
-    {"params", "batch_stats"} subtrees; needs no decoder type."""
+def encoder_variables_from_state_dict(state_dict: Dict[str, Any],
+                                      encoder_name: str) -> Dict[str, Any]:
+    """The `encoder.*` entries of `encoder_name`'s state_dict -> the
+    encoder's {"params", "batch_stats"} subtrees; needs no decoder type."""
     params: Dict[str, Any] = {}
     stats: Dict[str, Any] = {}
-    _resnet_encoder(params, stats, _numpy(state_dict))
+    _encoder(params, stats, _numpy(state_dict), encoder_name)
     return {"params": params["encoder"], "batch_stats": stats["encoder"]}
+
+
+def _variables(sd: Dict[str, np.ndarray], struc: dict) -> Dict[str, Any]:
+    mtype, encoder = _structure(struc)
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+    _encoder(params, stats, sd, encoder)
+    DECODER_CONVERTERS[mtype](params, stats, sd)
+    _conv(params, sd, "segmentation_head.0", ("head_conv",))
+    return {"params": params, "batch_stats": stats}
 
 
 def variables_from_smp_state_dict(state_dict: Dict[str, Any],
                                   struc: dict) -> Dict[str, Any]:
-    """The port's smp-named state_dict of a resnet34 model of any of the
-    eight types -> the JAX package's {"params", "batch_stats"} tree of
-    numpy arrays (the inverse of `smp_state_dict_from_variables`;
-    `num_batches_tracked` is dropped)."""
-    mtype = _model_type(struc)
-    sd = _numpy(state_dict)
-    params: Dict[str, Any] = {}
-    stats: Dict[str, Any] = {}
-    _resnet_encoder(params, stats, sd)
-    DECODER_CONVERTERS[mtype](params, stats, sd)
-    _conv(params, sd, "segmentation_head.0", ("head_conv",))
-    return {"params": params, "batch_stats": stats}
+    """The port's smp-named state_dict of a model of any of the eight
+    types on any of the seven encoders -> the JAX package's {"params",
+    "batch_stats"} tree of numpy arrays (the inverse of
+    `smp_state_dict_from_variables`; `num_batches_tracked` and
+    EfficientNet's inert tail are dropped)."""
+    return _variables(_numpy(state_dict), struc)
+
+
+def flax_param_paths(state_dict: Dict[str, Any],
+                     struc: dict) -> Dict[str, Tuple[str, ...]]:
+    """The flax path in the "params" tree that
+    `variables_from_smp_state_dict` gives each `state_dict` entry that
+    lands there (keyed by the entry's name). Only shapes are read: each
+    entry is mapped as a broadcast of its own index."""
+    names = list(state_dict)
+    marked = {k: np.broadcast_to(np.float64(i), tuple(state_dict[k].shape))
+              for i, k in enumerate(names)}
+    paths: Dict[str, Tuple[str, ...]] = {}
+
+    def walk(node, path):
+        for key, value in node.items():
+            if isinstance(value, dict):
+                walk(value, path + (key,))
+            else:
+                paths[names[int(np.asarray(value).flat[0])]] = path + (key,)
+
+    walk(_variables(marked, struc)["params"], ())
+    return paths
