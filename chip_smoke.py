@@ -142,13 +142,34 @@
    widened to 3 channels): the frozen phase runs from the cache, last eval
    score >= 0.5, each kernel launched once a step; `model-predict-2d` on
    256^3 equal to the manager's labels.
-13. Train-batch sweep (`THROUGHPUT_TRAIN_BATCH`): 15 timed
+13. Formats phase, in `<out-dir>/formats`, from the CLI phase's files:
+   (a) `model-train-2d` on the CLI phase's pair written as TIFF by
+   `write_tiff` (data Deflate with predictor 2, labels an uncompressed
+   BigTIFF), the CLI phase's settings: fails unless its epoch losses,
+   eval scores and checkpoint tensors equal the HDF5 run's bit for bit,
+   the loss plot and montage PNGs exist, each montage prediction panel
+   equals the argmax of an eval forward of the trainer's model on the first
+   validation batch, which this script computes on the card itself rather
+   than through the trainer's `predict_batch` that drew the panel (the
+   argmax against JAX is `tests/test_torch_figures.py`'s), and each kernel
+   launched once a step;
+   (b) `model-predict-2d` on the 256^3 vessels volume as LZW TIFF: labels
+   equal to the CLI phase's from HDF5; then the 512^3 volume written and
+   read back as uint8 uncompressed, Deflate and LZW TIFF, uint16 Deflate
+   TIFF and gzip HDF5, equal to what was written, each read timed (s and
+   MB/s of the decoded array); (c) the library's PNG-directory path: the
+   slicer writes the pair as PNG slices (timed, and the PNG read of every
+   file), `VolSeg2dTrainer(image_dir, label_dir, ...)` and a trainer on
+   the CLI's in-memory slices take `FORMATS_STEPS` seeded steps each:
+   equal arrays and losses bit for bit, each kernel launched once a step;
+   `clean_up_slices` leaves no file.
+14. Train-batch sweep (`THROUGHPUT_TRAIN_BATCH`): 15 timed
    `build_train_step` steps on one seeded batch at batches 12, 32, 64, 128
    and 256 (bf16, unfrozen), samples/s and peak memory; the smallest batch
    within 5% of the best samples/s is printed beside the configured one.
-14. Prints a `{"kernels": [...]}` line (launches of the slice, CLI, losses,
-   pretrained, architectures and encoders phases) and, last, the device
-   line.
+15. Prints a `{"kernels": [...]}` line (launches of the slice, CLI, losses,
+   pretrained, architectures, encoders and formats phases) and, last, the
+   device line.
 
 Exits non-zero on any failure, without a GPU, and outside a checkout of the
 repository (the package is imported from beside this file).
@@ -165,10 +186,12 @@ import os
 import re
 import shutil
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
 import time
+import zlib
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -987,6 +1010,361 @@ def cli_phase(dev, out_dir: Path):
         failures.append(f"512^3 labels {labels_512.shape} {labels_512.dtype}")
     big.unlink()
     res["failures"] = failures
+    print(json.dumps(res), flush=True)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# TIFF writer (the formats phase's inputs; the port only reads TIFF)
+# ---------------------------------------------------------------------------
+
+LZW_CLEAR, LZW_EOI = 256, 257
+
+
+def lzw_encode(data: bytes) -> bytes:
+    """TIFF LZW as libtiff writes it: MSB-first codes of 9 to 12 bits,
+    widened one code early, a Clear code first and whenever the table
+    reaches 4094 entries, an EOI code last."""
+    codes, clears = [LZW_CLEAR], [0]
+    table, next_code, prefix = {}, 258, -1
+    for ch in data:
+        if prefix < 0:
+            prefix = ch
+            continue
+        code = table.get((prefix << 8) | ch)
+        if code is not None:
+            prefix = code
+            continue
+        codes.append(prefix)
+        table[(prefix << 8) | ch] = next_code
+        next_code += 1
+        prefix = ch
+        if next_code == 4094:
+            clears.append(len(codes))
+            codes.append(LZW_CLEAR)
+            table, next_code = {}, 258
+    if prefix >= 0:
+        codes.append(prefix)
+        if next_code + 1 == 4094:
+            clears.append(len(codes))
+            codes.append(LZW_CLEAR)
+    codes.append(LZW_EOI)
+    codes = np.asarray(codes, np.int64)
+    # A code's width follows its index since the last Clear before it.
+    index = np.arange(len(codes))
+    after = np.asarray(clears) + 1
+    start = np.zeros(len(codes) + 1, np.int64)
+    start[after] = after
+    j = index - np.maximum.accumulate(start[:-1])
+    width = np.select([j <= 253, j <= 765, j <= 1789], [9, 10, 11], 12)
+    shifts = np.arange(11, -1, -1)
+    bits = (codes[:, None] >> shifts) & 1
+    return np.packbits(bits[shifts[None, :] < width[:, None]].astype(np.uint8)).tobytes()
+
+
+def write_tiff(path: Path, vol: np.ndarray, compression=None, predictor=1,
+               bigtiff=False, byteorder="<", tile=None, rows_per_strip=None,
+               imagej=False, extra_tags=None) -> None:
+    """Write a (pages, H, W) array as a multipage TIFF, one sample per
+    pixel: `compression` None, "deflate" (8) or "lzw" (5); `predictor` 2
+    differences each row; `tile` (length, width) stores tiles, else strips
+    of `rows_per_strip` rows (default: about 64 KB); `imagej` writes one IFD
+    naming `images=N` before N contiguous uncompressed pages, as ImageJ
+    writes stacks above 4 GB. `extra_tags` {tag: (field type, values)} adds
+    or replaces entries. Identical blocks are compressed once."""
+    vol = np.asarray(vol)
+    pages, height, width = vol.shape
+    dtype = vol.dtype.newbyteorder(byteorder)
+    off_fmt, off_type, inline = ("Q", 16, 8) if bigtiff else ("I", 4, 4)
+    encode = {None: bytes, "deflate": lambda b: zlib.compress(b, 6),
+              "lzw": lzw_encode}[compression]
+    if imagej:
+        rows, boxes = height, []
+    elif tile is None:
+        rows = rows_per_strip or max(1, 65536 // (width * dtype.itemsize))
+        boxes = [(r, 0, min(rows, height - r), width) for r in range(0, height, rows)]
+    else:
+        boxes = [(r, c, *tile) for r in range(0, height, tile[0])
+                 for c in range(0, width, tile[1])]
+    common = {256: (4, [width]), 257: (4, [height]),
+              258: (3, [8 * dtype.itemsize]),
+              259: (3, [{None: 1, "deflate": 8, "lzw": 5}[compression]]),
+              262: (3, [1]), 277: (3, [1]), 284: (3, [1]),
+              339: (3, [{"u": 1, "i": 2, "f": 3}[dtype.kind]])}
+    if predictor != 1:
+        common[317] = (3, [predictor])
+    if imagej:
+        common[270] = (2, f"ImageJ=1.54f\nimages={pages}\nslices={pages}\n".encode())
+    out = bytearray(b"II" if byteorder == "<" else b"MM")
+    out += struct.pack(byteorder + ("HHHQ" if bigtiff else "HI"),
+                       *((43, 8, 0, 0) if bigtiff else (42, 0)))
+    next_ptr, cache = len(out) - inline, {}
+    for z in range(1 if imagej else pages):
+        offsets, counts = [], []
+        if imagej:  # every page's bytes, one after another
+            offsets.append(len(out))
+            out += np.ascontiguousarray(vol, dtype).tobytes()
+            counts.append(height * width * dtype.itemsize)
+        for r, c, nr, nc in boxes:
+            part = np.zeros((nr, nc), vol.dtype)  # tiles past the edge: zeros
+            src = vol[z, r:r + nr, c:c + nc]
+            part[:src.shape[0], :src.shape[1]] = src
+            if predictor == 2:
+                part = np.diff(part, axis=1, prepend=np.zeros((nr, 1), part.dtype))
+            raw = np.ascontiguousarray(part, dtype).tobytes()
+            if raw not in cache:
+                cache[raw] = encode(raw)
+            offsets.append(len(out))
+            out += cache[raw]
+            counts.append(len(cache[raw]))
+        tags = dict(common)
+        if tile is None:
+            tags.update({273: (off_type, offsets), 278: (4, [rows]),
+                         279: (off_type, counts)})
+        else:
+            tags.update({322: (4, [tile[1]]), 323: (4, [tile[0]]),
+                         324: (off_type, offsets), 325: (off_type, counts)})
+        tags.update(extra_tags or {})
+        # Values that do not fit an entry go first (word-aligned), then
+        # the IFD, whose offset goes into the previous IFD's link.
+        entries = []
+        for tag in sorted(tags):
+            ftype, values = tags[tag]
+            payload = (bytes(values) + b"\0" if ftype == 2 else struct.pack(
+                f"{byteorder}{len(values)}{ {1: 'B', 3: 'H', 4: 'I', 16: 'Q'}[ftype]}",
+                *values))
+            count = len(payload) // {1: 1, 2: 1, 3: 2, 4: 4, 16: 8}[ftype]
+            if len(payload) > inline:
+                out += b"\0" * (len(out) % 2)
+                at = len(out)
+                out += payload
+                payload = struct.pack(byteorder + off_fmt, at)
+            entries.append(struct.pack(byteorder + ("HHQ" if bigtiff else "HHI"),
+                                       tag, ftype, count) + payload.ljust(inline, b"\0"))
+        out += b"\0" * (len(out) % 2)
+        struct.pack_into(byteorder + off_fmt, out, next_ptr, len(out))
+        out += struct.pack(byteorder + ("Q" if bigtiff else "H"), len(entries))
+        out += b"".join(entries)
+        next_ptr = len(out)
+        out += struct.pack(byteorder + off_fmt, 0)
+    Path(path).write_bytes(out)
+
+
+FORMATS_STEPS = 20
+
+
+def formats_phase(dev, out_dir: Path, cli_res):
+    """TIFF volumes through both CLIs, a 512^3 volume's read time by file
+    format, and the PNG-directory library path (see the module doc)."""
+    import volume_segmantics_tpu_torch.utils.config as cfg
+    from volume_segmantics_tpu_torch.data import TrainingDataSlicer, get_settings_data
+    from volume_segmantics_tpu_torch.data.datasets import get_2d_training_dataset
+    from volume_segmantics_tpu_torch.data.dataloaders import to_device_batches
+    from volume_segmantics_tpu_torch.models.checkpoint import load_checkpoint
+    from volume_segmantics_tpu_torch.ops import kernels
+    from volume_segmantics_tpu_torch.parallel.train import autocast, normalise
+    from volume_segmantics_tpu_torch.scripts import predict_2d_model, train_2d_model
+    from volume_segmantics_tpu_torch.utils import figures, hdf5, png, tiff
+
+    failures, res = [], {"phase": "formats"}
+    root, cli_root = out_dir / "formats", out_dir / "cli"
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.copytree(cli_root / cfg.SETTINGS_DIR, root / cfg.SETTINGS_DIR)
+    launches, steps = dict.fromkeys(kernels.LAUNCHES, 0), 0
+    t_phase = time.perf_counter()
+
+    # (a) model-train-2d on the CLI phase's pair as TIFF files: Deflate
+    # with predictor 2 (data) and uncompressed BigTIFF (labels).
+    data, _ = hdf5.read(cli_root / "train_data.h5")
+    labels, _ = hdf5.read(cli_root / "train_labels.h5")
+    write_tiff(root / "train_data.tif", data, compression="deflate", predictor=2)
+    write_tiff(root / "train_labels.tiff", labels, bigtiff=True)
+    del data, labels
+    trainers = []
+
+    class RecordedTrainer(train_2d_model.VolSeg2dTrainer):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            trainers.append(self)
+
+    train_2d_model.VolSeg2dTrainer = RecordedTrainer
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        train_2d_model.main(["--data", str(root / "train_data.tif"),
+                             "--labels", str(root / "train_labels.tiff"),
+                             "--data_dir", str(root)])
+    finally:
+        train_2d_model.VolSeg2dTrainer = RecordedTrainer.__bases__[0]
+    torch.cuda.synchronize()
+    res["train_main_s"] = time.perf_counter() - t0
+    trainer = trainers[0]
+    for name, count in kernels.LAUNCHES.items():
+        launches[name] += count
+        if count != trainer.train_steps:
+            failures.append(f"{name} launched {count} times in the TIFF CLI's "
+                            f"{trainer.train_steps} train steps")
+    steps += trainer.train_steps
+    ckpt = train_2d_model._model_output_path(trainer.settings, root)
+    with open(root / f"{ckpt.stem}_train_stats.csv", newline="") as f:
+        rows = list(csv.DictReader(f))
+    losses = [float(r[k]) for r in rows for k in ("Train Loss", "Valid Loss")]
+    eval_scores = [float(r["Eval Score"]) for r in rows]
+    got = load_checkpoint(ckpt)["model_state_dict"]
+    ref = load_checkpoint(cli_root / cli_res["checkpoint"])["model_state_dict"]
+    res["tiff_train"] = {
+        "losses": losses, "eval_scores": eval_scores,
+        "equal_to_hdf5_run": losses == cli_res["losses"]
+        and eval_scores == cli_res["eval_scores"],
+        "checkpoint_equal": got.keys() == ref.keys()
+        and all(torch.equal(got[k], ref[k]) for k in ref),
+    }
+    if not res["tiff_train"]["equal_to_hdf5_run"]:
+        failures.append(f"TIFF run losses {losses} / scores {eval_scores} differ "
+                        f"from the HDF5 run's {cli_res['losses']} / "
+                        f"{cli_res['eval_scores']}")
+    if not res["tiff_train"]["checkpoint_equal"]:
+        failures.append("TIFF run checkpoint differs from the HDF5 run's")
+    plot = root / f"{ckpt.stem}_loss_plot.png"
+    shown = root / f"{ckpt.stem}_prediction_image.png"
+    for path in (plot, shown):
+        if not path.exists():
+            failures.append(f"model-train-2d wrote no {path.name}")
+    # The prediction panels against an eval forward of the trainer's model
+    # computed here, apart from the trainer's `predict_batch` that drew them.
+    images, masks, _ = next(iter(trainer.validation_loader))
+    trainer.model.eval()
+    with torch.no_grad(), autocast(dev, trainer.compute_dtype):
+        logits = trainer.model(normalise(
+            torch.from_numpy(images).to(dev).float() / 255.0))
+    predicted = logits.float().argmax(dim=1).cpu().numpy()
+    grid = png.read_grey(shown)
+    panels_equal = []
+    for r in range(min(images.shape[0], 4)):
+        y, x = figures.panel_origin(r, 2, images.shape[1:])
+        panels_equal.append(bool(np.array_equal(
+            grid[y:y + images.shape[1], x:x + images.shape[2]],
+            figures.to_grey(predicted[r]))))
+    res["montage"] = {"shape": list(grid.shape), "prediction_panels_equal": panels_equal,
+                      "foreground_share": float(predicted.mean())}
+    if not panels_equal or not all(panels_equal):
+        failures.append(f"montage prediction panels {panels_equal} differ from "
+                        "the card's eval argmax")
+    del trainers, trainer, got, ref
+
+    # (b) model-predict-2d on the 256^3 vessels volume as LZW TIFF, against
+    # the CLI phase's labels of the same volume from HDF5.
+    vol, _ = make_vessel_volume((P, P, P), seed=7)
+    t0 = time.perf_counter()
+    write_tiff(root / "vessels_256.tif", vol, compression="lzw")
+    res["lzw_256_write_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    predict_2d_model.main([str(cli_root / cli_res["checkpoint"]),
+                           str(root / "vessels_256.tif"), "--data_dir", str(root)])
+    res["predict_tiff_main_s"] = time.perf_counter() - t0
+    tiff_labels, _ = hdf5.read(predict_2d_model.create_output_path(
+        root, Path("vessels_256.tif")))
+    hdf5_labels, _ = hdf5.read(predict_2d_model.create_output_path(
+        cli_root, Path("vessels_256.h5")))
+    res["tiff_labels_equal_hdf5"] = bool(np.array_equal(tiff_labels, hdf5_labels))
+    if not res["tiff_labels_equal_hdf5"]:
+        failures.append("model-predict-2d labels from TIFF differ from HDF5")
+    del tiff_labels, hdf5_labels
+
+    # The 512^3 volume (the 256^3 one tiled 2x2x2) read from each format.
+    raw = np.tile(vol, (2, 2, 2))
+    raw16 = raw.astype(np.uint16) * 257
+    files = (("tiff_u8_raw", "u8_raw.tif", raw, dict()),
+             ("tiff_u8_deflate", "u8_deflate.tif", raw, dict(compression="deflate")),
+             ("tiff_u8_lzw", "u8_lzw.tif", raw, dict(compression="lzw")),
+             ("tiff_u16_deflate", "u16_deflate.tif", raw16, dict(compression="deflate")),
+             ("hdf5_u8_gzip", "u8_gzip.h5", raw, None))
+    res["reads_512"] = {}
+    for name, fn, arr, options in files:
+        path = root / fn
+        t0 = time.perf_counter()
+        if options is None:
+            hdf5.write(path, arr, chunks=True)
+        else:
+            write_tiff(path, arr, **options)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = hdf5.read(path)[0] if options is None else tiff.read(path)
+        read_s = time.perf_counter() - t0
+        equal = bool(np.array_equal(back, arr))
+        res["reads_512"][name] = {
+            "read_s": read_s, "read_mb_per_s": arr.nbytes / 1e6 / read_s,
+            "array_mb": arr.nbytes / 1e6, "file_mb": path.stat().st_size / 1e6,
+            "write_s": write_s, "equal": equal}
+        if not equal:
+            failures.append(f"{name}: the 512^3 volume read back differs")
+        path.unlink()
+        del back
+    del raw, raw16, vol
+
+    # (c) The library's PNG-directory path: the slicer writes the pair as
+    # PNG slices, a trainer is built on the directories and trains
+    # FORMATS_STEPS seeded steps, equal to a trainer on the CLI's in-memory
+    # slices; clean_up_slices leaves nothing behind.
+    settings = get_settings_data(root / cfg.SETTINGS_DIR / cfg.TRAIN_SETTINGS_FN,
+                                 kind="training")
+    pair = (cli_root / "train_data.h5", cli_root / "train_labels.h5")
+    slicer = TrainingDataSlicer(*pair, settings)
+    pngs = root / "png"
+    t0 = time.perf_counter()
+    slicer.output_data_slices(pngs / "data", "data0")
+    slicer.output_label_slices(pngs / "seg", "seg0")
+    write_s = time.perf_counter() - t0
+    written = sorted((pngs / "data").glob("*.png")) + sorted((pngs / "seg").glob("*.png"))
+    t0 = time.perf_counter()
+    for path in written:
+        png.read_grey(path)
+    read_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    get_2d_training_dataset(pngs / "data", pngs / "seg", settings).stacked_arrays()
+    stacked_s = time.perf_counter() - t0
+    res["png"] = {"files": len(written), "bytes": sum(p.stat().st_size for p in written),
+                  "write_s": write_s, "write_slices_per_s": len(written) / write_s,
+                  "read_s": read_s, "read_slices_per_s": len(written) / read_s,
+                  "stacked_arrays_s": stacked_s}
+    (data, labels), _, codes, _ = train_2d_model._slice_all_volumes(
+        [pair[0]], [pair[1]], settings)
+    codes = {str(i): code for i, code in enumerate(codes)}
+    from_dirs = train_2d_model.VolSeg2dTrainer(pngs / "data", pngs / "seg", codes,
+                                               settings, device=dev)
+    from_lists = train_2d_model.VolSeg2dTrainer(data, labels, codes, settings,
+                                                device=dev)
+    same_arrays = all(np.array_equal(getattr(from_dirs.training_loader, a),
+                                     getattr(from_lists.training_loader, a))
+                      for a in ("images", "masks", "indices"))
+    kernels.reset_launch_counts()
+    runs = []
+    for trainer in (from_dirs, from_lists):
+        trainer._create_model_and_optimiser(1e-3, frozen=False)
+        step_losses = []
+        while len(step_losses) < FORMATS_STEPS:
+            for imgs, msks, _ in to_device_batches(trainer.training_loader, dev):
+                step_losses.append(trainer._train_one_batch_async(imgs, msks, 1e-3))
+                if len(step_losses) == FORMATS_STEPS:
+                    break
+        runs.append(torch.stack(step_losses).cpu())
+    for name, count in kernels.LAUNCHES.items():
+        launches[name] += count
+        if count != 2 * FORMATS_STEPS:
+            failures.append(f"{name} launched {count} times in the PNG "
+                            f"trainers' {2 * FORMATS_STEPS} steps")
+    steps += 2 * FORMATS_STEPS
+    slicer.clean_up_slices()
+    left = [str(p) for p in pngs.rglob("*")]
+    res["png_trainer"] = {"same_arrays": same_arrays,
+                          "losses_equal": bool(torch.equal(*runs)),
+                          "losses": runs[0].tolist(), "left_after_clean_up": left}
+    if not same_arrays or not res["png_trainer"]["losses_equal"]:
+        failures.append("the PNG-directory trainer differs from the in-memory one")
+    if left:
+        failures.append(f"clean_up_slices left {left}")
+    res.update(launches=launches, train_steps=steps,
+               seconds=time.perf_counter() - t_phase, failures=failures)
     print(json.dumps(res), flush=True)
     return res
 
@@ -2378,8 +2756,9 @@ def main() -> int:
         pretrained = pretrained_phase(model_out, dev, out_dir, cli)
         archs = architectures_phase(images, masks, dev, out_dir)
         encoders = encoders_phase(images, masks, dev, out_dir)
+        formats = formats_phase(dev, out_dir, cli)
     sweep = train_batch_sweep(images, masks, dev)
-    counted = (summary, cli, losses, pretrained, archs, encoders)
+    counted = (summary, cli, losses, pretrained, archs, encoders, formats)
     kernels_line = {"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": sum(phase["launches"][entry] for phase in counted),
@@ -2390,7 +2769,7 @@ def main() -> int:
     ]}
     failed = [k for k in kres if not kres[k]["ok"]] + [
         f for phase in (summary, predicted, cli, losses, ckpt, large, pretrained,
-                        archs, encoders, sweep)
+                        archs, encoders, formats, sweep)
         for f in phase["failures"]]
     if failed:
         print(json.dumps({"failed": failed}), file=sys.stderr)

@@ -4,7 +4,8 @@ process through `main`: the same slice stacks handed to the trainer under
 both `slice_to_disk` settings, a train run that writes the CSV and a
 checkpoint the JAX package loads, and a prediction equal to the JAX CLI's
 at every voxel, from files the settings reader, HDF5 reader and writer of
-each package exchange."""
+each package exchange; and both CLIs on TIFF volumes, with the figures
+`model-train-2d` writes."""
 
 import csv
 import os
@@ -22,6 +23,7 @@ import volume_segmantics_tpu.scripts.predict_2d_model as jax_predict
 import volume_segmantics_tpu.scripts.train_2d_model as jax_train
 import volume_segmantics_tpu_torch.scripts.predict_2d_model as predict
 import volume_segmantics_tpu_torch.scripts.train_2d_model as train
+from chip_smoke import write_tiff
 from test_torch_predictor import write_checkpoint
 from test_torch_trainer import tiny_volume
 from volume_segmantics_tpu.data.dataloaders import (
@@ -347,3 +349,53 @@ def test_module_entry_points_exit_2_on_bad_arguments(tmp_path, script, argv,
         env=dict(os.environ, PYTHONPATH=str(ROOT)))
     assert r.returncode == 2, r.stderr[-2000:]
     assert message in r.stderr
+
+
+def test_tiff_volumes_through_both_clis_equal_jax(volumes, prediction_runs,
+                                                 tmp_path, monkeypatch):
+    """`model-train-2d` on a TIFF pair (Deflate with predictor 2, and an
+    uncompressed BigTIFF) hands its trainer the JAX CLI's stacks;
+    `model-predict-2d` on `prediction_runs`' float32 volume as LZW TIFF
+    gives the JAX CLI's labels of its HDF5 file at every voxel. (`chip_smoke.py`'s formats phase trains on such a pair to
+    the end on the card, figures included.)"""
+    d0 = hdf5.read(volumes / "d0.h5")[0]
+    l0 = hdf5.read(volumes / "l0.h5")[0]
+    write_tiff(tmp_path / "d0.tif", d0, compression="deflate", predictor=2)
+    write_tiff(tmp_path / "l0.tiff", l0, bigtiff=True)
+    argv = ["--data", str(tmp_path / "d0.tif"), "--labels",
+            str(tmp_path / "l0.tiff")]
+    runs = {}
+    for name, module in (("ours", train), ("jax", jax_train)):
+        data_dir = tmp_path / name
+        write_settings(data_dir, cfg.TRAIN_SETTINGS_FN,
+                       **train_edits(slice_to_disk=False))
+
+        def record(data, labels, codes, settings, device=None, name=name):
+            prep = (_preprocess_slice_lists(data, labels, settings.image_size)
+                    if name == "ours" else
+                    jax_preprocess_slice_lists(data, labels, settings))
+            raise Handed(prep)
+
+        with monkeypatch.context() as m:
+            m.setattr(module, "VolSeg2dTrainer", record)
+            with pytest.raises(Handed) as handed:
+                if name == "ours":
+                    module.main(argv + ["--data_dir", str(data_dir)], device="cpu")
+                else:
+                    m.setattr(sys, "argv", ["model-train-2d", *argv,
+                                            "--data_dir", str(data_dir)])
+                    module.main()
+        runs[name] = handed.value.args[0]
+    for got, ref in zip(runs["ours"], runs["jax"]):
+        assert got.shape == (12 + 40 + 48, IMAGE_SIZE, IMAGE_SIZE)
+        np.testing.assert_array_equal(got, ref)
+
+    ours_dir, jax_dir, vol = prediction_runs
+    write_tiff(tmp_path / "vol.tif", vol, compression="lzw")
+    write_settings(tmp_path / "predict", cfg.PREDICTION_SETTINGS_FN,
+                   compute_dtype="float32", prediction_batch_size=4)
+    predict.main([str(ours_dir.parent / "model.pytorch"), str(tmp_path / "vol.tif"),
+                  "--data_dir", str(tmp_path / "predict")], device="cpu")
+    labels = hdf5.read(predict.create_output_path(tmp_path / "predict",
+                                                  Path("vol.tif")))[0]
+    np.testing.assert_array_equal(labels, hdf5.read(outputs(jax_dir)[0])[0])

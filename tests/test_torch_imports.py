@@ -1,8 +1,8 @@
 """The PyTorch port stands alone: no module of the package, nor
 `chip_smoke.py`, imports JAX, flax, optax, the JAX package, or the host
 libraries the card machine lacks (cv2, h5py, yaml, imageio, matplotlib,
-tqdm, msgpack): settings files, HDF5 and flax msgpack go through the
-port's own readers. The package imports where there is no triton and no
+tqdm, msgpack, Pillow, tifffile): settings files, HDF5, flax msgpack, PNG
+and TIFF go through the port's own readers. The package imports where there is no triton and no
 nvcc, and builds its kernels only at the first CUDA call."""
 
 import ast
@@ -17,7 +17,8 @@ import volume_segmantics_tpu_torch
 ROOT = Path(__file__).resolve().parents[1]
 PACKAGE = Path(volume_segmantics_tpu_torch.__file__).parent
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "volume_segmantics_tpu", "cv2",
-             "h5py", "yaml", "imageio", "matplotlib", "tqdm", "triton", "msgpack"}
+             "h5py", "yaml", "imageio", "matplotlib", "tqdm", "triton", "msgpack",
+             "PIL", "tifffile"}
 SOURCES = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -49,6 +50,7 @@ def test_every_module_imports_and_no_kernel_is_built():
                    "utils.hdf5", "utils.yaml_settings", "data.slicers",
                    "utils.flax_msgpack", "models.pretrained", "utils.host_memory",
                    "model.operations.vol_seg_large_predictor",
+                   "utils.png", "utils.tiff", "utils.figures", "data.datasets",
                    *(f"models.decoders.{d}" for d in (
                        "unetpp", "fpn", "deeplab", "manet", "linknet", "pan")),
                    *(f"models.encoders.{e}" for e in (

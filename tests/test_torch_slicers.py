@@ -101,9 +101,18 @@ def test_downsampled_labels_and_shape_check_equal_jax():
 
 
 def test_png_export_is_not_ported_and_clean_up_does_nothing(tmp_path):
+    """A slicer that wrote no slices deletes nothing; one that did deletes
+    its own PNGs and directories and nothing else. (The PNG export is
+    ported now; `tests/test_torch_datasets.py` holds its files against
+    the JAX package's.)"""
     slicer = TrainingDataSlicer(data("uint8"), labels("binary"), settings())
-    for method in (slicer.output_data_slices, slicer.output_label_slices):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            method(tmp_path / "out", "data0")
+    (tmp_path / "out").mkdir()
+    (tmp_path / "out" / "other.png").write_bytes(b"kept")
     slicer.clean_up_slices()
-    assert not (tmp_path / "out").exists()
+    assert (tmp_path / "out" / "other.png").read_bytes() == b"kept"
+    slicer.output_data_slices(tmp_path / "out", "data0")
+    slicer.output_label_slices(tmp_path / "seg", "seg0")
+    assert len(list((tmp_path / "out").glob("data0_*.png"))) == sum(SHAPE)
+    slicer.clean_up_slices()
+    assert [p.name for p in (tmp_path / "out").iterdir()] == ["other.png"]
+    assert not (tmp_path / "seg").exists()

@@ -8,8 +8,9 @@ code, or, where both sides shrink exactly 2x, the 2x2 mean OpenCV switches
 to; masks INTER_NEAREST with floor indexing. It runs once per run, on a
 stack of same-shaped slices at a time. Padding is numpy's `reflect` mode,
 which is OpenCV's BORDER_REFLECT_101 (edge pixel not repeated), applied
-repeatedly where a pad exceeds the slice. The random training
-augmentations run on the device (`ops/augment.py`).
+repeatedly where a pad exceeds the slice. The prediction transforms pad
+each slice to the stride divisor and put its channel first. The random
+training augmentations run on the device (`ops/augment.py`).
 
 Transforms follow the albumentations calling convention:
 ``sample = t(image=..., mask=...)`` returning a dict; the image and mask
@@ -170,3 +171,38 @@ def get_padded_dimension(dimension: int) -> int:
     if dimension % image_divisor == 0:
         return dimension
     return (math.floor(dimension / image_divisor) + 1) * image_divisor
+
+
+def get_pred_preprocess_augs(img_size_y: int, img_size_x: int) -> Compose:
+    """Pad prediction slices up to multiples of the stride divisor
+    (reference augmentations.py:46-65)."""
+    padded_y_dim = get_padded_dimension(img_size_y)
+    padded_x_dim = get_padded_dimension(img_size_x)
+    return Compose([PadIfNeeded(min_height=padded_y_dim, min_width=padded_x_dim)])
+
+
+def pad_image_to_dims(image: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
+    """Centre reflect-101 pad of an image up to (out_h, out_w)."""
+    return PadIfNeeded(out_h, out_w)(image=image)["image"]
+
+
+class ToChannelFirst:
+    """Postprocess: HW(C) numpy -> CHW float32 array (the counterpart of
+    the reference's ToTensorV2, augmentations.py:104-110)."""
+
+    def __call__(self, image=None, mask=None):
+        img = np.asarray(image)
+        if img.ndim == 2:
+            img = img[None, ...]
+        else:
+            img = np.moveaxis(img, -1, 0)
+        out = {"image": np.ascontiguousarray(img, dtype=np.float32)}
+        if mask is not None:
+            out["mask"] = np.asarray(mask)
+        return out
+
+
+def get_postprocess_augs() -> Compose:
+    """Final transform applied to each sample (reference
+    augmentations.py:104-110)."""
+    return Compose([ToChannelFirst()])

@@ -1,13 +1,15 @@
 """Batch iterators over in-memory slice arrays (port of the JAX package's
-`data/dataloaders.py`, in-memory slice lists only).
+`data/dataloaders.py`).
 
-Slices are preprocessed once into contiguous uint8 arrays; a batch is numpy
-indexing on the host, then one pinned, non-blocking copy to the device.
+Slices, from PNG directories or in-memory lists, are preprocessed once into
+contiguous uint8 arrays; a batch is numpy indexing on the host, then one
+pinned, non-blocking copy to the device.
 Augmentation runs on the device (`ops/augment.py`). Every random choice
 (split, epoch order) comes from an explicit `np.random.Generator`.
 """
 
 import logging
+from pathlib import Path
 from types import SimpleNamespace
 from typing import Tuple
 
@@ -17,6 +19,10 @@ import torch
 import volume_segmantics_tpu_torch.utils.base_data_utils as utils
 import volume_segmantics_tpu_torch.utils.config as cfg
 from volume_segmantics_tpu_torch.data.augmentations import get_train_preprocess_augs
+from volume_segmantics_tpu_torch.data.datasets import (
+    get_2d_training_dataset,
+    preprocess_slices,
+)
 
 
 class ArrayBatcher:
@@ -77,41 +83,31 @@ def to_device_batches(loader, device: torch.device):
 
 def _preprocess_slice_lists(data_slices, label_slices, image_size):
     """Resize/pad in-memory slice lists to the square training size and
-    stack them in order. Slices of one shape go through the transforms as
-    one stack."""
-    if len(data_slices) != len(label_slices):
-        raise ValueError(f"{len(data_slices)} image slices but "
-                         f"{len(label_slices)} label slices.")
-    pre = get_train_preprocess_augs(image_size)
-    images = np.empty((len(data_slices), image_size, image_size), np.uint8)
-    masks = np.empty_like(images)
-    by_shape = {}
-    for i, img in enumerate(data_slices):
-        by_shape.setdefault(np.shape(img), []).append(i)
-    for idx in by_shape.values():
-        sample = pre(image=np.stack([np.asarray(data_slices[i]) for i in idx]),
-                     mask=np.stack([np.asarray(label_slices[i]) for i in idx]))
-        images[idx] = sample["image"]
-        masks[idx] = sample["mask"]
-    return images, masks
+    stack them in order."""
+    return preprocess_slices(data_slices, label_slices,
+                             get_train_preprocess_augs(image_size))
 
 
 def get_2d_training_dataloaders(
-    data_slices, label_slices, settings: SimpleNamespace, device="cuda",
+    image_dir, label_dir, settings: SimpleNamespace, device="cuda",
     rng: np.random.Generator = None,
 ) -> Tuple[ArrayBatcher, ArrayBatcher]:
-    """Train/validation batchers over in-memory slice lists with a random
-    permutation split at `training_set_proportion` (reference
-    dataloaders.py:15-56). `rng` defaults to one seeded from
+    """Train/validation batchers with a random permutation split at
+    `training_set_proportion` (reference dataloaders.py:15-56), over PNG
+    slice directories (`str` or `Path`, as the reference takes them) or
+    in-memory slice lists. `rng` defaults to one seeded from
     `settings.seed`."""
     if rng is None:
         rng = np.random.default_rng(int(getattr(settings, "seed", 0)))
     training_set_prop = settings.training_set_proportion
     batch_size = utils.get_batch_size(settings, device)
 
-    images, masks = _preprocess_slice_lists(
-        data_slices, label_slices, int(settings.image_size)
-    )
+    if isinstance(image_dir, (str, Path)):
+        images, masks = get_2d_training_dataset(
+            image_dir, label_dir, settings).stacked_arrays()
+    else:
+        images, masks = _preprocess_slice_lists(image_dir, label_dir,
+                                                int(settings.image_size))
     dset_length = images.shape[0]
     indices = rng.permutation(dset_length)
     split = int(dset_length * training_set_prop)
@@ -149,3 +145,32 @@ def get_2d_training_dataloaders(
         drop_last=False, rng=rng,
     )
     return training_batcher, validation_batcher
+
+
+class PredictionBatcher:
+    """Yields (batch, n_valid) over consecutive batches of a volume's
+    slices, a numpy array or a tensor; the predictor's sweeps take their
+    batches from it. The JAX package repeats the last slice to fill a short
+    last batch, for its static shapes; here the last batch is short and
+    `n_valid` is its length, so no slice is computed twice."""
+
+    def __init__(self, data_vol, batch_size):
+        self.data_vol = data_vol
+        self.batch_size = int(batch_size)
+
+    def __len__(self):
+        return -(-self.data_vol.shape[0] // self.batch_size)
+
+    def __iter__(self):
+        for start in range(0, self.data_vol.shape[0], self.batch_size):
+            chunk = self.data_vol[start:start + self.batch_size]
+            yield chunk, chunk.shape[0]
+
+
+def get_2d_prediction_dataloader(data_vol: np.ndarray, settings: SimpleNamespace,
+                                 device="cuda") -> PredictionBatcher:
+    """Prediction batcher (reference dataloaders.py:60-71) at the
+    predictor's batch size. The predictor pads a whole volume to the stride
+    divisor at once."""
+    return PredictionBatcher(
+        data_vol, utils.get_batch_size(settings, device, prediction=True))

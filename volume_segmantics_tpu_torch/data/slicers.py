@@ -1,12 +1,15 @@
 """Training data slicer: label sanitation + volume -> 2D slices (port of
 the JAX package's `data/slicers.py`).
 
-The trainer takes the slices in memory (`get_slice_arrays`). Writing them
-to PNG files (`output_data_slices`, `output_label_slices`) is not ported:
-the GPU machine has no PNG codec, and the training CLI needs no files.
+The training CLI gives the trainer the slices in memory
+(`get_slice_arrays`). The library workflow writes them to PNG directories
+(`output_data_slices`, `output_label_slices`, through `utils/png.py`),
+builds `VolSeg2dTrainer(image_dir, label_dir, ...)` on them and deletes
+them with `clean_up_slices`.
 """
 
 import logging
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from types import SimpleNamespace
 from typing import List, Optional, Tuple, Union
@@ -15,6 +18,7 @@ import numpy as np
 
 import volume_segmantics_tpu_torch.utils.base_data_utils as utils
 from volume_segmantics_tpu_torch.data.base_data_manager import BaseDataManager
+from volume_segmantics_tpu_torch.utils import png
 
 
 class TrainingDataSlicer(BaseDataManager):
@@ -34,6 +38,7 @@ class TrainingDataSlicer(BaseDataManager):
         self.settings = settings
         self.data_im_out_dir: Optional[Path] = None
         self.seg_im_out_dir: Optional[Path] = None
+        self._written: List[Path] = []
         self.seg_vol = self._load_labels(label_vol)
         self.multilabel = False
         self._sanitise_labels()
@@ -112,13 +117,48 @@ class TrainingDataSlicer(BaseDataManager):
         return arr if arr.dtype == np.uint8 else utils.img_as_ubyte(arr)
 
     def output_data_slices(self, data_dir: Path, prefix: str) -> None:
-        raise NotImplementedError(
-            "Writing slices to PNG files is not ported to PyTorch (see "
-            "ROADMAP.md); use get_slice_arrays()."
-        )
+        """Slice the image volume to `{prefix}_{axis}_stack_{index}.png`
+        files in `data_dir` (reference slicers.py:72-80)."""
+        logging.info("Slicing data volume and saving slices to disk")
+        self.data_im_out_dir = self._export_volume(Path(data_dir), prefix,
+                                                   label=False)
 
-    output_label_slices = output_data_slices
+    def output_label_slices(self, data_dir: Path, prefix: str) -> None:
+        """Slice the label volume to PNG files, with the `>1 -> 1` squash of
+        a binary volume (reference slicers.py:82-90)."""
+        logging.info("Slicing label volume and saving slices to disk")
+        self.seg_im_out_dir = self._export_volume(Path(data_dir), prefix,
+                                                  label=True)
+
+    def _export_volume(self, out_dir: Path, prefix: str, label: bool) -> Path:
+        out_dir.mkdir(parents=True, exist_ok=True)
+        axis_enum = utils.get_training_axis(self.settings)
+        vol = self.seg_vol if label else self.data_vol
+
+        def export(pair):
+            axis, index = pair
+            if label:
+                im = self._label_slice(axis, index)
+            else:
+                im = self._as_ubyte(utils.axis_index_to_slice(vol, axis, index))
+            path = out_dir / f"{prefix}_{axis}_stack_{index}.png"
+            png.write(path, np.ascontiguousarray(im))
+            return path
+
+        # zlib releases the GIL: compress the slices in a thread pool.
+        with ThreadPoolExecutor() as pool:
+            self._written.extend(pool.map(
+                export, utils.get_axis_index_pairs(vol.shape, axis_enum)))
+        return out_dir
 
     def clean_up_slices(self) -> None:
-        """Deletes the slice files this slicer wrote: it writes none, so
-        this does nothing."""
+        """Delete the PNG files this slicer wrote, then their directories
+        where nothing else is left in them (reference slicers.py:135-149)."""
+        logging.info(f"Deleting {len(self._written)} images.")
+        for path in self._written:
+            path.unlink(missing_ok=True)
+        self._written = []
+        for im_dir in {self.data_im_out_dir, self.seg_im_out_dir} - {None}:
+            if im_dir.exists() and not any(im_dir.iterdir()):
+                logging.info(f"Deleting the empty directory {im_dir}.")
+                im_dir.rmdir()

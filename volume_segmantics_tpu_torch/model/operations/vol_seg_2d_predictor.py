@@ -31,6 +31,7 @@ import torch
 import volume_segmantics_tpu_torch.utils.base_data_utils as utils
 import volume_segmantics_tpu_torch.utils.config as cfg
 from volume_segmantics_tpu_torch.data.augmentations import get_padded_dimension
+from volume_segmantics_tpu_torch.data.dataloaders import PredictionBatcher
 from volume_segmantics_tpu_torch.model.model_2d import create_model_from_file
 from volume_segmantics_tpu_torch.parallel.train import autocast, normalise
 from volume_segmantics_tpu_torch.utils.base_data_utils import Axis
@@ -106,14 +107,16 @@ class VolSeg2dPredictor:
         labels = torch.empty((n, ph, pw), dtype=torch.uint8, device=vol.device)
         probs = torch.empty((n, ph, pw), dtype=torch.float16, device=vol.device)
         self.model.eval()
-        for start in range(0, n, self.batch_size):
-            stop = min(start + self.batch_size, n)
-            x = normalise(vol[start:stop].contiguous().float() / 255.0)
+        start = 0
+        for chunk, n_valid in PredictionBatcher(vol, self.batch_size):
+            x = normalise(chunk.contiguous().float() / 255.0)
             with autocast(vol.device, self.compute_dtype):
                 logits = self.model(x)
             p = torch.softmax(logits.float(), dim=1)
+            stop = start + n_valid
             labels[start:stop] = torch.argmax(p, dim=1)  # first max on a tie
             probs[start:stop] = torch.amax(p, dim=1)
+            start = stop
         return labels, probs
 
     def _run_sweep(self, vol: torch.Tensor):

@@ -20,8 +20,9 @@ AdamW state, early-stopping state, the loss lists), and an interrupted run
 resumes from it when its frozen flag matches. `profile_dir` records a
 `torch.profiler` trace of epoch 1 of each phase as a Chrome trace.
 
-Left out of this port: the loss and prediction figures (the GPU machine
-has no matplotlib); the train-stats CSV is written.
+After training it writes the train-stats CSV, the loss plot and the
+validation montage as PNG files (`utils/figures.py`, `utils/png.py`: the
+GPU machine has no matplotlib), their text in tEXt chunks.
 """
 
 import csv
@@ -51,10 +52,13 @@ from volume_segmantics_tpu_torch.models.checkpoint import (
 )
 from volume_segmantics_tpu_torch.models.torch_export import flax_param_paths
 from volume_segmantics_tpu_torch.parallel.train import (
+    autocast,
     build_eval_step,
     build_train_step,
     make_base_optimizer,
+    normalise,
 )
+from volume_segmantics_tpu_torch.utils import figures, png
 from volume_segmantics_tpu_torch.utils.device import resolve_device
 from volume_segmantics_tpu_torch.utils.early_stopping import EarlyStopping
 from volume_segmantics_tpu_torch.utils.host_memory import (
@@ -74,7 +78,11 @@ def frozen_parameter_names(model: torch.nn.Module,
 
 
 class VolSeg2dTrainer:
-    """Trains a 2d model on in-memory slice lists."""
+    """Trains a 2d model and writes its loss curves and example
+    predictions.
+
+    The first two arguments are PNG slice directories (`str` or `Path`,
+    the reference's workflow) or in-memory slice lists (`from_slicer`)."""
 
     @classmethod
     def from_slicer(cls, slicer, labels, settings, device=None):
@@ -89,7 +97,7 @@ class VolSeg2dTrainer:
         "lr_reduce_factor", "patience", "model", "pct_lr_inc",
     )
 
-    def __init__(self, data_slices, label_slices, labels: Union[int, dict],
+    def __init__(self, image_dir_path, label_dir_path, labels: Union[int, dict],
                  settings: SimpleNamespace, device=None):
         require_settings(settings, self.REQUIRED_SETTINGS, "training")
         # Slice stacks and epoch shuffles churn large host buffers; keep
@@ -103,7 +111,7 @@ class VolSeg2dTrainer:
         data_ss, init_ss, aug_ss, drop_ss = np.random.SeedSequence(
             seed).spawn(4)
         self.training_loader, self.validation_loader = get_2d_training_dataloaders(
-            data_slices, label_slices, settings, self.device,
+            image_dir_path, label_dir_path, settings, self.device,
             rng=np.random.default_rng(data_ss),
         )
         self._init_gen = torch.Generator().manual_seed(
@@ -537,12 +545,21 @@ class VolSeg2dTrainer:
     # ------------------------------------------------------------------
 
     def output_loss_fig(self, model_out_path: Path) -> None:
-        """Write the per-epoch CSV of losses and eval scores. The loss
-        curve figure is skipped: the port has no plotting library."""
+        """Write the loss plot, `<stem>_loss_plot.png` (training and
+        validation loss by epoch, a dashed red line at the best epoch), and
+        the per-epoch CSV of losses and eval scores (reference trainer
+        :434-479)."""
         out_dir = model_out_path.parent
         stem = model_out_path.stem
-        logging.info("Skipping the figure of training/validation losses "
-                     "(no plotting library in the PyTorch port).")
+        canvas, _, best = figures.loss_plot(self.avg_train_losses,
+                                            self.avg_valid_losses)
+        fig_path = out_dir / f"{stem}_loss_plot.png"
+        logging.info(f"Saving figure of training/validation losses to {fig_path}")
+        png.write(fig_path, canvas, text={
+            "X label": "epochs", "Y label": "loss",
+            "Legend": "Training Loss (C0), Validation Loss (C1), Early "
+                      f"Stopping Checkpoint (red, dashed, epoch {best})",
+        })
         # CSV column names are a de-facto contract with downstream tooling.
         # Epoch numbers are 0-based like the reference's
         # (trainer :472 `range(len(self.avg_train_losses))`).
@@ -555,9 +572,28 @@ class VolSeg2dTrainer:
                     self.avg_valid_losses, self.avg_eval_scores)
             )
 
+    def predict_batch(self, images: np.ndarray) -> np.ndarray:
+        """Labels (argmax of an eval-mode forward on the trainer's device)
+        of an (N, H, W) uint8 batch."""
+        x = normalise(torch.from_numpy(images).to(self.device).float() / 255.0)
+        self.model.eval()
+        with torch.no_grad(), autocast(self.device, self.compute_dtype):
+            logits = self.model(x)
+        return logits.float().argmax(dim=1).cpu().numpy()
+
     def output_prediction_figure(self, model_path: Path) -> None:
-        """The montage of validation predictions is skipped: the port has
-        no plotting library."""
-        logging.info(f"Skipping the example prediction figure for "
-                     f"{model_path.name} (no plotting library in the "
-                     "PyTorch port).")
+        """Write `<stem>_prediction_image.png`: data, ground truth and
+        prediction panels of up to 4 samples of the first validation batch
+        at native resolution, each min-max scaled (reference trainer
+        :481-535)."""
+        images, masks, _ = next(iter(self.validation_loader))
+        predictions = self.predict_batch(images)
+        n_rows = min(images.shape[0], 4)
+        canvas = figures.montage(
+            [(images[r], masks[r], predictions[r]) for r in range(n_rows)])
+        fig_path = model_path.parent / f"{model_path.stem}_prediction_image.png"
+        logging.info(f"Saving example image predictions to {fig_path}")
+        png.write(fig_path, canvas, text={
+            "Title": f"Predictions for {model_path.name}",
+            "Columns": "Data, Ground Truth, Prediction",
+        })

@@ -3,10 +3,12 @@
 `scripts/train_2d_model.py`).
 
 Same flags, settings discovery under <data_dir>/volseg-settings/, dated
-model filename, frozen -> unfrozen two-phase schedule and train-stats CSV
-as the JAX CLI. The slices stay in memory: where the JAX CLI writes PNG
-slices and reads them back (``slice_to_disk`` absent or true), the trainer
-gets them in the order that round trip gives.
+model filename, frozen -> unfrozen two-phase schedule, train-stats CSV,
+loss plot and validation montage as the JAX CLI, from HDF5 or TIFF
+volumes. The slices stay in memory: where the JAX CLI writes PNG slices
+and reads them back (``slice_to_disk`` absent or true), the trainer gets
+them in the order that round trip gives; PNG is lossless, so the pixels
+are the same.
 
     python -m volume_segmantics_tpu_torch.scripts.train_2d_model \\
         --data d.h5 --labels l.h5 --data_dir DIR
@@ -16,7 +18,6 @@ path on the CPU.
 """
 
 import logging
-import re
 import sys
 from datetime import date
 from pathlib import Path
@@ -24,6 +25,7 @@ from pathlib import Path
 import volume_segmantics_tpu_torch.utils.base_data_utils as utils
 import volume_segmantics_tpu_torch.utils.config as cfg
 from volume_segmantics_tpu_torch.data import TrainingDataSlicer, get_settings_data
+from volume_segmantics_tpu_torch.data.datasets import natsort
 from volume_segmantics_tpu_torch.model import VolSeg2dTrainer
 from volume_segmantics_tpu_torch.models.pretrained import (
     pretrained_weights_available,
@@ -42,13 +44,6 @@ def _parse_cli(argv=None):
         sys.exit(1)
     root = Path(getattr(args, cfg.DATA_DIR_ARG)).resolve()
     return data_vols, label_vols, root
-
-
-def natsort(item):
-    """The JAX package's natural-sort key for slice file paths
-    (`data/datasets.py:VolSeg2dDataset.natsort`)."""
-    return [int(t) if t.isdigit() else t.lower()
-            for t in re.split(r"(\d+)", str(item))]
 
 
 def _slice_all_volumes(data_vols, label_vols, settings):

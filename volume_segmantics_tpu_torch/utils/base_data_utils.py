@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 import volume_segmantics_tpu_torch.utils.config as cfg
-from volume_segmantics_tpu_torch.utils import hdf5
+from volume_segmantics_tpu_torch.utils import hdf5, tiff
 
 
 class Quality(Enum):
@@ -384,12 +384,9 @@ def clip_to_uint8(
 
 
 def numpy_from_tiff(path) -> np.ndarray:
-    """Multipage TIFF -> numpy volume: not ported (the GPU machine has no
-    TIFF codec)."""
-    raise NotImplementedError(
-        f"Reading TIFF volumes ({path}) is not ported to PyTorch yet (see "
-        "ROADMAP.md); convert the volume to HDF5."
-    )
+    """Multipage TIFF -> (pages, height, width) numpy volume (reference
+    base_data_utils.py:166-176), read by `utils/tiff.py`."""
+    return tiff.read(path)
 
 
 def _resolve_hdf5_dataset(data_handle, hdf5_path: str = "/data",
