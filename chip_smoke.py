@@ -163,13 +163,30 @@
    the CLI's in-memory slices take `FORMATS_STEPS` seeded steps each:
    equal arrays and losses bit for bit, each kernel launched once a step;
    `clean_up_slices` leaves no file.
-14. Train-batch sweep (`THROUGHPUT_TRAIN_BATCH`): 15 timed
+14. Interchange phase, in `<out-dir>/interchange`, from the HDF5 fixtures
+   h5py wrote (`tests/data/torch_hdf5/`, by `tests/torch_hdf5_fixtures.py`):
+   every fixture reads equal to its array rebuilt here (`fixture_arrays`);
+   seeded resnet34 (torchvision names) and efficientnet-b3 (lukemelas
+   names) state_dicts saved as .pth files and converted by
+   `scripts/convert_torch_encoder.py` into a weights directory; the B3
+   cache loads bit for bit; `model-train-2d` with the shipped settings
+   (U-Net/resnet34, 256, 1+1 epochs, `encoder_weights: imagenet` from the
+   resnet34 cache) on `vessels.nxs`, whose data is an external link into a
+   superblock 3 file (extensible array, shuffle, gzip, Fletcher-32), and the
+   fixed-array labels: fails unless the encoder at creation equals the
+   cache bit for bit, the frozen parameters keep their bits through the
+   frozen epoch and each kernel launched once a step; `model-predict-2d`
+   on `vessels.nxs` in memory and slab-streamed from a lazy source, and on
+   the default-layout copy `utils/hdf5.write` makes: labels equal at every
+   voxel; `spatial_partitions: 2` on one GPU raises the JAX package's
+   ValueError.
+15. Train-batch sweep (`THROUGHPUT_TRAIN_BATCH`): 15 timed
    `build_train_step` steps on one seeded batch at batches 12, 32, 64, 128
    and 256 (bf16, unfrozen), samples/s and peak memory; the smallest batch
    within 5% of the best samples/s is printed beside the configured one.
-15. Prints a `{"kernels": [...]}` line (launches of the slice, CLI, losses,
-   pretrained, architectures, encoders and formats phases) and, last, the
-   device line.
+16. Prints a `{"kernels": [...]}` line (launches of the slice, CLI, losses,
+   pretrained, architectures, encoders, formats and interchange phases)
+   and, last, the device line.
 
 Exits non-zero on any failure, without a GPU, and outside a checkout of the
 repository (the package is imported from beside this file).
@@ -2695,6 +2712,279 @@ def encoders_phase(images_u8, masks_u8, dev, out_dir: Path):
     return res
 
 
+# HDF5 fixtures written by h5py (tests/torch_hdf5_fixtures.py), read on the
+# card by the interchange phase: file -> (dataset path, the array it holds).
+FIXTURE_DIR = REPO / "tests" / "data" / "torch_hdf5"
+FIXTURE_SHAPE = (48, 96, 96)
+FIXTURE_READS = {
+    "vessels.nxs": ("entry/final_result_tomo/data", "vessels"),
+    "vessels_latest.h5": ("data", "vessels"),
+    "vessels_labels.h5": ("data", "labels"),
+    "single_chunk.h5": ("data", "crop"),
+    "implicit.h5": ("data", "crop"),
+    "fixed_array_paged.h5": ("data", "crop"),
+    "btree2.h5": ("data", "crop"),
+    "contiguous_latest.h5": ("data", "crop"),
+    "superblock_2.h5": ("data", "crop"),
+    "user_block.h5": ("data", "crop"),
+    "soft_link.nxs": ("entry/final_result_tomo/data", "crop"),
+}
+INTERCHANGE_ENCODERS = {"resnet34": "torchvision", "efficientnet-b3": "lukemelas"}
+INTERCHANGE_LAZY_VOXELS = 100_000  # below the fixture volume's 442,368
+
+
+def fixture_arrays() -> dict:
+    """The arrays the HDF5 fixtures hold, rebuilt without h5py: the vessels
+    volume and its labels, and a (12, 24, 24) crop of the volume."""
+    vol, labels = make_vessel_volume(FIXTURE_SHAPE, seed=1)
+    return {"vessels": vol, "labels": labels,
+            "crop": np.ascontiguousarray(vol[:12, :24, :24])}
+
+
+def seeded_encoder_file(encoder_name: str, path: Path, seed=5) -> dict:
+    """A seeded 3-channel encoder state_dict saved as a .pth in torchvision
+    names (ResNet) or lukemelas names (EfficientNet, with its unused
+    classification tail), as the port's names are; returns it."""
+    from volume_segmantics_tpu_torch.models.registry import create_model
+
+    model = create_model({"type": "U_Net", "encoder_name": encoder_name,
+                          "encoder_weights": None, "in_channels": 3,
+                          "classes": 2},
+                         generator=torch.Generator().manual_seed(seed))
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for key, value in model.state_dict().items():
+        if not key.startswith("encoder."):
+            continue
+        if key.endswith("running_var"):
+            value = torch.from_numpy(rng.uniform(0.5, 1.5, value.shape)
+                                     .astype(np.float32))
+        elif key.endswith(("running_mean", ".bias")) or (
+                value.dtype == torch.float32 and value.ndim == 1):
+            value = torch.from_numpy(rng.normal(0, 0.1, value.shape)
+                                     .astype(np.float32))
+        sd[key[len("encoder."):]] = value.clone()
+    torch.save(sd, path)
+    return sd
+
+
+def interchange_phase(dev, out_dir: Path):
+    """HDF5 and NeXus files as h5py writes them, the encoder cache written
+    without JAX, and `spatial_partitions` (see the module doc)."""
+    import volume_segmantics_tpu_torch.utils.config as cfg
+    from volume_segmantics_tpu_torch.model.operations.vol_seg_2d_trainer import (
+        frozen_parameter_names,
+    )
+    from volume_segmantics_tpu_torch.model.model_2d import create_model_on_device
+    from volume_segmantics_tpu_torch.models.pretrained import (
+        WEIGHTS_DIR_ENV,
+        first_conv_path,
+    )
+    from volume_segmantics_tpu_torch.models.torch_export import (
+        encoder_state_dict_from_variables,
+    )
+    from volume_segmantics_tpu_torch.ops import kernels
+    from volume_segmantics_tpu_torch.scripts import (
+        convert_torch_encoder,
+        predict_2d_model,
+        train_2d_model,
+    )
+    from volume_segmantics_tpu_torch.utils import hdf5
+    from volume_segmantics_tpu_torch.utils.flax_msgpack import msgpack_restore
+
+    failures, res = [], {"phase": "interchange"}
+    root = out_dir / "interchange"
+    shutil.rmtree(root, ignore_errors=True)
+    (root / "weights").mkdir(parents=True)
+    t_phase = time.perf_counter()
+
+    # 1. Every fixture reads equal to the array rebuilt here.
+    arrays = fixture_arrays()
+    reads = {}
+    for name, (internal, array) in FIXTURE_READS.items():
+        t0 = time.perf_counter()
+        with hdf5.File(FIXTURE_DIR / name) as f:
+            ds = f[internal]
+            got, chunks = ds[()], ds.chunks
+        reads[name] = {"s": time.perf_counter() - t0, "chunks": chunks,
+                       "equal": bool(got.dtype == arrays[array].dtype
+                                     and np.array_equal(got, arrays[array]))}
+        if not reads[name]["equal"]:
+            failures.append(f"fixture {name}:{internal} differs from {array}")
+    res["reads"] = reads
+
+    # 2. The encoder caches, from seeded .pth files through the command.
+    def expected_encoder(cache: Path, encoder_name: str) -> dict:
+        """The converter's output as a 1-channel model's `encoder.*`
+        entries: the first convolution summed over its 3 inputs."""
+        blob = msgpack_restore(cache.read_bytes())
+        params = blob["params"]
+        node = params
+        for key in first_conv_path(params)[:-1]:
+            node = node[key]
+        leaf = first_conv_path(params)[-1]
+        node[leaf] = node[leaf].sum(axis=2, keepdims=True)
+        return encoder_state_dict_from_variables(params, blob["batch_stats"],
+                                                 encoder_name)
+
+    caches = {}
+    for encoder_name, naming in INTERCHANGE_ENCODERS.items():
+        pth = root / f"{encoder_name}_{naming}.pth"
+        seeded_encoder_file(encoder_name, pth)
+        t0 = time.perf_counter()
+        cache = convert_torch_encoder.main([encoder_name, str(pth), "--out-dir",
+                                            str(root / "weights")])
+        caches[encoder_name] = {"convert_s": time.perf_counter() - t0,
+                                "mb": cache.stat().st_size / 1e6}
+    saved_env = os.environ.get(WEIGHTS_DIR_ENV)
+    os.environ[WEIGHTS_DIR_ENV] = str(root / "weights")
+    try:
+        # EfficientNet-B3 from its lukemelas cache: loaded bit for bit.
+        struc = {"type": "U_Net", "encoder_name": "efficientnet-b3",
+                 "encoder_weights": "imagenet", "in_channels": 1, "classes": 2}
+        model = create_model_on_device(dev, struc)
+        expected = expected_encoder(root / "weights" / "efficientnet-b3.vstpu",
+                                    "efficientnet-b3")
+        own = model.state_dict()
+        caches["efficientnet-b3"]["loaded_equal"] = bool(
+            model.pretrained_loaded and set(expected) <= set(own) and all(
+                torch.equal(own[k].cpu(), v) for k, v in expected.items()))
+        del model, own
+
+        # 3. model-train-2d at the shipped settings' width on vessels.nxs,
+        # its volume behind an external link, from the resnet34 cache.
+        (root / cfg.SETTINGS_DIR).mkdir()
+        (root / cfg.SETTINGS_DIR / cfg.TRAIN_SETTINGS_FN).write_text(
+            settings_text(cfg.TRAIN_SETTINGS_FN, num_cyc_frozen=1,
+                          num_cyc_unfrozen=1, seed=0))
+        trainers, frozen_after = [], {}
+
+        class RecordedTrainer(train_2d_model.VolSeg2dTrainer):
+            """Records the encoder of the model it creates and the frozen
+            parameters at the end of the frozen phase."""
+
+            def __init__(self, *args, **kwargs):
+                super().__init__(*args, **kwargs)
+                self.encoders_at_create = []
+                trainers.append(self)
+
+            def _create_model_and_optimiser(self, learning_rate, frozen=False):
+                super()._create_model_and_optimiser(learning_rate, frozen)
+                self.encoders_at_create.append(
+                    (self.model.pretrained_loaded,
+                     {n: v.detach().cpu().clone()
+                      for n, v in self.model.state_dict().items()
+                      if n.startswith("encoder.")}))
+
+            def train_model(self, output_path, num_epochs, patience,
+                            create=True, frozen=False):
+                out = super().train_model(output_path, num_epochs, patience,
+                                          create, frozen)
+                if frozen:
+                    names = frozen_parameter_names(self.model,
+                                                   self.model_struc_dict)
+                    frozen_after.update({
+                        n: p.detach().cpu().clone()
+                        for n, p in self.model.named_parameters() if n in names})
+                return out
+
+        train_2d_model.VolSeg2dTrainer = RecordedTrainer
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            train_2d_model.main(["--data", str(FIXTURE_DIR / "vessels.nxs"),
+                                 "--labels", str(FIXTURE_DIR / "vessels_labels.h5"),
+                                 "--data_dir", str(root)])
+        finally:
+            train_2d_model.VolSeg2dTrainer = RecordedTrainer.__bases__[0]
+        torch.cuda.synchronize()
+        res["train_main_s"] = time.perf_counter() - t0
+    finally:
+        if saved_env is None:
+            del os.environ[WEIGHTS_DIR_ENV]
+        else:
+            os.environ[WEIGHTS_DIR_ENV] = saved_env
+    res["launches"] = dict(kernels.LAUNCHES)
+    trainer = trainers[0]
+    expected = expected_encoder(root / "weights" / "resnet34.vstpu", "resnet34")
+    loaded, at_create = trainer.encoders_at_create[0]
+    caches["resnet34"]["loaded_equal"] = bool(
+        loaded and set(at_create) >= set(expected)
+        and all(torch.equal(at_create[k], v) for k, v in expected.items()))
+    res["caches"] = caches
+    for name, entry in caches.items():
+        if not entry["loaded_equal"]:
+            failures.append(f"the {name} encoder as loaded differs from the "
+                            "converter's output")
+    res["frozen_parameters"] = len(frozen_after)
+    res["frozen_unchanged"] = bool(frozen_after) and all(
+        torch.equal(v, at_create[n]) for n, v in frozen_after.items())
+    if not res["frozen_unchanged"]:
+        failures.append(f"{len(frozen_after)} frozen parameters moved in the "
+                        "frozen epoch")
+    for entry, count in res["launches"].items():
+        if count != trainer.train_steps:
+            failures.append(f"{entry} launched {count} times in the .nxs run's "
+                            f"{trainer.train_steps} train steps")
+    res.update({"train_steps": trainer.train_steps,
+                "eval_scores": trainer.avg_eval_scores})
+    ckpt = train_2d_model._model_output_path(trainer.settings, root)
+    del trainers, trainer
+
+    # 4. model-predict-2d on vessels.nxs in memory and slab-streamed from a
+    # lazy source, and on the default-layout copy `utils/hdf5.write` makes.
+    vol = arrays["vessels"]
+    labels = {}
+    for run, source, edits in (
+            ("in_memory", FIXTURE_DIR / "vessels.nxs", {}),
+            ("streamed", FIXTURE_DIR / "vessels.nxs",
+             {"lazy_ingest_threshold": INTERCHANGE_LAZY_VOXELS,
+              "streaming_threshold": INTERCHANGE_LAZY_VOXELS}),
+            ("default_layout", root / "vessels_default.h5", {})):
+        data_dir = root / run
+        (data_dir / cfg.SETTINGS_DIR).mkdir(parents=True)
+        (data_dir / cfg.SETTINGS_DIR / cfg.PREDICTION_SETTINGS_FN).write_text(
+            settings_text(cfg.PREDICTION_SETTINGS_FN, **edits))
+        if run == "default_layout":
+            hdf5.write(source, vol)
+        t0 = time.perf_counter()
+        predict_2d_model.main([str(ckpt), str(source), "--data_dir", str(data_dir)])
+        res[f"predict_{run}_s"] = time.perf_counter() - t0
+        labels[run], _ = hdf5.read(predict_2d_model.create_output_path(
+            data_dir, source))
+    res["predictions_equal"] = {
+        run: bool(np.array_equal(labels[run], labels["in_memory"]))
+        for run in ("streamed", "default_layout")}
+    res["labels_shape"] = list(labels["in_memory"].shape)
+    res["label_agreement_with_truth"] = float(
+        (labels["in_memory"] == arrays["labels"]).mean())
+    if labels["in_memory"].shape != vol.shape:
+        failures.append(f"labels of shape {labels['in_memory'].shape}")
+    for run, equal in res["predictions_equal"].items():
+        if not equal:
+            failures.append(f"{run} labels differ from the in-memory ones")
+
+    # 5. spatial_partitions: 2 on one GPU raises the JAX package's error.
+    settings = training_settings()
+    settings.spatial_partitions = 2
+    slices = [arrays["crop"][i] for i in range(4)]
+    try:
+        train_2d_model.VolSeg2dTrainer(slices, slices, 2, settings, device=dev)
+        res["spatial_partitions_error"] = None
+    except (ValueError, NotImplementedError) as e:
+        res["spatial_partitions_error"] = f"{type(e).__name__}: {e}"
+    count = torch.cuda.device_count()
+    want = (f"ValueError: spatial_partitions=2 must divide the device count "
+            f"({count})." if count % 2 else "NotImplementedError: ")
+    if not (res["spatial_partitions_error"] or "").startswith(want):
+        failures.append(f"spatial_partitions: 2 on {count} GPUs raised "
+                        f"{res['spatial_partitions_error']!r}, not {want!r}")
+    res["phase_s"] = time.perf_counter() - t_phase
+    res["failures"] = failures
+    print(json.dumps(res), flush=True)
+    return res
+
+
 KERNELS = (
     ("K1", "warp_u8", "volseg_warp_u8", "volume_segmantics_tpu_torch/ops/csrc/warp.cu",
      "volume_segmantics_tpu/ops/warp.py:420"),
@@ -2757,8 +3047,10 @@ def main() -> int:
         archs = architectures_phase(images, masks, dev, out_dir)
         encoders = encoders_phase(images, masks, dev, out_dir)
         formats = formats_phase(dev, out_dir, cli)
+        interchange = interchange_phase(dev, out_dir)
     sweep = train_batch_sweep(images, masks, dev)
-    counted = (summary, cli, losses, pretrained, archs, encoders, formats)
+    counted = (summary, cli, losses, pretrained, archs, encoders, formats,
+               interchange)
     kernels_line = {"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": sum(phase["launches"][entry] for phase in counted),
@@ -2769,7 +3061,7 @@ def main() -> int:
     ]}
     failed = [k for k in kres if not kres[k]["ok"]] + [
         f for phase in (summary, predicted, cli, losses, ckpt, large, pretrained,
-                        archs, encoders, formats, sweep)
+                        archs, encoders, formats, interchange, sweep)
         for f in phase["failures"]]
     if failed:
         print(json.dumps({"failed": failed}), file=sys.stderr)

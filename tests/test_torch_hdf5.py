@@ -136,24 +136,29 @@ def test_missing_paths_raise_key_error_and_nxs_fallback_exits(tmp_path):
 
 
 def test_unsupported_features_raise_not_implemented(tmp_path):
+    """LZF, strings and booleans stay refused by name. Superblock version 3,
+    Fletcher-32 and soft links, refused before, now read as h5py reads
+    them (tests/test_torch_hdf5_layouts.py and _links.py test them in
+    full)."""
     latest = tmp_path / "latest.h5"
     with h5py.File(latest, "w", libver="latest") as f:
         f["data"] = np.zeros((2, 3, 4), np.uint8)
-    with pytest.raises(NotImplementedError, match="superblock version 3.*ROADMAP"):
-        hdf5.read(latest)
+    assert_read_equals_h5py(latest)
     other = tmp_path / "other.h5"
     with h5py.File(other, "w") as f:
         f.create_dataset("lzf", data=np.zeros((4, 4), np.uint8), compression="lzf")
-        f.create_dataset("fletcher", data=np.zeros((4, 4), np.uint8),
+        f.create_dataset("fletcher", data=np.arange(16, dtype=np.uint8).reshape(4, 4),
                          chunks=(2, 2), fletcher32=True)
         f["strings"] = np.array([b"ab", b"cd"])
         f["flags"] = np.zeros((4,), bool)
-        f["link"] = h5py.SoftLink("/lzf")
-    for name, feature in (("lzf", "filter 32000"), ("fletcher", "filter 3"),
+        f["link"] = h5py.SoftLink("/fletcher")
+    for name, feature in (("lzf", "filter 32000"),
                           ("strings", "datatype class 3"),
-                          ("flags", "datatype class 8"), ("link", "soft links")):
+                          ("flags", "datatype class 8")):
         with pytest.raises(NotImplementedError, match=feature):
             hdf5.read(other, name)
+    for name in ("fletcher", "link"):
+        assert_read_equals_h5py(other, name)
     with pytest.raises(ValueError, match="not an HDF5 file"):
         (tmp_path / "x.h5").write_bytes(b"not hdf5" * 20)
         hdf5.read(tmp_path / "x.h5")

@@ -51,6 +51,7 @@ def test_every_module_imports_and_no_kernel_is_built():
                    "utils.flax_msgpack", "models.pretrained", "utils.host_memory",
                    "model.operations.vol_seg_large_predictor",
                    "utils.png", "utils.tiff", "utils.figures", "data.datasets",
+                   "models.torch_convert", "scripts.convert_torch_encoder",
                    *(f"models.decoders.{d}" for d in (
                        "unetpp", "fpn", "deeplab", "manet", "linknet", "pan")),
                    *(f"models.encoders.{e}" for e in (

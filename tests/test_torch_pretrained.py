@@ -135,7 +135,11 @@ def test_missing_cache_warns_as_jax_and_keeps_the_init(tmp_path, monkeypatch,
     with caplog.at_level(logging.WARNING):
         caplog.clear()
         jax_pretrained.load_pretrained_encoder({}, "resnet34", 1)
-    assert warning == [caplog.records[0].getMessage()]
+    # The JAX warning's text, but naming the port's converter, which needs
+    # no JAX.
+    assert warning == [caplog.records[0].getMessage().replace(
+        "tools/convert_torch_encoder.py",
+        "`python -m volume_segmantics_tpu_torch.scripts.convert_torch_encoder`")]
     random_init = create_model(dict(STRUC, type="U_Net"),
                                generator=torch.Generator().manual_seed(2))
     for key, value in random_init.state_dict().items():

@@ -77,6 +77,25 @@ def frozen_parameter_names(model: torch.nn.Module,
         and any("conv" in n for n in paths[name]))
 
 
+def check_spatial_partitions(settings: SimpleNamespace,
+                             device: torch.device) -> None:
+    """The JAX trainer's `spatial_partitions` (optional, default 1): the
+    axis of its device mesh that splits image height. A count that does not
+    divide the device count (the GPUs, or 1 on the CPU) raises the JAX
+    package's ValueError (its `parallel/mesh.py:get_mesh`); one that does
+    and is above 1 asks for multi-GPU training, which is not ported."""
+    space = int(getattr(settings, "spatial_partitions", 1) or 1)
+    if space <= 1:
+        return
+    count = torch.cuda.device_count() if device.type == "cuda" else 1
+    if count % space:
+        raise ValueError(f"spatial_partitions={space} must divide the device "
+                         f"count ({count}).")
+    raise NotImplementedError(
+        f"spatial_partitions={space} shards training over {space} devices; "
+        "multi-GPU training is not ported yet (ROADMAP.md, section 1 item 4).")
+
+
 class VolSeg2dTrainer:
     """Trains a 2d model and writes its loss curves and example
     predictions.
@@ -104,6 +123,7 @@ class VolSeg2dTrainer:
         # freed pages in-process (utils/host_memory.py).
         tune_malloc_for_large_buffers()
         self.device = resolve_device(device)
+        check_spatial_partitions(settings, self.device)
         # One seed, four independent streams: data split and order, model
         # initialisation, on-device augmentation and dropout masks (the
         # first three are spawned as they were before the fourth).

@@ -3,9 +3,11 @@ package's `models/pretrained.py`).
 
 No weights are downloaded. `$VOLSEG_TPU_WEIGHTS_DIR/<encoder_name>.vstpu`
 is a flax msgpack blob {"params", "batch_stats"} of the encoder subtree in
-the JAX package's naming, the file its `tools/convert_torch_encoder.py`
-writes; both packages read the same cache. When it is missing the model
-keeps its random initialisation, with the JAX package's warning.
+the JAX package's naming, which the port's
+`scripts/convert_torch_encoder.py` and the JAX package's
+`tools/convert_torch_encoder.py` write alike; both packages read it. When
+it is missing the model keeps its random initialisation, with the JAX
+package's warning (which names the port's command).
 """
 
 import logging
@@ -94,7 +96,8 @@ def load_pretrained_encoder(model: torch.nn.Module, encoder_name: str,
         logging.warning(
             f"No pretrained weights for encoder '{encoder_name}' found in "
             f"${WEIGHTS_DIR_ENV}; using random initialisation. Convert torch "
-            "weights with tools/convert_torch_encoder.py to enable them."
+            "weights with `python -m volume_segmantics_tpu_torch.scripts."
+            "convert_torch_encoder` to enable them."
         )
         return False
     blob = msgpack_restore(path.read_bytes())

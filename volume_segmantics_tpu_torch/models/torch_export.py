@@ -468,15 +468,20 @@ def _resnest_encoder(params, stats, sd):
         stage += 1
 
 
+# smp-named `encoder.*` entries -> the encoder's flax trees, by family
+# (EfficientNet also takes its blocks per stage).
+ENCODER_CONVERTERS = {
+    "resnet": _resnet_encoder,
+    "efficientnet": _efficientnet_encoder,
+    "resnest": _resnest_encoder,
+}
+
+
 def _encoder(params, stats, sd, encoder_name):
     family = _encoder_family(encoder_name)
-    if family == "efficientnet":
-        _efficientnet_encoder(params, stats, sd,
-                              stage_repeats(EFFICIENTNETS[encoder_name][1]))
-    elif family == "resnest":
-        _resnest_encoder(params, stats, sd)
-    else:
-        _resnet_encoder(params, stats, sd)
+    extra = ((stage_repeats(EFFICIENTNETS[encoder_name][1]),)
+             if family == "efficientnet" else ())
+    ENCODER_CONVERTERS[family](params, stats, sd, *extra)
 
 
 def _unet_block(params, stats, sd, t, path):
