@@ -180,13 +180,33 @@
    the default-layout copy `utils/hdf5.write` makes: labels equal at every
    voxel; `spatial_partitions: 2` on one GPU raises the JAX package's
    ValueError.
-15. Train-batch sweep (`THROUGHPUT_TRAIN_BATCH`): 15 timed
+15. Virtual phase, in `<out-dir>/virtual`, from the fixtures h5py wrote
+   for the rest of what it reads (`VIRTUAL_READS`, `FIXTURE_OTHERS`): (a)
+   each reads equal to its array rebuilt here (LZF behind shuffle and
+   Fletcher-32, integer and float scale-offset, n-bit, external raw data
+   found through $HDF5_EXTFILE_PREFIX=${ORIGIN}, a virtual dataset with
+   sources in the same file, a sibling file, a missing file and another
+   virtual dataset, the LZF tile, the stitched training pair), the best of
+   three reads timed (s and MB/s); (b) the 512^3 virtual dataset of 512
+   mappings over the 64^3 LZF tile read whole, timed (s and MB/s), equal
+   to the tile tiled, then read again as `LazyHDF5Volume` slabs of
+   `VIRTUAL_SLAB` (each slab's s); (c) `model-train-2d` with the shipped
+   settings (1+1 epochs, seed 0) on `stitched.nxs`, a NeXus virtual
+   dataset stitched from an LZF half and an integer scale-offset half,
+   and labels in integer scale-offset: fails unless every loss and eval
+   score is finite, the frozen parameters keep their bits through the
+   frozen epoch and each kernel launched once a step; (d)
+   `model-predict-2d` from that checkpoint on the 256^3 virtual dataset
+   over the tile in memory, slab-streamed from a lazy source (both
+   thresholds below it) and from a gzip copy of the materialised volume
+   written by `utils/hdf5.write`: labels equal at every voxel.
+16. Train-batch sweep (`THROUGHPUT_TRAIN_BATCH`): 15 timed
    `build_train_step` steps on one seeded batch at batches 12, 32, 64, 128
    and 256 (bf16, unfrozen), samples/s and peak memory; the smallest batch
    within 5% of the best samples/s is printed beside the configured one.
-16. Prints a `{"kernels": [...]}` line (launches of the slice, CLI, losses,
-   pretrained, architectures, encoders, formats and interchange phases)
-   and, last, the device line.
+17. Prints a `{"kernels": [...]}` line (launches of the slice, CLI, losses,
+   pretrained, architectures, encoders, formats, interchange and virtual
+   phases) and, last, the device line.
 
 Exits non-zero on any failure, without a GPU, and outside a checkout of the
 repository (the package is imported from beside this file).
@@ -2713,11 +2733,14 @@ def encoders_phase(images_u8, masks_u8, dev, out_dir: Path):
 
 
 # HDF5 fixtures written by h5py (tests/torch_hdf5_fixtures.py), read on the
-# card by the interchange phase: file -> (dataset path, the array it holds).
+# card by the interchange and virtual phases: file -> (dataset path, the
+# array it holds), those of the interchange phase, then those of the
+# virtual phase.
 FIXTURE_DIR = REPO / "tests" / "data" / "torch_hdf5"
 FIXTURE_SHAPE = (48, 96, 96)
-FIXTURE_READS = {
-    "vessels.nxs": ("entry/final_result_tomo/data", "vessels"),
+NEXUS_DATA = "entry/final_result_tomo/data"
+INTERCHANGE_READS = {
+    "vessels.nxs": (NEXUS_DATA, "vessels"),
     "vessels_latest.h5": ("data", "vessels"),
     "vessels_labels.h5": ("data", "labels"),
     "single_chunk.h5": ("data", "crop"),
@@ -2727,18 +2750,65 @@ FIXTURE_READS = {
     "contiguous_latest.h5": ("data", "crop"),
     "superblock_2.h5": ("data", "crop"),
     "user_block.h5": ("data", "crop"),
-    "soft_link.nxs": ("entry/final_result_tomo/data", "crop"),
+    "soft_link.nxs": (NEXUS_DATA, "crop"),
 }
+VIRTUAL_READS = {
+    "crop_lzf.h5": ("data", "crop_u2"),
+    "crop_scaleoffset_int.h5": ("data", "crop_u2"),
+    "crop_scaleoffset_float.h5": ("data", "crop_quarters"),
+    "crop_nbit.h5": ("data", "crop"),
+    "crop_external.h5": ("data", "crop"),
+    "crop_virtual.h5": ("data", "crop_virtual"),
+    "tile_lzf.h5": ("data", "tile"),
+    "tile_256.h5": ("data", "tile_256"),
+    "stitched_lzf.h5": ("data", "stitched_top"),
+    "stitched_scaleoffset.h5": ("data", "stitched_bottom"),
+    "stitched.nxs": (NEXUS_DATA, "stitched"),
+    "stitched_labels.h5": ("data", "stitched_labels"),
+}
+FIXTURE_READS = {**INTERCHANGE_READS, **VIRTUAL_READS}
+# Committed beside them: the 512^3 virtual dataset over the tile (read by
+# the virtual phase's step 2) and the external raw data file.
+FIXTURE_OTHERS = ("tile_512.h5", "crop_external.raw")
+TILE_SIDE, TILE_COPIES = 64, (4, 8)  # the tile, its copies a side in the two VDS
+VIRTUAL_FILL = 7  # the fill value of crop_virtual.h5
 INTERCHANGE_ENCODERS = {"resnet34": "torchvision", "efficientnet-b3": "lukemelas"}
 INTERCHANGE_LAZY_VOXELS = 100_000  # below the fixture volume's 442,368
 
 
+def field_of_view(side: int) -> np.ndarray:
+    """The pixels of a side x side slice inside a micro-CT reconstruction's
+    field of view: a centred disc of radius 0.45 side (`field_of_view_cut`)."""
+    yx = np.arange(side) - (side - 1) / 2
+    return yx[:, None] ** 2 + yx[None, :] ** 2 <= (0.45 * side) ** 2
+
+
 def fixture_arrays() -> dict:
     """The arrays the HDF5 fixtures hold, rebuilt without h5py: the vessels
-    volume and its labels, and a (12, 24, 24) crop of the volume."""
+    volume and its labels, a (12, 24, 24) crop of the volume, the crop as
+    uint16 and in float32 quarters (scale-offset with 2 decimal digits
+    stores those exactly), the four quadrants of crop_virtual.h5; the
+    vessels volume and labels with the slices' corners outside the field of
+    view zeroed ("stitched", as uint16, and its halves as stored), and a
+    64^3 vessels tile cut so, alone and tiled 4 x 4 x 4."""
     vol, labels = make_vessel_volume(FIXTURE_SHAPE, seed=1)
-    return {"vessels": vol, "labels": labels,
-            "crop": np.ascontiguousarray(vol[:12, :24, :24])}
+    crop = np.ascontiguousarray(vol[:12, :24, :24])
+    crop_u2 = crop.astype(np.uint16) * 3 + 1000
+    quadrants = np.full((12, 48, 48), VIRTUAL_FILL, np.uint16)
+    quadrants[:, :24, :24] = crop
+    quadrants[:, :24, 24:] = crop_u2
+    quadrants[:, 24:, 24:] = crop
+    inside = field_of_view(FIXTURE_SHAPE[1])
+    stitched = (vol * inside).astype(np.uint16)
+    tile = make_vessel_volume((TILE_SIDE,) * 3, seed=4)[0] * field_of_view(TILE_SIDE)
+    half = FIXTURE_SHAPE[0] // 2
+    return {"vessels": vol, "labels": labels, "crop": crop, "crop_u2": crop_u2,
+            "crop_quarters": (crop.astype(np.float32) - 100) / 4,
+            "crop_virtual": quadrants, "stitched": stitched,
+            "stitched_top": stitched[:half].astype(np.uint8),
+            "stitched_bottom": stitched[half:],
+            "stitched_labels": labels * inside.astype(np.uint8),
+            "tile": tile, "tile_256": np.tile(tile, (TILE_COPIES[0],) * 3)}
 
 
 def seeded_encoder_file(encoder_name: str, path: Path, seed=5) -> dict:
@@ -2801,7 +2871,7 @@ def interchange_phase(dev, out_dir: Path):
     # 1. Every fixture reads equal to the array rebuilt here.
     arrays = fixture_arrays()
     reads = {}
-    for name, (internal, array) in FIXTURE_READS.items():
+    for name, (internal, array) in INTERCHANGE_READS.items():
         t0 = time.perf_counter()
         with hdf5.File(FIXTURE_DIR / name) as f:
             ds = f[internal]
@@ -2985,6 +3055,202 @@ def interchange_phase(dev, out_dir: Path):
     return res
 
 
+VIRTUAL_LAZY_VOXELS = 100_000  # far below 256^3: lazy ingest and streaming
+VIRTUAL_SLAB = 64  # slices a `LazyHDF5Volume` read of the 512^3 volume takes
+
+
+def virtual_phase(dev, out_dir: Path):
+    """LZF, scale-offset, n-bit, external raw storage and virtual datasets
+    from h5py-written fixtures (see the module doc)."""
+    import volume_segmantics_tpu_torch.utils.config as cfg
+    from volume_segmantics_tpu_torch.model.operations.vol_seg_2d_trainer import (
+        frozen_parameter_names,
+    )
+    from volume_segmantics_tpu_torch.ops import kernels
+    from volume_segmantics_tpu_torch.scripts import predict_2d_model, train_2d_model
+    from volume_segmantics_tpu_torch.utils import hdf5
+    from volume_segmantics_tpu_torch.utils.base_data_utils import LazyHDF5Volume
+
+    failures, res = [], {"phase": "virtual"}
+    root = out_dir / "virtual"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    t_phase = time.perf_counter()
+
+    # 1. Every fixture equal to its array rebuilt here; the best of three
+    # reads, in MB/s of the decoded array. The external raw data file is
+    # found beside its HDF5 file through $HDF5_EXTFILE_PREFIX.
+    arrays = fixture_arrays()
+    reads = {}
+    saved_prefix = os.environ.get(hdf5.EXTFILE_PREFIX_ENV)
+    os.environ[hdf5.EXTFILE_PREFIX_ENV] = hdf5.ORIGIN
+    try:
+        for name, (internal, array) in VIRTUAL_READS.items():
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                with hdf5.File(FIXTURE_DIR / name) as f:
+                    ds = f[internal]
+                    got = ds[()]
+                times.append(time.perf_counter() - t0)
+            filters = [hdf5.FILTER_NAMES[fid] for fid, _, _ in ds._filters]
+            reads[name] = {
+                "s": min(times), "mb_per_s": got.nbytes / min(times) / 1e6,
+                "filters": filters, "layout": ds._layout_class,
+                "equal": bool(got.dtype == arrays[array].dtype
+                              and np.array_equal(got, arrays[array]))}
+            if not reads[name]["equal"]:
+                failures.append(f"fixture {name}:{internal} differs from {array}")
+    finally:
+        if saved_prefix is None:
+            del os.environ[hdf5.EXTFILE_PREFIX_ENV]
+        else:
+            os.environ[hdf5.EXTFILE_PREFIX_ENV] = saved_prefix
+    res["reads"] = reads
+
+    # 2. The 512^3 virtual dataset over the LZF tile: whole, then as lazy
+    # slabs.
+    copies = TILE_COPIES[1]
+    tiled = np.tile(arrays["tile"], (copies,) * 3)
+    path = FIXTURE_DIR / f"tile_{TILE_SIDE * copies}.h5"
+    t0 = time.perf_counter()
+    with hdf5.File(path) as f:
+        ds = f["data"]
+        whole = ds[()]
+        seconds = time.perf_counter() - t0
+        big = {"s": seconds, "mb_per_s": whole.nbytes / seconds / 1e6,
+               "mappings": len(ds._mappings), "opened_sources": ds.opened_sources,
+               "inflated_chunks": ds.inflated_chunks,
+               "equal": bool(np.array_equal(whole, tiled))}
+    del whole
+    lazy = LazyHDF5Volume(path)
+    try:
+        slab_s, equal = [], True
+        for z in range(0, lazy.shape[0], VIRTUAL_SLAB):
+            t0 = time.perf_counter()
+            part = lazy[z:z + VIRTUAL_SLAB]
+            slab_s.append(time.perf_counter() - t0)
+            equal &= bool(np.array_equal(part, tiled[z:z + VIRTUAL_SLAB]))
+        big.update(slab=VIRTUAL_SLAB, slab_s=slab_s, slabs_s=sum(slab_s),
+                   slabs_equal=equal, lazy_inflated_chunks=lazy.inflated_chunks)
+    finally:
+        lazy.close()
+    res["vds_512"] = big
+    if not (big["equal"] and big["slabs_equal"]):
+        failures.append(f"the 512^3 virtual dataset differs from the tiled tile: "
+                        f"whole {big['equal']}, slabs {big['slabs_equal']}")
+    del tiled
+
+    # 3. model-train-2d with the shipped settings on the stitched NeXus
+    # volume (LZF and scale-offset sources) and scale-offset labels.
+    (root / cfg.SETTINGS_DIR).mkdir()
+    (root / cfg.SETTINGS_DIR / cfg.TRAIN_SETTINGS_FN).write_text(
+        settings_text(cfg.TRAIN_SETTINGS_FN, num_cyc_frozen=1,
+                      num_cyc_unfrozen=1, seed=0))
+    trainers, frozen_state = [], {}
+
+    class RecordedTrainer(train_2d_model.VolSeg2dTrainer):
+        """Records the frozen parameters of the model it creates for the
+        frozen epoch, and whether they kept their bits through it."""
+
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            trainers.append(self)
+
+        def _frozen_parameters(self):
+            names = frozen_parameter_names(self.model, self.model_struc_dict)
+            return {n: p.detach().cpu().clone()
+                    for n, p in self.model.named_parameters() if n in names}
+
+        def _create_model_and_optimiser(self, learning_rate, frozen=False):
+            super()._create_model_and_optimiser(learning_rate, frozen)
+            if frozen:
+                frozen_state["at_create"] = self._frozen_parameters()
+
+        def train_model(self, output_path, num_epochs, patience, create=True,
+                        frozen=False):
+            out = super().train_model(output_path, num_epochs, patience, create,
+                                      frozen)
+            if frozen:
+                after = self._frozen_parameters()
+                frozen_state.update(count=len(after), unchanged=bool(after) and all(
+                    torch.equal(v, frozen_state["at_create"][n])
+                    for n, v in after.items()))
+            return out
+
+    train_2d_model.VolSeg2dTrainer = RecordedTrainer
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        train_2d_model.main(["--data", str(FIXTURE_DIR / "stitched.nxs"),
+                             "--labels", str(FIXTURE_DIR / "stitched_labels.h5"),
+                             "--data_dir", str(root)])
+    finally:
+        train_2d_model.VolSeg2dTrainer = RecordedTrainer.__bases__[0]
+    torch.cuda.synchronize()
+    res["train_main_s"] = time.perf_counter() - t0
+    res["launches"] = dict(kernels.LAUNCHES)
+    trainer = trainers[0]
+    losses = trainer.avg_train_losses + trainer.avg_valid_losses
+    res.update({"train_steps": trainer.train_steps,
+                "avg_train_losses": trainer.avg_train_losses,
+                "eval_scores": trainer.avg_eval_scores,
+                "frozen_parameters": frozen_state.get("count", 0),
+                "frozen_unchanged": frozen_state.get("unchanged", False)})
+    if not losses or not all(np.isfinite(losses)):
+        failures.append(f"stitched run losses {losses}")
+    if not trainer.avg_eval_scores or not all(np.isfinite(trainer.avg_eval_scores)):
+        failures.append(f"stitched run eval scores {trainer.avg_eval_scores}")
+    if not res["frozen_unchanged"]:
+        failures.append(f"{res['frozen_parameters']} frozen parameters moved in "
+                        "the frozen epoch of the stitched run")
+    for entry, count in res["launches"].items():
+        if count != trainer.train_steps:
+            failures.append(f"{entry} launched {count} times in the stitched run's "
+                            f"{trainer.train_steps} train steps")
+    ckpt = train_2d_model._model_output_path(trainer.settings, root)
+    del trainers, trainer
+
+    # 4. model-predict-2d on the 256^3 virtual dataset over the tile in
+    # memory, slab-streamed from a lazy source, and from a gzip copy of the
+    # materialised volume: labels equal at every voxel.
+    source = FIXTURE_DIR / f"tile_{TILE_SIDE * TILE_COPIES[0]}.h5"
+    labels = {}
+    for run, edits in (("in_memory", {}),
+                       ("streamed", {"lazy_ingest_threshold": VIRTUAL_LAZY_VOXELS,
+                                     "streaming_threshold": VIRTUAL_LAZY_VOXELS}),
+                       ("materialised", {})):
+        data_dir = root / run
+        (data_dir / cfg.SETTINGS_DIR).mkdir(parents=True)
+        (data_dir / cfg.SETTINGS_DIR / cfg.PREDICTION_SETTINGS_FN).write_text(
+            settings_text(cfg.PREDICTION_SETTINGS_FN, **edits))
+        src = source
+        if run == "materialised":
+            src = root / "tile_256_gzip.h5"
+            t0 = time.perf_counter()
+            hdf5.write(src, hdf5.read(source)[0])
+            res["materialise_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        predict_2d_model.main([str(ckpt), str(src), "--data_dir", str(data_dir)])
+        res[f"predict_{run}_s"] = time.perf_counter() - t0
+        labels[run], _ = hdf5.read(predict_2d_model.create_output_path(data_dir, src))
+    res["predictions_equal"] = {
+        run: bool(np.array_equal(labels[run], labels["in_memory"]))
+        for run in ("streamed", "materialised")}
+    res["labels_shape"] = list(labels["in_memory"].shape)
+    res["foreground_share"] = float((labels["in_memory"] > 0).mean())
+    if labels["in_memory"].shape != arrays["tile_256"].shape:
+        failures.append(f"labels of shape {labels['in_memory'].shape}")
+    for run, equal in res["predictions_equal"].items():
+        if not equal:
+            failures.append(f"{run} labels differ from the in-memory ones")
+    shutil.rmtree(root, ignore_errors=True)
+    res["phase_s"] = time.perf_counter() - t_phase
+    res["failures"] = failures
+    print(json.dumps(res), flush=True)
+    return res
+
+
 KERNELS = (
     ("K1", "warp_u8", "volseg_warp_u8", "volume_segmantics_tpu_torch/ops/csrc/warp.cu",
      "volume_segmantics_tpu/ops/warp.py:420"),
@@ -3048,9 +3314,10 @@ def main() -> int:
         encoders = encoders_phase(images, masks, dev, out_dir)
         formats = formats_phase(dev, out_dir, cli)
         interchange = interchange_phase(dev, out_dir)
+        virtual = virtual_phase(dev, out_dir)
     sweep = train_batch_sweep(images, masks, dev)
     counted = (summary, cli, losses, pretrained, archs, encoders, formats,
-               interchange)
+               interchange, virtual)
     kernels_line = {"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": sum(phase["launches"][entry] for phase in counted),
@@ -3061,7 +3328,7 @@ def main() -> int:
     ]}
     failed = [k for k in kres if not kres[k]["ok"]] + [
         f for phase in (summary, predicted, cli, losses, ckpt, large, pretrained,
-                        archs, encoders, formats, interchange, sweep)
+                        archs, encoders, formats, interchange, virtual, sweep)
         for f in phase["failures"]]
     if failed:
         print(json.dumps({"failed": failed}), file=sys.stderr)

@@ -136,10 +136,10 @@ def test_missing_paths_raise_key_error_and_nxs_fallback_exits(tmp_path):
 
 
 def test_unsupported_features_raise_not_implemented(tmp_path):
-    """LZF, strings and booleans stay refused by name. Superblock version 3,
-    Fletcher-32 and soft links, refused before, now read as h5py reads
-    them (tests/test_torch_hdf5_layouts.py and _links.py test them in
-    full)."""
+    """szip, strings and booleans stay refused by name. Superblock version
+    3, Fletcher-32, soft links and LZF, refused before, now read as h5py
+    reads them (tests/test_torch_hdf5_layouts.py, _links.py and _filters.py
+    test them in full)."""
     latest = tmp_path / "latest.h5"
     with h5py.File(latest, "w", libver="latest") as f:
         f["data"] = np.zeros((2, 3, 4), np.uint8)
@@ -147,17 +147,18 @@ def test_unsupported_features_raise_not_implemented(tmp_path):
     other = tmp_path / "other.h5"
     with h5py.File(other, "w") as f:
         f.create_dataset("lzf", data=np.zeros((4, 4), np.uint8), compression="lzf")
+        f.create_dataset("szip", data=np.zeros((4, 4), "<i4"), compression="szip")
         f.create_dataset("fletcher", data=np.arange(16, dtype=np.uint8).reshape(4, 4),
                          chunks=(2, 2), fletcher32=True)
         f["strings"] = np.array([b"ab", b"cd"])
         f["flags"] = np.zeros((4,), bool)
         f["link"] = h5py.SoftLink("/fletcher")
-    for name, feature in (("lzf", "filter 32000"),
+    for name, feature in (("szip", "filter 4"),
                           ("strings", "datatype class 3"),
                           ("flags", "datatype class 8")):
         with pytest.raises(NotImplementedError, match=feature):
             hdf5.read(other, name)
-    for name in ("fletcher", "link"):
+    for name in ("fletcher", "link", "lzf"):
         assert_read_equals_h5py(other, name)
     with pytest.raises(ValueError, match="not an HDF5 file"):
         (tmp_path / "x.h5").write_bytes(b"not hdf5" * 20)

@@ -1,9 +1,13 @@
 """The committed HDF5 fixtures (`tests/data/torch_hdf5/`, written by
 `tests/torch_hdf5_fixtures.py` with h5py) that `chip_smoke.py` reads on the
-machine without h5py: each reads through the port equal to h5py's reading
-and to the array `chip_smoke.fixture_arrays()` rebuilds, they cover every
-chunk index and the NeXus file's dense group and external link, and they
-stay small."""
+machine without h5py: each reads through the port equal to h5py's reading,
+whole and by basic selections, and to the array
+`chip_smoke.fixture_arrays()` rebuilds; they cover every chunk index, the
+NeXus file's dense group and external link, LZF, scale-offset, n-bit,
+external raw storage and virtual datasets (the 512^3 one over the LZF
+tile too), and they stay small. A byte flipped in a copy of one breaks
+the checksum of a version 2 B-tree node, a fractal heap direct block, a
+fixed array data block or an extensible array index block: ValueError."""
 
 import h5py
 import numpy as np
@@ -33,27 +37,76 @@ def arrays():
     return chip_smoke.fixture_arrays()
 
 
+SELECTIONS = [np.s_[3], np.s_[2:9, 5:17, 1:12], np.s_[-1, :, 4], np.s_[4, 7, 9]]
+
+
 def test_the_fixture_set_is_listed_and_small():
     files = sorted(p.name for p in FIXTURES.iterdir())
-    assert files == sorted(chip_smoke.FIXTURE_READS)
-    assert sum(p.stat().st_size for p in FIXTURES.iterdir()) < 1_000_000
+    assert files == sorted([*chip_smoke.FIXTURE_READS, *chip_smoke.FIXTURE_OTHERS])
+    assert sum(p.stat().st_size for p in FIXTURES.iterdir()) < 2_000_000
 
 
 @pytest.mark.parametrize("name", sorted(chip_smoke.FIXTURE_READS))
-def test_fixtures_read_equal_to_h5py_and_to_the_rebuilt_arrays(arrays, name):
+def test_fixtures_read_equal_to_h5py_and_to_the_rebuilt_arrays(arrays, name,
+                                                               monkeypatch):
+    monkeypatch.chdir(FIXTURES)  # where h5py finds an external raw data file
     internal, array = chip_smoke.FIXTURE_READS[name]
     path = FIXTURES / name
     with h5py.File(path, "r") as f:
         ref, ref_chunks = f[internal][()], f[internal].chunks
+        refs = [f[internal][sel] for sel in SELECTIONS]
     with hdf5.File(path) as f:
         ds = f[internal]
         got, chunks = ds[()], ds.chunks
         if name in INDEXES:
             assert ds._index_type == INDEXES[name]
+        for sel, part in zip(SELECTIONS, refs):
+            np.testing.assert_array_equal(ds[sel], part)
     np.testing.assert_array_equal(got, ref)
     assert chunks == ref_chunks
     assert got.dtype == arrays[array].dtype
     np.testing.assert_array_equal(got, arrays[array])
+
+
+def test_the_512_virtual_dataset_tiles_the_lzf_tile(arrays):
+    """512 mappings of one LZF source; its slabs read equal to h5py's and
+    to the tile tiled (the card reads it whole)."""
+    side = chip_smoke.TILE_SIDE * chip_smoke.TILE_COPIES[1]
+    tiled = np.tile(arrays["tile"], (chip_smoke.TILE_COPIES[1],) * 3)
+    path = FIXTURES / "tile_512.h5"
+    selections = [np.s_[100:140], np.s_[:, 300], np.s_[5:70, 60:200, 400:]]
+    with h5py.File(path, "r") as f:
+        refs = [f["data"][sel] for sel in selections]
+    with hdf5.File(path) as f:
+        ds = f["data"]
+        assert ds.shape == (side,) * 3 and len(ds._mappings) == 512
+        for sel, ref in zip(selections, refs):
+            got = ds[sel]
+            np.testing.assert_array_equal(got, ref)
+            np.testing.assert_array_equal(got, tiled[sel])
+        assert ds.opened_sources == 1
+
+
+FLIPS = {  # structure -> (fixture, signature, offset of the flipped byte)
+    "version 2 B-tree leaf node": ("btree2.h5", b"BTLF", 8),
+    "fractal heap direct block": ("vessels.nxs", b"FHDB", 6),
+    "fixed array data block": ("vessels_labels.h5", b"FADB", 7),
+    "extensible array index block": ("vessels_latest.h5", b"EAIB", 7),
+}
+
+
+@pytest.mark.parametrize("structure", list(FLIPS))
+def test_a_flipped_byte_fails_its_metadata_checksum(tmp_path, structure):
+    name, signature, offset = FLIPS[structure]
+    raw = bytearray((FIXTURES / name).read_bytes())
+    at = raw.index(signature)
+    assert raw.count(signature) == 1
+    raw[at + offset] ^= 0x01
+    path = tmp_path / name
+    path.write_bytes(bytes(raw))
+    internal = chip_smoke.FIXTURE_READS[name][0]
+    with pytest.raises(ValueError, match=f"{structure} at {at} fails its checksum"):
+        hdf5.read(path, internal)
 
 
 def test_the_nexus_fixture_through_both_packages(arrays):

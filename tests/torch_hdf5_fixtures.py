@@ -1,15 +1,16 @@
 """Writes the HDF5 fixtures of tests/data/torch_hdf5/ with h5py, for the
-machine that has no h5py: `chip_smoke.py`'s interchange phase reads them
-there and holds each against its array, rebuilt by
+machine that has no h5py: `chip_smoke.py`'s interchange and virtual phases
+read them there and hold each against its array, rebuilt by
 `chip_smoke.fixture_arrays()`; `tests/test_torch_hdf5_fixtures.py` holds
 them against h5py's reading here. `chip_smoke.FIXTURE_READS` lists the
-files and what each holds.
+files and what each holds, `chip_smoke.FIXTURE_OTHERS` the rest.
 
     python tests/torch_hdf5_fixtures.py
 
 The committed files were written with h5py 3.14.0 on HDF5 1.14.6.
 """
 
+import itertools
 import sys
 from pathlib import Path
 
@@ -19,7 +20,7 @@ import numpy as np
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402
 
-NEXUS_PATH = "entry/final_result_tomo/data"
+NEXUS_PATH = chip_smoke.NEXUS_DATA
 
 
 def write_fixtures(folder: Path) -> None:
@@ -80,5 +81,97 @@ def write_fixtures(folder: Path) -> None:
         f[NEXUS_PATH] = h5py.SoftLink("/raw/data")
 
 
+def write_virtual_fixtures(folder: Path) -> None:
+    """The filters beyond zlib's, external raw storage and virtual
+    datasets, each file holding one array of `chip_smoke.fixture_arrays()`.
+    Virtual datasets name their sources relatively: the library finds them
+    beside the virtual dataset's file."""
+    arrays = chip_smoke.fixture_arrays()
+    crop, crop_u2 = arrays["crop"], arrays["crop_u2"]
+
+    with h5py.File(folder / "crop_lzf.h5", "w") as f:
+        f.create_dataset("data", data=crop_u2, chunks=(6, 12, 12),
+                         compression="lzf", shuffle=True, fletcher32=True)
+    with h5py.File(folder / "crop_scaleoffset_int.h5", "w") as f:
+        f.create_dataset("data", data=crop_u2, chunks=(5, 10, 10), scaleoffset=0)
+    with h5py.File(folder / "crop_scaleoffset_float.h5", "w") as f:
+        f.create_dataset("data", data=arrays["crop_quarters"], chunks=(5, 10, 10),
+                         scaleoffset=2)
+    with h5py.File(folder / "crop_nbit.h5", "w") as f:
+        dcpl = h5py.h5p.create(h5py.h5p.DATASET_CREATE)
+        dcpl.set_chunk((6, 12, 12))
+        dcpl.set_filter(h5py.h5z.FILTER_NBIT)
+        ds = h5py.h5d.create(f.id, b"data", h5py.h5t.STD_U8LE,
+                             h5py.h5s.create_simple(crop.shape), dcpl=dcpl)
+        ds.write(h5py.h5s.ALL, h5py.h5s.ALL, crop)
+    # External raw data: two segments of one file, the second at an offset;
+    # its name is relative (h5py finds it in the working directory, or under
+    # $HDF5_EXTFILE_PREFIX).
+    raw = crop.tobytes()
+    cut, gap = 2000, 96
+    (folder / "crop_external.raw").write_bytes(raw[:cut] + bytes(gap) + raw[cut:])
+    with h5py.File(folder / "crop_external.h5", "w") as f:
+        f.create_dataset("data", shape=crop.shape, dtype=crop.dtype, external=[
+            ("crop_external.raw", 0, cut),
+            ("crop_external.raw", cut + gap, len(raw) - cut)])
+    # Four quadrants: from this file ("."), from a sibling file, from a
+    # missing file (the fill value) and from a virtual dataset in this file
+    # over another sibling.
+    with h5py.File(folder / "crop_virtual.h5", "w") as f:
+        f.create_dataset("local", data=crop, chunks=(6, 12, 12),
+                         compression="gzip")
+        inner = h5py.VirtualLayout(shape=crop.shape, dtype="u1")
+        inner[...] = h5py.VirtualSource("crop_nbit.h5", "data", shape=crop.shape)
+        f.create_virtual_dataset("inner", inner)
+        layout = h5py.VirtualLayout(shape=(12, 48, 48), dtype="<u2")
+        layout[:, :24, :24] = h5py.VirtualSource(".", "local", shape=crop.shape)
+        layout[:, :24, 24:] = h5py.VirtualSource("crop_lzf.h5", "data",
+                                                 shape=crop.shape)
+        layout[:, 24:, :24] = h5py.VirtualSource("missing.h5", "data",
+                                                 shape=crop.shape)
+        layout[:, 24:, 24:] = h5py.VirtualSource(".", "inner", shape=crop.shape)
+        f.create_virtual_dataset("data", layout, fillvalue=chip_smoke.VIRTUAL_FILL)
+
+    # The LZF tile and the two virtual datasets that tile it.
+    tile, side = arrays["tile"], chip_smoke.TILE_SIDE
+    with h5py.File(folder / "tile_lzf.h5", "w") as f:
+        f.create_dataset("data", data=tile, chunks=tile.shape, compression="lzf")
+    for copies in chip_smoke.TILE_COPIES:
+        n = side * copies
+        layout = h5py.VirtualLayout(shape=(n, n, n), dtype="u1")
+        source = h5py.VirtualSource("tile_lzf.h5", "data", shape=tile.shape)
+        for z, y, x in itertools.product(range(0, n, side), repeat=3):
+            layout[z:z + side, y:y + side, x:x + side] = source
+        with h5py.File(folder / f"tile_{n}.h5", "w") as f:
+            f.create_virtual_dataset("data", layout)
+
+    # The training pair: a NeXus volume stitched from an LZF half (uint8)
+    # and an integer scale-offset half (uint16) under a uint16 virtual
+    # dataset; the labels in integer scale-offset behind gzip.
+    top, bottom = arrays["stitched_top"], arrays["stitched_bottom"]
+    with h5py.File(folder / "stitched_lzf.h5", "w") as f:
+        f.create_dataset("data", data=top, chunks=(8, 48, 48), compression="lzf")
+    with h5py.File(folder / "stitched_scaleoffset.h5", "w") as f:
+        f.create_dataset("data", data=bottom, chunks=(8, 48, 48), scaleoffset=0)
+    stitched = arrays["stitched"]
+    layout = h5py.VirtualLayout(shape=stitched.shape, dtype="<u2")
+    half = len(top)
+    layout[:half] = h5py.VirtualSource("stitched_lzf.h5", "data", shape=top.shape,
+                                       dtype="u1")
+    layout[half:] = h5py.VirtualSource("stitched_scaleoffset.h5", "data",
+                                       shape=bottom.shape)
+    with h5py.File(folder / "stitched.nxs", "w") as f:
+        entry = f.create_group("entry")
+        entry.attrs["NX_class"] = "NXentry"
+        tomo = entry.create_group("final_result_tomo")
+        tomo.attrs["NX_class"] = "NXdata"
+        tomo.attrs["signal"] = "data"
+        tomo.create_virtual_dataset("data", layout)
+    with h5py.File(folder / "stitched_labels.h5", "w") as f:
+        f.create_dataset("data", data=arrays["stitched_labels"], chunks=(8, 48, 48),
+                         scaleoffset=0, compression="gzip")
+
+
 if __name__ == "__main__":
     write_fixtures(Path(chip_smoke.FIXTURE_DIR))
+    write_virtual_fixtures(Path(chip_smoke.FIXTURE_DIR))

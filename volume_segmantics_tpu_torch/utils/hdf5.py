@@ -5,10 +5,9 @@ The reader takes what h5py 3 writes at any `libver` bound, as h5py reads
 it:
 - a user block before the superblock (looked for at 0, 512, 1024, 2048,
   ..., as the library does; addresses count from the superblock), and
-  superblock versions 0 to 3, with the checksum of versions 2 and 3
-  verified;
+  superblock versions 0 to 3;
 - version 1 object headers and version 2 ones (`OHDR`, with their `OCHK`
-  continuation blocks), each checksum verified;
+  continuation blocks);
 - groups of both kinds: symbol tables (v1 B-tree, SNOD nodes and a local
   heap), and link messages, either in the object header or, in a dense
   group, in a fractal heap reached through the version 2 B-tree of link
@@ -17,27 +16,53 @@ it:
   ``/entry/final_result_tomo/data``. One lookup follows at most 16 soft or
   external links, as the library does, and raises KeyError past that (a
   cycle; h5py raises RuntimeError there). An external link's file is
-  looked for as the library looks for it (`File._external`), and a dataset
-  reached through one keeps that file open for as long as it lives;
+  looked for as the library looks for it (`File._other_file`), and a
+  dataset reached through one keeps that file open for as long as it
+  lives;
 - fixed-point (1, 2, 4 or 8 bytes, signed or not) and IEEE float (2, 4 or
-  8 bytes) datatypes in either byte order;
+  8 bytes) datatypes of full precision in either byte order;
 - contiguous, compact and chunked layouts (layout message versions 3 and
   4), with chunks found through each index the library writes: the
   version 1 B-tree, a single chunk, the implicit index, the fixed array,
   the extensible array and the version 2 B-tree; partial edge chunks, and
   chunks never written (these take the fill value);
-- the deflate, shuffle and Fletcher-32 filters; each Fletcher-32 checksum is
-  verified, and a mismatch raises ValueError.
+- the filters deflate, shuffle, Fletcher-32, LZF (h5py's filter 32000),
+  scale-offset (integers, and floats with a decimal scale, bit for bit as
+  the library decodes them) and n-bit (full-precision types, which it
+  leaves as they are) in `hdf5_filters`; a chunk's filter mask skips the
+  filters its writer skipped, such as LZF on a chunk it cannot shrink;
+- external raw storage: the data in segments of raw files, a relative
+  name under $HDF5_EXTFILE_PREFIX (``${ORIGIN}`` is the file's directory)
+  or else in the working directory, as the library finds them; a missing
+  file raises OSError, a short one reads as zeros;
+- virtual datasets (layout class 3): the mappings in the global heap,
+  their source and virtual selections ("all" and hyperslabs, regular or
+  not, in each encoding the library writes). A source file is looked for
+  as an external link's, under $HDF5_VDS_PREFIX; "." is the same file. A
+  source is opened through this reader (chunked, filtered, external or
+  itself virtual) once a dataset; a region whose source file or dataset is
+  missing takes the fill value, as h5py gives it.
+
+Every checksum the library writes on the way is verified: the superblock
+(versions 2 and 3), object headers and their continuation blocks,
+version 2 B-tree headers and nodes, fractal heap direct blocks, fixed and
+extensible array blocks and pages, the virtual dataset mappings and
+Fletcher-32 chunks. A mismatch, or a chunk that does not decode, raises
+ValueError.
 
 It returns arrays in native byte order, and `chunks` as h5py's
 ``dataset.chunks`` gives them. ``ds[sel]`` takes h5py's basic selections
 (ints and step-1 slices): a chunked dataset indexes its chunks once and
-inflates only those that meet the selection, so a volume larger than host
-memory is read a slab at a time. Every other feature (LZF, szip, n-bit and
-scale-offset filters, virtual and external-storage layouts, shared object
-header messages, other datatypes, offsets that are not 8 bytes, steps and
-fancy indexing, ...) raises NotImplementedError naming it; a path that is
-not in the file raises KeyError, as h5py does.
+inflates only those that meet the selection, a virtual one reads only the
+mappings that meet it, so a volume larger than host memory is read a slab
+at a time. Every chunk a read inflates, through any depth of virtual
+datasets, is a job of one thread pool. Every other feature raises
+NotImplementedError naming it: the szip filter, reduced-precision types
+(as the n-bit filter packs them), scale-offset's E-scale method, point
+selections, unlimited and printf-style (%b) mappings of virtual datasets,
+shared object header messages, other datatypes, offsets that are not 8
+bytes, steps and fancy indexing, and more. A path that is not in the file
+raises KeyError, as h5py does.
 
 The writer makes what ``h5py.File(p, "w").create_dataset(path, data=...,
 chunks=..., compression="gzip")`` makes: superblock version 0, one chunked,
@@ -48,6 +73,7 @@ in order, so the file does not depend on the pool.
 """
 
 import bisect
+import functools
 import itertools
 import math
 import mmap
@@ -60,6 +86,7 @@ from pathlib import Path
 
 import numpy as np
 
+from volume_segmantics_tpu_torch.utils import hdf5_filters
 from volume_segmantics_tpu_torch.utils.config import HDF5_GZIP_LEVEL
 
 SIGNATURE = b"\x89HDF\r\n\x1a\n"
@@ -70,9 +97,28 @@ MAX_LINK_TRAVERSALS = 16  # soft and external links one lookup may follow
 MSG_NIL, MSG_DATASPACE, MSG_LINK_INFO, MSG_DATATYPE = 0x0, 0x1, 0x2, 0x3
 MSG_FILL_OLD, MSG_FILL, MSG_LINK, MSG_EXTERNAL, MSG_LAYOUT = 0x4, 0x5, 0x6, 0x7, 0x8
 MSG_FILTERS, MSG_CONTINUATION, MSG_SYMBOL_TABLE = 0xB, 0x10, 0x11
-FILTER_DEFLATE, FILTER_SHUFFLE, FILTER_FLETCHER32 = 1, 2, 3
-FILTER_NAMES = {4: "szip", 5: "n-bit", 6: "scale-offset", 32000: "LZF"}
+FILTER_DEFLATE, FILTER_SHUFFLE, FILTER_FLETCHER32, FILTER_SZIP = 1, 2, 3, 4
+FILTER_NBIT, FILTER_SCALEOFFSET, FILTER_LZF = 5, 6, 32000
+FILTER_NAMES = {FILTER_DEFLATE: "deflate", FILTER_SHUFFLE: "shuffle",
+                FILTER_FLETCHER32: "Fletcher-32", FILTER_SZIP: "szip",
+                FILTER_NBIT: "n-bit", FILTER_SCALEOFFSET: "scale-offset",
+                FILTER_LZF: "LZF"}
 LINK_HARD, LINK_SOFT, LINK_EXTERNAL = 0, 1, 64
+LAYOUT_COMPACT, LAYOUT_CONTIGUOUS, LAYOUT_CHUNKED, LAYOUT_VIRTUAL = 0, 1, 2, 3
+
+# Where the library looks for other files: an external link's file, a
+# virtual dataset's source file, an external raw data file.
+EXT_PREFIX_ENV = "HDF5_EXT_PREFIX"
+VDS_PREFIX_ENV = "HDF5_VDS_PREFIX"
+EXTFILE_PREFIX_ENV = "HDF5_EXTFILE_PREFIX"
+ORIGIN = "${ORIGIN}"
+
+# Dataspace selections as the library serialises them (H5S*.c): the types,
+# and the flag of a regular hyperslab's encoding.
+SEL_NONE, SEL_POINTS, SEL_HYPERSLABS, SEL_ALL = 0, 1, 2, 3
+HYPER_REGULAR = 0x1
+VDS_HEAP_VERSION = 0  # the encoding of a virtual dataset's mappings
+MAX_VDS_DEPTH = 32  # virtual datasets one read may pass through (cycles)
 
 # Chunk indexes: the version 1 B-tree of a version 3 layout message, and
 # the index types of a version 4 one.
@@ -384,6 +430,7 @@ class File:
         if buf[addr:addr + 4] != b"BTHD" or buf[addr + 5] != record_type:
             raise ValueError(f"{self.path}: no type {record_type} version 2 "
                              f"B-tree at {addr}")
+        self._verify(addr, addr + 34, "version 2 B-tree header")
         node_size, record_size, depth = self._u("IHH", addr + 6)
         root, root_count = self._u("QH", addr + 16)
         # The widths of a child pointer's record counts follow from how many
@@ -403,14 +450,19 @@ class File:
                 raise ValueError(f"{self.path}: no version 2 B-tree node at {node}")
             records = node + 6
             if level == 0:
+                self._verify(node, records + count * record_size,
+                             "version 2 B-tree leaf node")
                 yield from range(records, records + count * record_size,
                                  record_size)
                 return
             p = records + count * record_size
+            pointer = 8 + count_size + total_sizes[level - 1]
+            self._verify(node, p + (count + 1) * pointer,
+                         "version 2 B-tree internal node")
             for i in range(count + 1):
                 child = self._u("Q", p)[0]
                 child_count = self._uint(p + 8, count_size)
-                p += 8 + count_size + total_sizes[level - 1]
+                p += pointer
                 yield from walk(child, child_count, level - 1)
                 if i < count:
                     yield records + i * record_size
@@ -490,21 +542,23 @@ class File:
         _, records = self._btree2_records(names, BTREE2_LINK_NAMES)
         return dict(self._link(heap.object(r + 4)) for r in records)
 
-    def _external(self, name: str) -> "File":
-        """The file an external link names, looked for as the library does:
-        an absolute name as it is, then (with its directories dropped) under
-        each directory of $HDF5_EXT_PREFIX (``${ORIGIN}`` is this file's
-        directory), in this file's directory, and in the working directory.
-        The first candidate that opens as HDF5 is taken."""
+    def _other_file(self, name: str, env: str):
+        """The file an external link or a virtual dataset's mapping names,
+        looked for as the library looks for it (H5F_prefix_open_file): an
+        absolute name as it is, then (with its directories dropped) under
+        each directory of the environment variable `env` (``${ORIGIN}`` is
+        this file's directory), in this file's directory, and in the working
+        directory. The first candidate that opens as HDF5 is taken; None
+        when none does. Each file is opened once."""
         target = Path(name)
         candidates = []
         if target.is_absolute():
             candidates.append(target)
             target = Path(target.name)
-        for prefix in os.environ.get("HDF5_EXT_PREFIX", "").split(os.pathsep):
+        for prefix in os.environ.get(env, "").split(os.pathsep):
             if prefix:
-                candidates.append(Path(prefix.replace("${ORIGIN}",
-                                                      str(self._dir))) / target)
+                candidates.append(Path(prefix.replace(ORIGIN, str(self._dir)))
+                                  / target)
         candidates += [self._dir / target, target]
         for path in candidates:
             key = os.path.abspath(path)
@@ -514,8 +568,36 @@ class File:
                 except (OSError, ValueError):
                     continue
             return self._externals[key]
-        raise KeyError(f"Unable to open object (can't open file '{name}' of "
-                       "an external link)")
+        return None
+
+    def _external(self, name: str) -> "File":
+        """The file of an external link (see `_other_file`)."""
+        f = self._other_file(name, EXT_PREFIX_ENV)
+        if f is None:
+            raise KeyError(f"Unable to open object (can't open file '{name}' "
+                           "of an external link)")
+        return f
+
+    def _global_heap_object(self, addr: int, index: int):
+        """The bytes of object `index` of the global heap collection
+        (`GCOL`) at `addr`."""
+        buf = self._buf
+        if buf[addr:addr + 4] != b"GCOL" or buf[addr + 4] != 1:
+            raise ValueError(f"{self.path}: no global heap collection at {addr}")
+        end = addr + self._u("Q", addr + 8)[0]
+        p = addr + 16
+        while p + 16 <= end:
+            obj, _refs, size = self._u("HH4xQ", p)
+            if obj == 0:  # the free space: no object follows
+                break
+            if obj == index:
+                if p + 16 + size > end:
+                    raise ValueError(f"{self.path}: global heap object {index} "
+                                     f"at {addr} passes its collection's end")
+                return bytes(buf[p + 16:p + 16 + size])
+            p += 16 + size + (-size % 8)
+        raise ValueError(f"{self.path}: no object {index} in the global heap "
+                         f"collection at {addr}")
 
     def _resolve(self, path: str, budget: list, group=None) -> tuple:
         """(file, object header address) of `path`, taken from the group at
@@ -567,6 +649,7 @@ class _FractalHeap:
             raise ValueError(f"{f.path}: no fractal heap at {addr}")
         self._f = f
         filter_size = f._u("H", addr + 7)[0]
+        self._checksummed = bool(f._buf[addr + 9] & 0x2)  # direct blocks
         if filter_size:
             raise unsupported("filtered fractal heaps")
         (self._width, self._start, max_direct, max_heap_bits, _, root,
@@ -586,6 +669,15 @@ class _FractalHeap:
         f = self._f
         if f._buf[addr:addr + 4] != b"FHDB":
             raise ValueError(f"{f.path}: no fractal heap direct block at {addr}")
+        if self._checksummed:
+            # The checksum is of the whole block with its own field zeroed.
+            at = 13 + self._offset_size
+            block = bytearray(f._buf[addr:addr + size])
+            stored = struct.unpack_from("<I", block, at)[0]
+            block[at:at + 4] = bytes(4)
+            if lookup3(block) != stored:
+                raise ValueError(f"{f.path}: fractal heap direct block at "
+                                 f"{addr} fails its checksum (the file is corrupt)")
         self._blocks.append((f._uint(addr + 13, self._offset_size), addr, size))
 
     def _indirect(self, addr, rows):
@@ -629,7 +721,8 @@ class Dataset:
     axis), `size`, `ndim`, `dtype` (native byte order), `chunks` (None
     unless chunked), and `ds[sel]` for h5py's basic selections (`ds[()]` is
     the whole array). `inflated_chunks` counts the chunks its reads have
-    inflated. It holds its file open."""
+    inflated (through a virtual dataset's sources too), `opened_sources` the
+    source files a virtual dataset has opened. It holds its file open."""
 
     def __init__(self, file: File, addr: int, name: str):
         self._f = file
@@ -638,23 +731,31 @@ class Dataset:
         for mtype in (MSG_DATASPACE, MSG_DATATYPE, MSG_LAYOUT):
             if mtype not in msgs:
                 raise ValueError(f"{name}: object header lacks message {mtype}")
-        if MSG_EXTERNAL in msgs:
-            raise unsupported("external storage")
         for mtype in (MSG_DATASPACE, MSG_DATATYPE, MSG_FILL, MSG_FILL_OLD,
-                      MSG_LAYOUT, MSG_FILTERS):
+                      MSG_LAYOUT, MSG_FILTERS, MSG_EXTERNAL):
             if any(flags & 0x2 for flags, _, _ in msgs.get(mtype, ())):
                 raise unsupported(f"shared object header messages (type {mtype})")
         self.shape, maxshape = self._dataspace(msgs[MSG_DATASPACE][0][1])
         self.maxshape = tuple(None if m == UNDEF else m for m in maxshape)
         self._stored = self._datatype(msgs[MSG_DATATYPE][0][1])
         self.dtype = self._stored.newbyteorder("=")
-        self._filters = (self._filter_ids(msgs[MSG_FILTERS][0][1])
+        self._filters = (self._pipeline(msgs[MSG_FILTERS][0][1])
                          if MSG_FILTERS in msgs else [])
         self._fill = self._fill_value(msgs)
         self._layout(msgs[MSG_LAYOUT][0][1])
+        self._efl = None  # external raw data files: [(name, offset, size)]
+        if MSG_EXTERNAL in msgs:
+            self._external_files(msgs[MSG_EXTERNAL][0][1])
         self._index = None  # chunk offset -> storage, read at the first read
         self._lock = threading.Lock()
-        self.inflated_chunks = 0  # chunks inflated by this object's reads
+        self._inflated = 0  # chunks inflated by this object's reads
+        self._sources = {}  # a virtual dataset's source datasets, by mapping
+        self.opened_sources = 0
+
+    @property
+    def inflated_chunks(self) -> int:
+        return self._inflated + sum(ds.inflated_chunks
+                                    for ds in self._sources.values() if ds)
 
     def _dataspace(self, d) -> tuple:
         """(dimensions, maximum dimensions; UNDEF where unlimited)."""
@@ -674,6 +775,8 @@ class Dataset:
         return dims, dims
 
     def _datatype(self, d) -> np.dtype:
+        """The stored type. Types of reduced precision, the ones the n-bit
+        filter packs, are refused."""
         u, buf = self._f._u, self._f._buf
         cls, bits0 = buf[d] & 0x0F, buf[d + 1]
         size = u("I", d + 4)[0]
@@ -682,24 +785,31 @@ class Dataset:
             offset, precision = u("HH", d + 8)
             if size not in (1, 2, 4, 8) or offset or precision != 8 * size:
                 raise unsupported(f"{size}-byte fixed-point with precision "
-                                  f"{precision} at bit {offset}")
+                                  f"{precision} at bit {offset} (reduced "
+                                  "precision, as the n-bit filter packs it)")
             return np.dtype(f"{order}{'i' if bits0 & 0x8 else 'u'}{size}")
         if cls == 1:
             props = u("HHBBBBI", d + 8)
             if (size not in IEEE or bits0 & 0x40 or props[:2] != (0, 8 * size)
                     or props[2:] != IEEE[size] or buf[d + 2] != 8 * size - 1):
-                raise unsupported(f"non-IEEE {size}-byte floating point")
+                raise unsupported(f"non-IEEE {size}-byte floating point (or "
+                                  "reduced precision, as the n-bit filter "
+                                  "packs it)")
             return np.dtype(f"{order}f{size}")
         raise unsupported(f"datatype class {cls} (only integers and IEEE "
                           "floats are read)")
 
-    def _filter_ids(self, d) -> list:
+    def _pipeline(self, d) -> list:
+        """The filter pipeline message at `d` as [(filter id, flags, client
+        data values)], in the order the filters ran when a chunk was
+        written. Filters this reader does not decode raise
+        NotImplementedError naming them."""
         u, buf = self._f._u, self._f._buf
         version, count = buf[d], buf[d + 1]
         if version not in (1, 2):
             raise unsupported(f"filter pipeline message version {version}")
         p = d + (8 if version == 1 else 2)
-        ids = []
+        filters = []
         for _ in range(count):
             fid = u("H", p)[0]
             p += 2
@@ -707,16 +817,24 @@ class Dataset:
             if version == 1 or fid >= 256:
                 name_len = u("H", p)[0]
                 p += 2
-            _flags, n_values = u("HH", p)
-            p += 4 + name_len + 4 * n_values
+            flags, n_values = u("HH", p)
+            p += 4 + name_len
+            values = u(f"{n_values}I", p)
+            p += 4 * n_values
             if version == 1 and n_values % 2:
                 p += 4
-            if fid not in (FILTER_DEFLATE, FILTER_SHUFFLE, FILTER_FLETCHER32):
+            if fid not in FILTER_NAMES or fid == FILTER_SZIP:
                 name = FILTER_NAMES.get(fid, "unknown")
-                raise unsupported(f"filter {fid} ({name}; only deflate, shuffle "
-                                  "and Fletcher-32 are read)")
-            ids.append(fid)
-        return ids
+                raise unsupported(f"filter {fid} ({name}; deflate, shuffle, "
+                                  "Fletcher-32, LZF, scale-offset and n-bit are "
+                                  "read)")
+            if fid == FILTER_NBIT:
+                try:
+                    hdf5_filters.nbit_check(values, self._stored)
+                except NotImplementedError as e:
+                    raise unsupported(str(e)) from None
+            filters.append((fid, flags, values))
+        return filters
 
     def _fill_value(self, msgs):
         u, buf = self._f._u, self._f._buf
@@ -783,11 +901,66 @@ class Dataset:
             elif self._index_type not in (INDEX_SINGLE, INDEX_IMPLICIT):
                 raise unsupported(f"chunk index type {self._index_type}")
             self._index_addr = u("Q", p)[0]
-        elif cls == 3:
-            raise unsupported("virtual dataset layout")
+        elif cls == LAYOUT_VIRTUAL and version == 4:
+            heap, index = u("QI", d + 2)
+            self._mappings = self._virtual_mappings(
+                self._f._global_heap_object(heap, index))
         else:
-            raise unsupported(f"data layout class {cls}")
+            raise unsupported(f"data layout class {cls} (message version "
+                              f"{version})")
         self._layout_class = cls
+
+    def _external_files(self, d) -> None:
+        """The external file list message at `d`: the raw data lie, one
+        segment after another, in files named in a local heap. A relative
+        name is taken under $HDF5_EXTFILE_PREFIX (``${ORIGIN}`` at its start
+        is this file's directory), or else in the working directory, as the
+        library does (H5D__build_file_prefix, H5_combine_path)."""
+        f = self._f
+        version, n_used, heap = f._buf[d], f._u("H", d + 6)[0], f._u("Q", d + 8)[0]
+        if version != 1:
+            raise unsupported(f"external file list message version {version}")
+        if self._layout_class != LAYOUT_CONTIGUOUS:
+            raise ValueError(f"{self.name}: external storage of a layout of "
+                             f"class {self._layout_class}")
+        if f._buf[heap:heap + 4] != b"HEAP":
+            raise ValueError(f"{f.path}: no local heap at {heap}")
+        names = f._u("Q", heap + 24)[0]
+        prefix = os.environ.get(EXTFILE_PREFIX_ENV, "")
+        if prefix.startswith(ORIGIN):
+            prefix = str(f._dir) + os.sep + prefix[len(ORIGIN):]
+        self._efl = []
+        for i in range(n_used):
+            name_off, offset, size = f._u("QQQ", d + 16 + 24 * i)
+            name = f._cstring(names + name_off)
+            if prefix and prefix != "." and not os.path.isabs(name):
+                name = os.path.join(prefix, name)
+            self._efl.append((name, offset, size))
+
+    def _virtual_mappings(self, blob: bytes) -> list:
+        """A virtual dataset's mappings from their global heap object: a
+        version byte, a count, then per mapping the source file's and
+        dataset's names and the source and virtual selections; last, a
+        lookup3 checksum of the rest."""
+        if len(blob) < 13 or lookup3(blob[:-4]) != struct.unpack_from(
+                "<I", blob, len(blob) - 4)[0]:
+            raise ValueError(f"{self._f.path}: {self.name}: the virtual dataset's "
+                             "mappings fail their checksum (the file is corrupt)")
+        if blob[0] != VDS_HEAP_VERSION:
+            raise unsupported(f"virtual dataset mapping encoding version {blob[0]}")
+        count = struct.unpack_from("<Q", blob, 1)[0]
+        p, mappings = 9, []
+        for _ in range(count):
+            names = []
+            for _ in range(2):
+                end = blob.index(b"\0", p)
+                names.append(_source_name(blob[p:end].decode()))
+                p = end + 1
+            source, p = _parse_selection(blob, p)
+            virtual, p = _parse_selection(blob, p)
+            mappings.append(_Mapping(*names, source,
+                                     _Selection(virtual, self.shape)))
+        return mappings
 
     @property
     def size(self) -> int:
@@ -836,27 +1009,159 @@ class Dataset:
         """The selection `key` (see `_selection`) as a new native-order
         array, or a numpy scalar when every dimension takes an int, as
         h5py's ``ds[key]`` returns it. A chunked dataset inflates only the
-        chunks that meet the selection; contiguous and compact ones copy
+        chunks that meet the selection, a virtual one reads only the
+        mappings that meet it; contiguous, compact and external ones read
         only the selected bytes."""
         ranges, shape = self._selection(key)
+        out = self._read(ranges).reshape(shape)
+        return out[()] if not shape else out
+
+    def _read(self, ranges) -> np.ndarray:
+        """The box `ranges` [(start, stop)] a dimension. Every chunk to
+        inflate and every copy, through any depth of virtual datasets, is
+        one job of a single flat thread pool (zlib releases the GIL); the
+        steps that gather a virtual dataset's sources run after them, the
+        innermost first."""
         full = tuple(b - a for a, b in ranges)
         if 0 in full:
-            out = np.empty(full, self.dtype)
-        elif self._layout_class == 2:
-            out = self._read_chunked(ranges)
+            return np.empty(full, self.dtype)
+        out = np.full(full, self._fill, self.dtype)
+        jobs, after = [], []
+        self._plan(ranges, out, jobs, after, 0)
+        if len(jobs) == 1:
+            jobs[0]()
+        elif jobs:
+            with ThreadPoolExecutor() as pool:
+                for future in [pool.submit(job) for job in jobs]:
+                    future.result()
+        for step in after:
+            step()
+        return out
+
+    def _plan(self, ranges, out, jobs, after, depth) -> None:
+        """Add to `jobs` (independent) and `after` (in order, once the jobs
+        are done) what fills `out`, which holds the fill value, with the box
+        `ranges` of this dataset."""
+        region = tuple(slice(a, b) for a, b in ranges)
+        if self._layout_class == LAYOUT_CHUNKED:
+            self._plan_chunks(ranges, out, jobs)
+        elif self._layout_class == LAYOUT_VIRTUAL:
+            self._plan_virtual(ranges, out, jobs, after, depth)
+        elif self._efl is not None:
+            jobs.append(lambda: out.__setitem__(..., self._read_external(ranges)))
         else:
-            addr = (self._compact[0] if self._layout_class == 0
+            addr = (self._compact[0] if self._layout_class == LAYOUT_COMPACT
                     else self._contiguous[0])
-            if addr == UNDEF:  # never written
-                out = np.full(full, self._fill, self.dtype)
-            else:
-                stored = np.frombuffer(self._f._buf, self._stored,
-                                       count=self.size, offset=addr)
-                region = tuple(slice(a, b) for a, b in ranges)
-                out = stored.reshape(self.shape)[region].astype(self.dtype)
-                del stored  # the mmap cannot close while a view exports it
-        out = out.reshape(shape)
-        return out[()] if not shape else out
+            if addr != UNDEF:  # else never written: the fill value
+
+                def copy():
+                    stored = np.frombuffer(self._f._buf, self._stored,
+                                           count=self.size, offset=addr)
+                    out[...] = stored.reshape(self.shape)[region]
+
+                jobs.append(copy)
+
+    def _read_external(self, ranges) -> np.ndarray:
+        """The box `ranges` of a dataset in external raw data files: the
+        bytes from its first element to its last, read from the segments
+        that hold them (a short file reads as zeros, a missing one raises
+        OSError, as the library does), seen through the dataset's strides."""
+        itemsize = self._stored.itemsize
+        strides = [itemsize * math.prod(self.shape[d + 1:])
+                   for d in range(len(self.shape))]
+        lo = sum(a * st for (a, _), st in zip(ranges, strides))
+        hi = sum((b - 1) * st for (_, b), st in zip(ranges, strides)) + itemsize
+        raw = bytearray(hi - lo)
+        view, start = memoryview(raw), 0
+        for name, offset, size in self._efl:
+            end = UNDEF if size == UNDEF else start + size
+            if start < hi and end > lo:
+                a, b = max(lo, start), min(hi, end)
+                with open(name, "rb") as f:
+                    f.seek(offset + a - start)
+                    f.readinto(view[a - lo:b - lo])
+            start = end
+            if start >= hi:
+                break
+        else:
+            raise ValueError(f"{self.name}: the read passes the end of the "
+                             "external raw data files")
+        return np.ndarray(tuple(b - a for a, b in ranges), self._stored, raw,
+                          strides=strides)
+
+    def _plan_chunks(self, ranges, out, jobs) -> None:
+        """The written chunks that meet the box `ranges`, each inflated and
+        placed by one job; the rest of the box keeps the fill value."""
+        chunks, index = self.chunks, self._chunk_index()
+        grid = itertools.product(*(range(a - a % c, b, c)
+                                   for (a, b), c in zip(ranges, chunks)))
+        hits = [(offset, index[offset]) for offset in grid if offset in index]
+
+        def place(offset, entry):
+            block = self._inflate(*entry)
+            src, dst = [], []
+            for o, c, (a, b) in zip(offset, chunks, ranges):
+                lo, hi = max(a, o), min(b, o + c)
+                src.append(slice(lo - o, hi - o))
+                dst.append(slice(lo - a, hi - a))
+            out[tuple(dst)] = block[tuple(src)]
+
+        with self._lock:
+            self._inflated += len(hits)
+        jobs.extend(functools.partial(place, *hit) for hit in hits)
+
+    def _plan_virtual(self, ranges, out, jobs, after, depth) -> None:
+        """Each mapping whose virtual selection meets the box `ranges`:
+        its source's box is read into a buffer (holding the source's fill
+        value) by the source's own plan, then gathered into `out` in mapping
+        order (a later mapping wins where two overlap). A mapping whose
+        source file or dataset is missing leaves the fill value."""
+        if depth >= MAX_VDS_DEPTH:
+            raise ValueError(f"{self._f.path}: {self.name}: virtual dataset "
+                             f"sources nest deeper than {MAX_VDS_DEPTH} (a cycle?)")
+        for i, m in enumerate(self._mappings):
+            inside = m.virtual.inside(ranges)
+            if inside is None:
+                continue
+            source = self._source(i)
+            if source is None:
+                continue
+            dst, src, pointwise = m.pairs(inside, ranges, source.shape)
+            box = [(int(c.min()), int(c.max()) + 1) for c in src]
+            buffer = np.full(tuple(b - a for a, b in box), source._fill,
+                             source.dtype)
+            source._plan(box, buffer, jobs, after, depth + 1)
+            src = [c - a for c, (a, _) in zip(src, box)]
+            after.append(functools.partial(_gather, out, dst, buffer, src,
+                                           pointwise))
+
+    def _source(self, i: int):
+        """The source dataset of mapping `i`, opened once a dataset: None
+        when its file or its dataset is missing, as the library then leaves
+        the mapping's region to the fill value."""
+        m = self._mappings[i]
+        key = (m.file_name, m.dataset_name)
+        with self._lock:
+            if key not in self._sources:
+                self._sources[key] = self._open_source(*key)
+            return self._sources[key]
+
+    def _open_source(self, file_name: str, dataset_name: str):
+        if file_name == ".":
+            f = self._f
+        else:
+            self.opened_sources += 1
+            f = self._f._other_file(file_name, VDS_PREFIX_ENV)
+            if f is None:
+                return None
+        try:
+            source = f[dataset_name]
+        except (KeyError, TypeError):
+            return None
+        if not np.can_cast(source.dtype, self.dtype, "safe"):
+            raise unsupported(f"virtual dataset sources of type {source.dtype} "
+                              f"under a dataset of type {self.dtype}")
+        return source
 
     def _chunk_index(self) -> dict:
         """{chunk offset: (address, stored bytes, filter mask)} of every
@@ -948,19 +1253,24 @@ class Dataset:
         f = self._f
         if f._buf[addr:addr + 4] != b"FAHD":
             raise ValueError(f"{f.path}: no fixed array header at {addr}")
+        f._verify(addr, addr + 24, "fixed array header")
         filtered, entry, page_bits = f._buf[addr + 5:addr + 8]
         n, block = f._u("QQ", addr + 8)
         if f._buf[block:block + 4] != b"FADB":
             raise ValueError(f"{f.path}: no fixed array data block at {block}")
         page = 1 << page_bits
         if n <= page:
+            f._verify(block, block + 14 + n * entry, "fixed array data block")
             return entry, filtered, [(i, block + 14 + i * entry) for i in range(n)]
         pages = -(-n // page)
-        p = block + 14 + (pages + 7) // 8 + 4  # past the bitmap and checksum
+        p = block + 14 + (pages + 7) // 8
+        f._verify(block, p, "fixed array data block")
+        p += 4
         elements = []
         for k in range(pages):
             count = min(page, n - k * page)
             if self._bit(block + 14, k):
+                f._verify(p, p + count * entry, "fixed array data block page")
                 elements += [(k * page + i, p + i * entry) for i in range(count)]
             p += count * entry + 4
         return entry, filtered, elements
@@ -978,6 +1288,7 @@ class Dataset:
             raise ValueError(f"{f.path}: no extensible array header at {addr}")
         (filtered, entry, max_bits, iblock_entries, min_entries, min_pointers,
          page_bits) = buf[addr + 5:addr + 12]
+        f._verify(addr, addr + 68, "extensible array header")
         used = f._u("Q", addr + 44)[0]  # 1 + the highest index ever set
         iblock = f._u("Q", addr + 60)[0]
         if iblock == UNDEF:
@@ -991,22 +1302,29 @@ class Dataset:
         p = iblock + 14
         elements = [(i, p + i * entry) for i in range(min(iblock_entries, used))]
         p += iblock_entries * entry
-        dblocks = f._u(f"{2 * (min_pointers - 1)}Q", p)
-        sblocks = f._u(f"{n_super - in_iblock}Q", p + 16 * (min_pointers - 1))
+        n_dblocks = 2 * (min_pointers - 1)
+        dblocks = f._u(f"{n_dblocks}Q", p)
+        sblocks = f._u(f"{n_super - in_iblock}Q", p + 8 * n_dblocks)
+        f._verify(iblock, p + 8 * (n_dblocks + n_super - in_iblock),
+                  "extensible array index block")
 
         def data_block(dblock, first, count, initialised):
             if buf[dblock:dblock + 4] != b"EADB":
                 raise ValueError(f"{f.path}: no extensible array data block at {dblock}")
             if count <= page:
+                f._verify(dblock, dblock + prefix + count * entry,
+                          "extensible array data block")
                 elements.extend((first + i, dblock + prefix + i * entry)
                                 for i in range(min(count, used - first)))
                 return
             if initialised is None:
                 raise unsupported("paged data blocks in an extensible array's "
                                   "index block")
+            f._verify(dblock, dblock + prefix, "extensible array data block")
             q = dblock + prefix + 4
             for k in range(count // page):
                 if initialised(k):
+                    f._verify(q, q + page * entry, "extensible array data block page")
                     elements.extend((first + k * page + i, q + i * entry)
                                     for i in range(min(page, used - first - k * page)))
                 q += page * entry + 4
@@ -1031,6 +1349,7 @@ class Dataset:
                 # sized for each data block's pages.
                 pages = count // page if count > page else 0
                 q = sblock + prefix + n_blocks * ((pages + 7) // 8)
+                f._verify(sblock, q + 8 * n_blocks, "extensible array super block")
                 for j, dblock in enumerate(f._u(f"{n_blocks}Q", q)):
                     if dblock != UNDEF:
                         data_block(dblock, first + j * count, count,
@@ -1059,19 +1378,34 @@ class Dataset:
 
     def _inflate(self, addr, nbytes, mask) -> np.ndarray:
         """One stored chunk, unfiltered, as a (chunks) array of the stored
-        type (a read-only view of the inflated bytes). A Fletcher-32
-        checksum that does not match raises ValueError."""
+        type (a read-only view of the decoded bytes). The filters run in
+        reverse, each skipped where the chunk's filter mask says the writer
+        skipped it (as an optional filter that failed, such as LZF on a
+        chunk it cannot shrink). A Fletcher-32 checksum that does not match,
+        or a corrupt stream, raises ValueError."""
         raw = self._f._buf[addr:addr + nbytes]
         for i in reversed(range(len(self._filters))):
             if mask & (1 << i):
                 continue
-            if self._filters[i] == FILTER_DEFLATE:
-                raw = zlib.decompress(raw)
-            elif self._filters[i] == FILTER_SHUFFLE:
-                raw = (np.frombuffer(raw, np.uint8)
-                       .reshape(self._stored.itemsize, -1).T.tobytes())
-            else:
+            fid, _flags, values = self._filters[i]
+            if fid == FILTER_SHUFFLE:
+                raw = _unshuffle(raw, values[0] if values else self._stored.itemsize)
+            elif fid == FILTER_FLETCHER32:
                 raw = self._fletcher32_checked(raw, addr)
+            elif fid != FILTER_NBIT:  # n-bit leaves full precision as it is
+                try:
+                    if fid == FILTER_DEFLATE:
+                        raw = zlib.decompress(raw)
+                    elif fid == FILTER_LZF:
+                        raw = hdf5_filters.lzf_decode(raw)
+                    else:
+                        raw = hdf5_filters.scaleoffset_decode(raw, values,
+                                                              self._stored)
+                except NotImplementedError as e:
+                    raise unsupported(str(e)) from None
+                except (zlib.error, ValueError) as e:
+                    raise ValueError(f"{self._f.path}: {self.name}: the chunk "
+                                     f"at {addr} does not decode ({e})") from None
         return np.frombuffer(raw, self._stored).reshape(self.chunks)
 
     def _fletcher32_checked(self, raw, addr):
@@ -1087,34 +1421,212 @@ class Dataset:
                              "fails its Fletcher-32 checksum (data error)")
         return body
 
-    def _read_chunked(self, ranges) -> np.ndarray:
-        """The box `ranges` of a chunked dataset: the written chunks that
-        meet it are inflated in a thread pool (zlib releases the GIL); the
-        rest of the box takes the fill value."""
-        chunks, index = self.chunks, self._chunk_index()
-        out = np.full(tuple(b - a for a, b in ranges), self._fill, self.dtype)
-        grid = itertools.product(*(range(a - a % c, b, c)
-                                   for (a, b), c in zip(ranges, chunks)))
-        hits = [(offset, index[offset]) for offset in grid if offset in index]
 
-        def place(hit):
-            offset, entry = hit
-            block = self._inflate(*entry)
-            src, dst = [], []
-            for o, c, (a, b) in zip(offset, chunks, ranges):
-                lo, hi = max(a, o), min(b, o + c)
-                src.append(slice(lo - o, hi - o))
-                dst.append(slice(lo - a, hi - a))
-            out[tuple(dst)] = block[tuple(src)]
+def _unshuffle(raw, size: int):
+    """Undo the shuffle filter (H5Z__filter_shuffle): the first n * size
+    bytes hold byte 0 of every element, then byte 1, and so on; bytes past
+    the last whole element are as they were."""
+    n = len(raw) // size
+    if size <= 1 or n <= 1:
+        return raw
+    body = np.frombuffer(raw, np.uint8, n * size).reshape(size, n).T.tobytes()
+    return body + bytes(raw[n * size:])
 
-        with self._lock:
-            self.inflated_chunks += len(hits)
-        if len(hits) == 1:
-            place(hits[0])
-        elif hits:
-            with ThreadPoolExecutor() as pool:
-                list(pool.map(place, hits))
-        return out
+
+def _source_name(name: str) -> str:
+    """A mapping's source file or dataset name with its printf-style
+    escapes undone ("%%" is "%"), as the library parses it. A "%b" (the
+    block number of an unlimited mapping) is refused."""
+    parts, i = [], 0
+    while (j := name.find("%", i)) >= 0:
+        parts.append(name[i:j])
+        spec = name[j + 1:j + 2]
+        if spec == "b":
+            raise unsupported("printf-style (%b) source names in virtual "
+                              f"dataset mappings ({name!r})")
+        if spec != "%":
+            raise ValueError(f"invalid format specifier in the virtual dataset "
+                             f"source name {name!r}")
+        parts.append("%")
+        i = j + 2
+    return "".join(parts) + name[i:]
+
+
+def _parse_selection(blob: bytes, p: int) -> tuple:
+    """The serialised selection at `p` of `blob` and the offset past it:
+    ("all",), ("regular", start, stride, count, block) with an array of
+    each a dimension, or ("blocks", starts, ends) with an array (blocks,
+    rank) of each, ends inclusive. Hyperslabs come in version 1 (blocks,
+    4-byte numbers), 2 (regular, 8-byte) and 3 (either, 2, 4 or 8 bytes)."""
+    kind, version = struct.unpack_from("<II", blob, p)
+    p += 8
+    if kind == SEL_ALL and version == 1:
+        return ("all",), p + 8
+    if kind == SEL_POINTS:
+        raise unsupported("point selections in virtual dataset mappings")
+    if kind != SEL_HYPERSLABS:
+        raise unsupported(f"selections of type {kind} (version {version}) in "
+                          "virtual dataset mappings")
+    if version == 1:
+        rank, n = struct.unpack_from("<8xII", blob, p)
+        p, flags, size = p + 16, 0, 4
+    elif version == 2:
+        flags, rank = struct.unpack_from("<B4xI", blob, p)
+        p, size = p + 9, 8
+        if not flags & HYPER_REGULAR:
+            raise unsupported("irregular hyperslab selections of encoding "
+                              "version 2")
+    elif version == 3:
+        flags, size, rank = struct.unpack_from("<BBI", blob, p)
+        p += 6
+        if size not in (2, 4, 8):
+            raise ValueError(f"a hyperslab selection in {size}-byte numbers")
+    else:
+        raise unsupported(f"hyperslab selection encoding version {version}")
+    code = f"<u{size}"
+    if flags & HYPER_REGULAR:
+        values = np.frombuffer(blob, code, 4 * rank, p).reshape(rank, 4)
+        if (values[:, 2:] == np.iinfo(code).max).any():
+            raise unsupported("unlimited virtual dataset mappings")
+        values = values.astype(np.int64)
+        return ("regular", *values.T), p + 4 * rank * size
+    if version == 3:
+        n = int.from_bytes(blob[p:p + size], "little")
+        p += size
+    coords = np.frombuffer(blob, code, 2 * rank * n, p).astype(np.int64)
+    coords = coords.reshape(n, 2, rank)
+    return ("blocks", coords[:, 0], coords[:, 1]), p + 2 * rank * n * size
+
+
+class _Selection:
+    """A selection of an extent's points, in the order the library pairs
+    them (row-major): a product of sorted index arrays, one a dimension
+    (`axes`), or else sorted flat indices (`flat`)."""
+
+    def __init__(self, raw: tuple, extent):
+        self.extent = tuple(int(n) for n in extent)
+        self.axes = self.flat = None
+        rank = len(self.extent)
+        if raw[0] == "all":
+            self.axes = [np.arange(n) for n in self.extent]
+        elif raw[0] == "regular":
+            _, start, stride, count, block = raw
+            if len(start) != rank:
+                raise ValueError(f"a rank {len(start)} selection of a rank "
+                                 f"{rank} extent")
+            self.axes = [(s + np.arange(c)[:, None] * st + np.arange(b)).ravel()
+                         for s, st, c, b in zip(start, stride, count, block)]
+        else:
+            _, starts, ends = raw
+            if starts.shape[1] != rank:
+                raise ValueError(f"a rank {starts.shape[1]} selection of a rank "
+                                 f"{rank} extent")
+            self.axes = self._product(starts, ends)
+            if self.axes is None:
+                strides = [math.prod(self.extent[d + 1:]) for d in range(rank)]
+                self.flat = np.unique(np.concatenate([
+                    sum(np.arange(lo[d], hi[d] + 1).reshape(
+                        [-1 if e == d else 1 for e in range(rank)]) * strides[d]
+                        for d in range(rank)).ravel()
+                    for lo, hi in zip(starts, ends)]))
+        if self.axes is not None:
+            if any(len(ax) and ax[-1] >= n for ax, n in zip(self.axes, self.extent)):
+                raise ValueError(f"a selection past its extent {self.extent}")
+            self.npoints = math.prod(len(ax) for ax in self.axes)
+        else:
+            if len(self.flat) and self.flat[-1] >= math.prod(self.extent):
+                raise ValueError(f"a selection past its extent {self.extent}")
+            self.npoints = len(self.flat)
+
+    @staticmethod
+    def _product(starts, ends):
+        """The blocks as index arrays a dimension, where they are every
+        combination of disjoint intervals of each dimension; else None."""
+        intervals = []
+        for d in range(starts.shape[1]):
+            iv = sorted(set(zip(starts[:, d].tolist(), ends[:, d].tolist())))
+            if any(b[0] <= a[1] for a, b in zip(iv, iv[1:])):
+                return None
+            intervals.append(iv)
+        if math.prod(len(iv) for iv in intervals) != len(starts):
+            return None
+        return [np.concatenate([np.arange(a, b + 1) for a, b in iv])
+                for iv in intervals]
+
+    def inside(self, ranges):
+        """The selection's points in the box `ranges`: ("spans", [(first,
+        stop)] positions in each axis), or ("points", their positions in
+        the selection, their coordinates); None when there are none."""
+        if self.axes is not None:
+            spans = [(int(np.searchsorted(ax, a)), int(np.searchsorted(ax, b)))
+                     for ax, (a, b) in zip(self.axes, ranges)]
+            return ("spans", spans) if all(i < j for i, j in spans) else None
+        coords = np.unravel_index(self.flat, self.extent)
+        keep = np.ones(len(self.flat), bool)
+        for c, (a, b) in zip(coords, ranges):
+            keep &= (c >= a) & (c < b)
+        k = np.flatnonzero(keep)
+        return ("points", k, [c[k] for c in coords]) if len(k) else None
+
+    def coordinates(self, k) -> list:
+        """The coordinates of the points at positions `k` in the order."""
+        if self.axes is not None:
+            grid = np.unravel_index(k, [len(ax) for ax in self.axes])
+            return [ax[i] for ax, i in zip(self.axes, grid)]
+        return list(np.unravel_index(self.flat[k], self.extent))
+
+
+class _Mapping:
+    """One mapping of a virtual dataset: the source file's and dataset's
+    names, the source selection (made against the source's extent once the
+    source is open) and the virtual selection."""
+
+    def __init__(self, file_name, dataset_name, source_raw, virtual):
+        self.file_name, self.dataset_name = file_name, dataset_name
+        self._source_raw, self.virtual = source_raw, virtual
+        self._source = None
+
+    def pairs(self, inside, ranges, extent) -> tuple:
+        """(destination, source, pointwise): for the virtual points
+        `inside` (see `_Selection.inside`), their coordinates in the box
+        `ranges` and those of the source points they take, paired in order.
+        Both are lists of index arrays a dimension: each array alone (to
+        combine as `np.ix_` does) where both selections are products of one
+        shape, else (pointwise) one coordinate a point."""
+        if self._source is None or self._source.extent != tuple(extent):
+            self._source = _Selection(self._source_raw, extent)
+        source, virtual = self._source, self.virtual
+        if source.npoints != virtual.npoints:
+            raise ValueError(f"a virtual dataset mapping of {virtual.npoints} "
+                             f"points to {source.npoints} source points")
+        if inside[0] == "spans":
+            spans = inside[1]
+            if source.axes is not None and [len(a) for a in source.axes] == [
+                    len(a) for a in virtual.axes]:
+                return ([ax[i:j] - a for ax, (i, j), (a, _) in
+                         zip(virtual.axes, spans, ranges)],
+                        [ax[i:j] for ax, (i, j) in zip(source.axes, spans)], False)
+            grid = np.meshgrid(*(np.arange(i, j) for i, j in spans), indexing="ij")
+            k = np.ravel_multi_index(grid, [len(ax) for ax in virtual.axes]).ravel()
+            dst = [c - a for c, (a, _) in zip(virtual.coordinates(k), ranges)]
+        else:
+            _, k, coords = inside
+            dst = [c - a for c, (a, _) in zip(coords, ranges)]
+        return dst, source.coordinates(k), True
+
+
+def _index(arrays, pointwise: bool) -> tuple:
+    """An index for coordinate arrays a dimension: point by point, or else
+    their product, as slices where each is a range."""
+    if pointwise:
+        return tuple(arrays)
+    if all(len(a) == 1 or (np.diff(a) == 1).all() for a in arrays):
+        return tuple(slice(int(a[0]), int(a[-1]) + 1) for a in arrays)
+    return np.ix_(*arrays)
+
+
+def _gather(out, dst, buffer, src, pointwise: bool) -> None:
+    out[_index(dst, pointwise)] = buffer[_index(src, pointwise)]
 
 
 def read(path, internal_path: str = "/data"):
