@@ -105,9 +105,9 @@
    `ARCH_CARD_VS_CPU_RTOL` of the logits' scale (and, recorded as its
    control, the same with TF32 on); the parameter count equal to the JAX
    model's (`ARCH_PARAMS`); forward GFLOP a 256^2 sample from the layer
-   shapes; 20 seeded unfrozen train steps (256, batch 12, bf16, DiceLoss):
-   finite losses, each kernel launched once a step, median step ms and
-   peak memory; the same 20 steps again from the same weights and seeds,
+   shapes; `ARCH_STEPS` seeded unfrozen train steps (256, batch 12, bf16,
+   DiceLoss): finite losses, each kernel launched once a step, median step
+   ms and peak memory; the same steps again from the same weights and seeds,
    with cuDNN's flags as the port leaves them: equal losses; for FPN and
    DeepLabV3 one more run with another dropout seed: other losses; one step at
    `THROUGHPUT_TRAIN_BATCH` (peak memory, or the OOM recorded, not failed);
@@ -130,9 +130,9 @@
    DiceLoss): exactly the parameters the JAX freeze mask leaves trainable
    move (their count is the JAX one: EfficientNet's BatchNorms and
    ResNeSt's split-attention BatchNorms), every other parameter keeps its
-   bits, every BatchNorm's running statistics move; then 20 unfrozen steps,
-   run twice from the same weights and seeds: finite, equal losses, each
-   kernel launched once a step (25 with the frozen steps); median frozen
+   bits, every BatchNorm's running statistics move; then `ENCODER_STEPS`
+   unfrozen steps, run twice from the same weights and seeds: finite, equal
+   losses, each kernel launched once a step (with the frozen steps); median frozen
    and unfrozen step ms and peak memory; one step at
    `THROUGHPUT_TRAIN_BATCH` (or the OOM, recorded); MEDIUM on 256^3 from the
    trained weights equal to its LOW sweeps' merge and to `model-predict-2d`
@@ -204,9 +204,39 @@
    `build_train_step` steps on one seeded batch at batches 12, 32, 64, 128
    and 256 (bf16, unfrozen), samples/s and peak memory; the smallest batch
    within 5% of the best samples/s is printed beside the configured one.
-17. Prints a `{"kernels": [...]}` line (launches of the slice, CLI, losses,
-   pretrained, architectures, encoders, formats, interchange and virtual
-   phases) and, last, the device line.
+17. Parallel phase (run before the sweep, from the slice phase's
+   checkpoint), every rank a child process (`parallel.mesh.spawn_ranks`),
+   so that no process group is left in this one; inputs in
+   `<out-dir>/parallel`: (1) one NCCL rank at world size 1:
+   `PARALLEL_STEPS_ONE` seeded data-parallel steps (U-Net/ResNet-34, 256,
+   batch 12, bf16, augmentation on) give the plain `build_train_step`'s
+   losses and final state bit for bit from the same weights and seeds,
+   each kernel launched once a step; median step ms of both. (2) Two gloo
+   ranks on cuda:0 (NCCL refuses two ranks on one GPU; gloo carries CUDA
+   tensors through the host), float32, TF32 off, global batch 12, 6 rows a
+   rank, augmentation on, `PARALLEL_STEPS_TWO` steps at
+   `PARALLEL_LR_TWO`: losses within 1e-5 relative of one process on the
+   global batch, the first step's gradients within 30x the one-process
+   float32 noise against a float64 step (BatchNorm in float64 too), its
+   running statistics within the larger of 1e-4 and 10x that noise, the
+   parameters it moved clear of the two runs' difference within 1e-6, both
+   ranks' states equal, each kernel launched once a step on each rank's 6
+   rows; median step ms. (3) In the same two ranks, multi-host prediction:
+   each sweeps half of the 256^3 vessels volume's Z slices from the
+   checkpoint into its partial HDF5 file (labels, float16 max-probs,
+   `global_start` / `global_slices`), stitched to equal the one-process Z
+   sweep under the near-tie rule. (4) Then `model-train-2d` in the group
+   on a 48x96x96 gzip HDF5 pair with the shipped settings (1+1 epochs,
+   seed 0): one dated checkpoint and one CSV, the ranks' weights equal
+   before every load, last eval score >= 0.5, each kernel launched once a
+   step on each rank. (5) Where `torch.cuda.device_count() >= 2`, (2)-(4)
+   again over NCCL across cuda:0 and cuda:1; otherwise the phase says it
+   did not run them. (6) The predictor with `devices=["cuda:0", "cuda:0"]`
+   at MEDIUM, float32, on the 256^3 volume against one device under the
+   near-tie rule.
+18. Prints a `{"kernels": [...]}` line (launches of the slice, CLI, losses,
+   pretrained, architectures, encoders, formats, interchange, virtual and
+   parallel phases, the last on every rank) and, last, the device line.
 
 Exits non-zero on any failure, without a GPU, and outside a checkout of the
 repository (the package is imported from beside this file).
@@ -2104,7 +2134,7 @@ ARCH_PARAMS = {
     "DeepLabV3_Plus": 22431442, "MA_Net": 31777506, "Linknet": 21765442,
     "PAN": 21469833,
 }
-ARCH_STEPS = 20
+ARCH_STEPS = 10  # 20 until the parallel phase came; cut to keep the script short
 DROPOUT_ARCHS = ("FPN", "DeepLabV3")
 # Card against CPU, float32 eval, TF32 off, over the logits' largest
 # magnitude (at least 1). The CPU tests hold the port to JAX within 3e-5
@@ -2256,7 +2286,7 @@ def architectures_phase(images_u8, masks_u8, dev, out_dir: Path):
         r["forward_gflop_per_sample"] = forward_gflop_per_sample(model, S, dev)
         initial = {k: v.clone() for k, v in model.state_dict().items()}
 
-        # 2. 20 seeded train steps at the shipped settings; each kernel
+        # 2. ARCH_STEPS seeded train steps at the shipped settings; each kernel
         # launched once a step.
         kernels.reset_launch_counts()
         torch.cuda.reset_peak_memory_stats(dev)
@@ -2509,7 +2539,7 @@ ENCODER_PARAMS = {
     "timm-resnest101e": (55256514, 132, 40640),
 }
 ENCODER_FROZEN_STEPS = 5
-ENCODER_STEPS = 20
+ENCODER_STEPS = 10  # 20 until the parallel phase came; cut as ARCH_STEPS
 # The dilated forms held card against CPU beside U-Net (output stride 16
 # and 8).
 ENCODER_DILATED = ("DeepLabV3_Plus", "DeepLabV3")
@@ -3251,6 +3281,410 @@ def virtual_phase(dev, out_dir: Path):
     return res
 
 
+PARALLEL_STEPS_ONE = 20  # NCCL world 1: DP steps, then as many plain ones
+PARALLEL_STEPS_TWO = 10  # two gloo ranks on one card, float32
+PARALLEL_LR = 1e-4  # world 1: bit for bit at any rate
+# Two ranks against one process: Adam moves an element whose gradient is
+# within float32 noise by 2 x lr either way, and over 10 steps at 1e-4 the
+# losses drifted 1.4e-3 apart (first card run); at 1e-6 the steps stay
+# linear, as `tests/torch_parallel_steps.py` takes 1e-5 for its two.
+PARALLEL_LR_TWO = 1e-6
+PARALLEL_TRAIN_SHAPE = (48, 96, 96)  # model-train-2d over two ranks
+PARALLEL_TIMEOUT_S = 600  # a hung rank fails the phase, not the call
+
+
+def digest(state: dict) -> str:
+    """A hash of a state_dict's bytes: equal digests, equal tensors."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for name, t in state.items():
+        h.update(name.encode())
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def dp_run(state, images, masks, mesh, steps, compute_dtype, dev, lr, dp=True,
+           seed=3):
+    """`steps` seeded DiceLoss train steps of U-Net/ResNet-34 from `state`
+    on this rank's rows of the global batch (augmentation on): the
+    data-parallel step over `mesh`, or with `dp` False the plain one. Returns
+    the losses, each step's synchronised ms, the kernel launches, the first
+    step's gradients, parameters and running statistics, and the final
+    state."""
+    from volume_segmantics_tpu_torch.data.losses import get_loss_fn
+    from volume_segmantics_tpu_torch.models.registry import create_model
+    from volume_segmantics_tpu_torch.ops import kernels
+    from volume_segmantics_tpu_torch.parallel.train import (
+        build_dp_train_step,
+        build_train_step,
+        make_base_optimizer,
+    )
+
+    model = create_model(STRUC).to(dev)
+    model.load_state_dict(state)
+    optimizer = make_base_optimizer(model.parameters())
+    gens = (torch.Generator(dev).manual_seed(seed),
+            torch.Generator(dev).manual_seed(seed + 1))
+    common = dict(num_labels=2, image_size=S, compute_dtype=compute_dtype,
+                  augment=True, generator=gens[0], dropout_generator=gens[1])
+    loss_fn = get_loss_fn(loss_settings("DiceLoss"))
+    step = (build_dp_train_step(model, loss_fn, optimizer, mesh=mesh, **common)
+            if dp else build_train_step(model, loss_fn, optimizer, **common))
+    rows = mesh.rows(images.shape[0]) if dp else slice(None)
+    x = torch.from_numpy(images[rows]).to(dev)
+    y = torch.from_numpy(masks[rows]).to(dev)
+    out = {"losses": [], "ms": []}
+    kernels.reset_launch_counts()
+    for k in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out["losses"].append(step(x, y, lr).item())
+        out["ms"].append(1e3 * (time.perf_counter() - t0))
+        if k == 0:
+            sd = model.state_dict()
+            out["grads1"] = {n: p.grad.clone() for n, p in model.named_parameters()}
+            out["params1"] = {n: sd[n].clone() for n in out["grads1"]}
+            out["stats1"] = {n: v.clone() for n, v in sd.items()
+                             if n.endswith(("running_mean", "running_var"))}
+    out["launches"] = dict(kernels.LAUNCHES)
+    out["final"] = {n: v.clone() for n, v in model.state_dict().items()}
+    return out
+
+
+def _bn_act_float64(self, x):
+    """BnAct's training forward in the input's own precision, running
+    statistics updated alike (the port's casts to float32)."""
+    mean = x.mean((0, 2, 3))
+    var = torch.clamp((x * x).mean((0, 2, 3)) - mean * mean, min=0.0)
+    with torch.no_grad():
+        self.running_mean.mul_(self.momentum).add_((1 - self.momentum) * mean)
+        self.running_var.mul_(self.momentum).add_((1 - self.momentum) * var)
+    mul = torch.rsqrt(var + self.eps) * self.weight
+    y = x * mul[:, None, None] + (self.bias - mean * mul)[:, None, None]
+    return torch.relu(y) if self.act == "relu" else y
+
+
+def float64_first_step(state, images, masks, dev, seed=3):
+    """The first step's gradients and running statistics in float64 (the
+    augmentation drawn as the steps draw it, in float32)."""
+    from volume_segmantics_tpu_torch.data.losses import get_loss_fn
+    from volume_segmantics_tpu_torch.models.layers import BnAct
+    from volume_segmantics_tpu_torch.models.registry import create_model
+    from volume_segmantics_tpu_torch.ops.augment import augment_batch_u8
+    from volume_segmantics_tpu_torch.parallel.train import normalise
+
+    model = create_model(STRUC).to(dev)
+    model.load_state_dict(state)
+    model = model.double().train()
+    imgs, msks = augment_batch_u8(torch.Generator(dev).manual_seed(seed),
+                                  torch.from_numpy(images).to(dev),
+                                  torch.from_numpy(masks).to(dev), S)
+    targets = torch.nn.functional.one_hot(msks.long(), 2).permute(0, 3, 1, 2)
+    forward, BnAct.forward = BnAct.forward, _bn_act_float64
+    try:
+        get_loss_fn(loss_settings("DiceLoss"))(
+            model(normalise(imgs.double())), targets.double()).backward()
+    finally:
+        BnAct.forward = forward
+    stats = {n: v for n, v in model.state_dict().items()
+             if n.endswith(("running_mean", "running_var"))}
+    return {n: p.grad for n, p in model.named_parameters()}, stats
+
+
+def against_one_process(got, ref, grads64, stats64) -> dict:
+    """`tests/torch_parallel_cases.py:against_one_process` on the card: the
+    2-rank run against the one-process run on the global batch, each
+    figure a ratio to its allowance: the losses (1e-5 relative; <= 1
+    passes), the first step's gradients (10x the one-process float32 noise
+    against float64, on the tensors where that is below a tenth of their
+    largest gradient; <= 3 passes, and a factor 2 gives > 10), running
+    statistics (the larger of 1e-4 and 10x that noise; <= 1) and the
+    parameters where the first gradient stands 10x clear of the two runs'
+    difference (1e-6)."""
+    res = {"loss_ratio": max(abs(a - b) / (1e-5 * abs(b))
+                             for a, b in zip(got["losses"], ref["losses"])),
+           "grad_ratio": 0.0, "stats_ratio": 0.0, "param_err": 0.0,
+           "n_clear": 0, "n_trainable": 0}
+    for n, g in ref["grads1"].items():
+        noise = max(1e-7, 10 * (g.double() - grads64[n]).abs().max().item())
+        if noise < 0.1 * g.abs().max().item():
+            res["grad_ratio"] = max(res["grad_ratio"], (got["grads1"][n] - g)
+                                    .abs().max().item() / noise)
+        clear = g.abs() >= max(1e-6, 10 * (got["grads1"][n] - g).abs().max().item())
+        if clear.any():
+            res["param_err"] = max(res["param_err"], (
+                got["params1"][n][clear] - ref["params1"][n][clear]).abs().max().item())
+        res["n_clear"] += int(clear.sum())
+        res["n_trainable"] += g.numel()
+    for n, v in ref["stats1"].items():
+        floor = max(1e-4, 10 * (v.double() - stats64[n]).abs().max().item())
+        res["stats_ratio"] = max(res["stats_ratio"], (got["stats1"][n] - v)
+                                 .abs().max().item() / floor)
+    res["ok"] = bool(res["loss_ratio"] <= 1 and res["grad_ratio"] <= 3
+                     and res["stats_ratio"] <= 1 and res["param_err"] <= 1e-6
+                     and res["n_clear"] > 0.25 * res["n_trainable"])
+    return res
+
+
+def parallel_one_rank(rank, work):
+    """Parallel phase (1): NCCL at world size 1, the DP step against the plain one
+    from the same weights and seeds, bf16."""
+    from volume_segmantics_tpu_torch.parallel.mesh import get_mesh
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    blob = torch.load(Path(work, "in.pt"), weights_only=False)
+    mesh = get_mesh(device=dev)
+    dp = dp_run(blob["state"], blob["images"], blob["masks"], mesh,
+                PARALLEL_STEPS_ONE, torch.bfloat16, dev, PARALLEL_LR)
+    plain = dp_run(blob["state"], blob["images"], blob["masks"], mesh,
+                   PARALLEL_STEPS_ONE, torch.bfloat16, dev, PARALLEL_LR,
+                   dp=False)
+    (Path(work) / "one.json").write_text(json.dumps({
+        "world": mesh.size, "backend": torch.distributed.get_backend(),
+        "dp_losses": dp["losses"], "plain_losses": plain["losses"],
+        "dp_step_ms": statistics.median(dp["ms"][1:]),
+        "plain_step_ms": statistics.median(plain["ms"][1:]),
+        "dp_launches": dp["launches"], "plain_launches": plain["launches"],
+        "states_equal": digest(dp["final"]) == digest(plain["final"])}))
+
+
+def parallel_pair_rank(rank, work, ckpt, backend):
+    """Parallel phase (2)-(4) as one rank of two: DP steps against one process;
+    multi-host prediction; `model-train-2d`. Gloo ranks share cuda:0,
+    NCCL ranks take cuda:0 and cuda:1."""
+    import torch.distributed as dist
+
+    from volume_segmantics_tpu_torch.model.operations.vol_seg_2d_predictor import (
+        VolSeg2dPredictor,
+    )
+    from volume_segmantics_tpu_torch.ops import kernels
+    from volume_segmantics_tpu_torch.parallel import multihost_predict as mh
+    from volume_segmantics_tpu_torch.parallel.mesh import Mesh, get_mesh
+    from volume_segmantics_tpu_torch.scripts import train_2d_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    work = Path(work)
+    blob = torch.load(work / "in.pt", weights_only=False)
+    res = {"rank": rank}
+
+    # (2): float32 DP steps on this rank's rows against one process.
+    mesh = get_mesh(device=dev)
+    run = dp_run(blob["state"], blob["images"], blob["masks"], mesh,
+                 PARALLEL_STEPS_TWO, torch.float32, dev, PARALLEL_LR_TWO)
+    res.update(losses=run["losses"], step_ms=statistics.median(run["ms"][1:]),
+               launches=run["launches"], digest=digest(run["final"]))
+    if rank == 0:
+        ref = dp_run(blob["state"], blob["images"], blob["masks"], Mesh(),
+                     PARALLEL_STEPS_TWO, torch.float32, dev, PARALLEL_LR_TWO,
+                     dp=False)
+        res["against_one_process"] = against_one_process(
+            run, ref, *float64_first_step(blob["state"], blob["images"],
+                                          blob["masks"], dev))
+        res["one_process_losses"] = ref["losses"]
+    del run
+    torch.cuda.empty_cache()
+
+    # (3): each rank sweeps its half of the 256^3 volume's Z slices.
+    vol = np.load(work / "vessels.npy")
+    start, stop = mh.local_slice_range(vol.shape[0])
+    predictor = VolSeg2dPredictor(ckpt, prediction_settings(), device=dev)
+    t0 = time.perf_counter()
+    part = mh.predict_local_block_to_hdf5(predictor, vol[start:stop],
+                                          work / "pred", output_probs=True)
+    res.update(multihost_s=time.perf_counter() - t0, part=str(part),
+               block=(start, stop))
+    del predictor
+    torch.cuda.empty_cache()
+
+    # (4): model-train-2d in the group.
+    trainers, digests = [], []
+
+    class Recorded(train_2d_model.VolSeg2dTrainer):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            trainers.append(self)
+
+        def _load_in_weights(self, output_path):
+            digests.append(digest(self.model.state_dict()))
+            return super()._load_in_weights(output_path)
+
+    train_2d_model.VolSeg2dTrainer = Recorded
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    train_2d_model.main(["--data", str(work / "cli" / "train_data.h5"),
+                         "--labels", str(work / "cli" / "train_labels.h5"),
+                         "--data_dir", str(work / "cli")], device=dev)
+    torch.cuda.synchronize()
+    (trainer,) = trainers
+    res["cli"] = {"main_s": time.perf_counter() - t0,
+                  "mesh": [trainer.mesh.rank, trainer.mesh.size],
+                  "train_steps": trainer.train_steps,
+                  "launches": dict(kernels.LAUNCHES),
+                  "digests_before_load": digests,
+                  "eval_scores": trainer.avg_eval_scores,
+                  "median_lr_find_step_ms": 1e3 * statistics.median(
+                      trainer.lr_find_step_seconds)}
+    res["cli"]["world"] = dist.get_world_size()
+    (work / f"pair_{backend}_rank{rank}.json").write_text(json.dumps(res))
+
+
+def parallel_phase(model_file: Path, out_dir: Path):
+    """Data-parallel training and prediction over ranks in child processes
+    (see the module doc)."""
+    import volume_segmantics_tpu_torch.utils.config as cfg
+    from volume_segmantics_tpu_torch.model.operations.vol_seg_2d_predictor import (
+        VolSeg2dPredictor,
+    )
+    from volume_segmantics_tpu_torch.models.registry import create_model
+    from volume_segmantics_tpu_torch.ops import kernels
+    from volume_segmantics_tpu_torch.parallel import multihost_predict as mh
+    from volume_segmantics_tpu_torch.parallel.mesh import spawn_ranks
+    from volume_segmantics_tpu_torch.utils import hdf5
+    from volume_segmantics_tpu_torch.utils.base_data_utils import Axis
+
+    t_phase = time.perf_counter()
+    failures, res = [], {"phase": "parallel"}
+    work = out_dir / "parallel"
+    shutil.rmtree(work, ignore_errors=True)
+    (work / "cli" / cfg.SETTINGS_DIR).mkdir(parents=True)
+    vol, truth = make_vessel_volume((P, P, P), seed=7)
+    np.save(work / "vessels.npy", vol)
+    torch.manual_seed(11)  # the global batch: N Z slices of the volume
+    torch.save({"state": create_model(STRUC).state_dict(),
+                "images": vol[:N].copy(), "masks": truth[:N].copy()},
+               work / "in.pt")
+    data, labels = make_vessel_volume(PARALLEL_TRAIN_SHAPE, seed=3)
+    hdf5.write(work / "cli" / "train_data.h5", data, chunks=True)
+    hdf5.write(work / "cli" / "train_labels.h5", labels, chunks=True)
+    (work / "cli" / cfg.SETTINGS_DIR / cfg.TRAIN_SETTINGS_FN).write_text(
+        settings_text(cfg.TRAIN_SETTINGS_FN, num_cyc_frozen=1,
+                      num_cyc_unfrozen=1, seed=0))
+    launches = {entry: 0 for _, _, entry, _, _ in KERNELS}
+    res["inputs_s"] = time.perf_counter() - t_phase
+
+    # (1): one NCCL rank, the DP step against the plain one, bit for bit.
+    t0 = time.perf_counter()
+    spawn_ranks(parallel_one_rank, 1, args=(str(work),), backend="nccl",
+                timeout=PARALLEL_TIMEOUT_S)
+    one = json.loads((work / "one.json").read_text())
+    one["spawn_s"] = time.perf_counter() - t0
+    res["nccl_world_1"] = one
+    if one["dp_losses"] != one["plain_losses"] or not one["states_equal"]:
+        failures.append("world-1 DP step differs from the plain step")
+    for entry in launches:
+        if one["dp_launches"][entry] != PARALLEL_STEPS_ONE:
+            failures.append(f"{entry} launched {one['dp_launches'][entry]} "
+                            f"times in {PARALLEL_STEPS_ONE} world-1 DP steps")
+        launches[entry] += one["dp_launches"][entry]
+
+    # (2)-(4): two gloo ranks on cuda:0; (5) again over NCCL on two GPUs.
+    backends = ["gloo"] + (["nccl"] if torch.cuda.device_count() >= 2 else [])
+    if len(backends) == 1:
+        res["nccl_two_gpus"] = ("not run: torch.cuda.device_count() is "
+                                f"{torch.cuda.device_count()}")
+    for backend in backends:
+        t0 = time.perf_counter()
+        spawn_ranks(parallel_pair_rank, 2,
+                    args=(str(work), str(model_file), backend),
+                    backend=backend, timeout=PARALLEL_TIMEOUT_S)
+        ranks = [json.loads((work / f"pair_{backend}_rank{r}.json").read_text())
+                 for r in range(2)]
+        pair = {"spawn_s": time.perf_counter() - t0,
+                "step_ms": [r["step_ms"] for r in ranks],
+                "losses": ranks[0]["losses"],
+                "one_process_losses": ranks[0]["one_process_losses"],
+                "against_one_process": ranks[0]["against_one_process"],
+                "multihost_s": [r["multihost_s"] for r in ranks],
+                "cli": [r["cli"] for r in ranks]}
+        res[f"two_ranks_{backend}"] = pair
+        tag = f"{backend} pair"
+        if not pair["against_one_process"]["ok"]:
+            failures.append(f"{tag}: DP steps against one process "
+                            f"{pair['against_one_process']}")
+        if ranks[0]["losses"] != ranks[1]["losses"] or \
+                ranks[0]["digest"] != ranks[1]["digest"]:
+            failures.append(f"{tag}: the ranks' steps differ")
+        cli = pair["cli"]
+        if [c["mesh"] for c in cli] != [[0, 2], [1, 2]]:
+            failures.append(f"{tag}: model-train-2d meshes {[c['mesh'] for c in cli]}")
+        if cli[0]["digests_before_load"] != cli[1]["digests_before_load"]:
+            failures.append(f"{tag}: the ranks' weights differ before a load")
+        if not cli[0]["eval_scores"][-1] >= 0.5:
+            failures.append(f"{tag}: model-train-2d last eval score "
+                            f"{cli[0]['eval_scores'][-1]} < 0.5")
+        ckpts = sorted((work / "cli").glob("*_U_Net_trained_2d_model.pytorch"))
+        csvs = sorted((work / "cli").glob("*_train_stats.csv"))
+        if len(ckpts) != 1 or len(csvs) != 1:
+            failures.append(f"{tag}: {len(ckpts)} checkpoints, {len(csvs)} CSVs")
+        for r in ranks:
+            for entry in launches:
+                if r["launches"][entry] != PARALLEL_STEPS_TWO:
+                    failures.append(f"{tag} rank {r['rank']}: {entry} launched "
+                                    f"{r['launches'][entry]} times in "
+                                    f"{PARALLEL_STEPS_TWO} DP steps")
+                if r["cli"]["launches"][entry] != r["cli"]["train_steps"]:
+                    failures.append(
+                        f"{tag} rank {r['rank']}: {entry} launched "
+                        f"{r['cli']['launches'][entry]} times in "
+                        f"{r['cli']['train_steps']} model-train-2d steps")
+                launches[entry] += r["launches"][entry] + r["cli"]["launches"][entry]
+        # (3)'s partials against the one-process Z sweep.
+        parts = [r["part"] for r in ranks]
+        stitched = mh.stitch_partial_predictions(parts)
+        probs = np.concatenate([hdf5.read(p_, "/probs")[0] for p_ in parts])
+        attrs = []
+        for p_ in parts:
+            with hdf5.File(p_) as f:
+                attrs.append((int(f["/data"].attrs["global_start"]),
+                               int(f["/data"].attrs["global_slices"])))
+        pair["partial_attrs"] = attrs
+        if attrs != [(0, P), (P // 2, P)]:
+            failures.append(f"{tag}: partial attributes {attrs}")
+        one_dev = VolSeg2dPredictor(model_file, prediction_settings(),
+                                    device="cuda:0")
+        ref = one_dev._predict_single_axis(vol, True, Axis.Z)
+        pair["multihost_vs_one_process"] = near_tie_check(
+            "LOW", (stitched, probs), ref)
+        if not pair["multihost_vs_one_process"]["ok"]:
+            failures.append(f"{tag}: stitched partials against one process "
+                            f"{pair['multihost_vs_one_process']}")
+        for stale in ckpts + csvs + [Path(p_) for p_ in parts]:
+            stale.unlink()
+        print(json.dumps({"phase": "parallel", "pair": backend,
+                          **{k: v for k, v in pair.items() if k != "cli"}}),
+              flush=True)
+
+    # (6): the predictor over [cuda:0, cuda:0] against one device, MEDIUM,
+    # float32 (TF32 off): at bf16 the two batch sizes' cuDNN algorithms put
+    # max-probabilities 2e-3 apart (first card run), past the rule's 1e-3.
+    f32 = prediction_settings(compute_dtype="float32")
+    one_dev = VolSeg2dPredictor(model_file, f32, device="cuda:0")
+    two_dev = VolSeg2dPredictor(model_file, f32, devices=["cuda:0", "cuda:0"])
+    timings = {}
+    for name, predictor in (("one_device", one_dev), ("two_devices", two_dev)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = predictor._predict_3_ways_max_probs(vol, True)
+        timings[name] = time.perf_counter() - t0
+        if name == "one_device":
+            ref = out
+    res["predictor_two_devices"] = {
+        "n_dev": two_dev.n_dev, "seconds": timings,
+        **near_tie_check("MEDIUM", out, ref)}
+    if two_dev.n_dev != 2 or not res["predictor_two_devices"]["ok"]:
+        failures.append(f"two-device MEDIUM {res['predictor_two_devices']}")
+    shutil.rmtree(work, ignore_errors=True)
+    res["launches"] = launches
+    res["phase_s"] = time.perf_counter() - t_phase
+    res["failures"] = failures
+    print(json.dumps(res), flush=True)
+    return res
+
+
 KERNELS = (
     ("K1", "warp_u8", "volseg_warp_u8", "volume_segmantics_tpu_torch/ops/csrc/warp.cu",
      "volume_segmantics_tpu/ops/warp.py:420"),
@@ -3315,9 +3749,10 @@ def main() -> int:
         formats = formats_phase(dev, out_dir, cli)
         interchange = interchange_phase(dev, out_dir)
         virtual = virtual_phase(dev, out_dir)
+        parallel = parallel_phase(model_out, out_dir)
     sweep = train_batch_sweep(images, masks, dev)
     counted = (summary, cli, losses, pretrained, archs, encoders, formats,
-               interchange, virtual)
+               interchange, virtual, parallel)
     kernels_line = {"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": sum(phase["launches"][entry] for phase in counted),
@@ -3328,7 +3763,8 @@ def main() -> int:
     ]}
     failed = [k for k in kres if not kres[k]["ok"]] + [
         f for phase in (summary, predicted, cli, losses, ckpt, large, pretrained,
-                        archs, encoders, formats, interchange, virtual, sweep)
+                        archs, encoders, formats, interchange, virtual, parallel,
+                        sweep)
         for f in phase["failures"]]
     if failed:
         print(json.dumps({"failed": failed}), file=sys.stderr)

@@ -1,7 +1,7 @@
 """`spatial_partitions` in the trainer's settings, against the JAX
 trainer: a count that does not divide the device count raises the JAX
 package's ValueError; on the CPU the port has one device. A count that
-divides it and is above 1 asks for multi-GPU training, which the port
+divides it and is above 1 asks for spatial partitioning, which the port
 refuses by name."""
 
 import jax
@@ -54,7 +54,8 @@ def test_one_partition_or_none_trains_on_one_device(settings, partitions):
 
 def test_partitions_dividing_the_gpu_count_name_multi_gpu(settings, monkeypatch):
     """On a host with two GPUs, two partitions divide the count: the JAX
-    trainer would shard over both, the port refuses by name."""
+    trainer would split image height over both, the port refuses spatial
+    partitioning by name."""
     import torch
 
     from volume_segmantics_tpu_torch.model.operations.vol_seg_2d_trainer import (
@@ -63,7 +64,7 @@ def test_partitions_dividing_the_gpu_count_name_multi_gpu(settings, monkeypatch)
 
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     settings.spatial_partitions = 2
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    with pytest.raises(NotImplementedError, match="spatial partitioning"):
         check_spatial_partitions(settings, torch.device("cuda"))
     settings.spatial_partitions = 4
     with pytest.raises(ValueError, match=r"must divide the device count \(2\)"):

@@ -31,10 +31,16 @@ class ArrayBatcher:
     Always emits full `batch_size` batches: a short remainder batch is
     padded by wrapping around, with `n_valid` marking how many leading
     samples are real (the eval step masks the rest).
+
+    Under a data mesh (`parallel.mesh.Mesh`) every rank draws the same
+    global order from an `rng` seeded alike and yields its contiguous rows
+    of each global batch (rank r: rows r * B / R to (r + 1) * B / R); the
+    padded tail and `n_valid` are the global batch's, so the padding falls
+    on the last ranks.
     """
 
     def __init__(self, images, masks, indices, batch_size, shuffle, drop_last,
-                 rng: np.random.Generator):
+                 rng: np.random.Generator, mesh=None):
         self.images = images
         self.masks = masks
         self.indices = np.asarray(indices, dtype=np.int64)
@@ -42,6 +48,7 @@ class ArrayBatcher:
         self.shuffle = shuffle
         self.drop_last = drop_last
         self._rng = rng
+        self.rows = slice(None) if mesh is None else mesh.rows(self.batch_size)
 
     def __len__(self):
         n = len(self.indices)
@@ -50,6 +57,12 @@ class ArrayBatcher:
         return int(np.ceil(n / self.batch_size))
 
     def __iter__(self):
+        return self.batches()
+
+    def batches(self, whole: bool = False):
+        """This rank's rows of each global batch, or with `whole` the
+        global batches themselves."""
+        rows = slice(None) if whole else self.rows
         order = self.indices
         if self.shuffle:
             order = self._rng.permutation(order)
@@ -63,6 +76,7 @@ class ArrayBatcher:
                 reps = -(-(bs - n_valid) // len(order))
                 pad = np.tile(order, reps)[: bs - n_valid]
                 chunk = np.concatenate([chunk, pad])
+            chunk = chunk[rows]
             yield self.images[chunk], self.masks[chunk], n_valid
 
 
@@ -90,17 +104,19 @@ def _preprocess_slice_lists(data_slices, label_slices, image_size):
 
 def get_2d_training_dataloaders(
     image_dir, label_dir, settings: SimpleNamespace, device="cuda",
-    rng: np.random.Generator = None,
+    rng: np.random.Generator = None, mesh=None,
 ) -> Tuple[ArrayBatcher, ArrayBatcher]:
     """Train/validation batchers with a random permutation split at
     `training_set_proportion` (reference dataloaders.py:15-56), over PNG
     slice directories (`str` or `Path`, as the reference takes them) or
     in-memory slice lists. `rng` defaults to one seeded from
-    `settings.seed`."""
+    `settings.seed`. Under a data `mesh` the global batch is a multiple of
+    its ranks and each batcher yields this rank's rows."""
     if rng is None:
         rng = np.random.default_rng(int(getattr(settings, "seed", 0)))
     training_set_prop = settings.training_set_proportion
-    batch_size = utils.get_batch_size(settings, device)
+    n_ranks = 1 if mesh is None else mesh.size
+    batch_size = utils.get_batch_size(settings, device, n_devices=n_ranks)
 
     if isinstance(image_dir, (str, Path)):
         images, masks = get_2d_training_dataset(
@@ -121,6 +137,8 @@ def get_2d_training_dataloaders(
     if profile == "throughput" and not explicit:
         cap = max(len(train_idx) // cfg.MIN_TRAIN_STEPS_PER_EPOCH,
                   cfg.BIG_TRAIN_BATCH)
+        # Keep the divisibility get_batch_size guarantees.
+        cap = -(-cap // n_ranks) * n_ranks
         if batch_size > cap:
             logging.info(
                 f"Clamping throughput-profile batch {batch_size} -> {cap} "
@@ -138,11 +156,11 @@ def get_2d_training_dataloaders(
 
     training_batcher = ArrayBatcher(
         images, masks, train_idx, batch_size, shuffle=True, drop_last=True,
-        rng=rng,
+        rng=rng, mesh=mesh,
     )
     validation_batcher = ArrayBatcher(
         images, masks, validate_idx, batch_size, shuffle=False,
-        drop_last=False, rng=rng,
+        drop_last=False, rng=rng, mesh=mesh,
     )
     return training_batcher, validation_batcher
 

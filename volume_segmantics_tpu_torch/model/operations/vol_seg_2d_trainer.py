@@ -23,6 +23,17 @@ resumes from it when its frozen flag matches. `profile_dir` records a
 After training it writes the train-stats CSV, the loss plot and the
 validation montage as PNG files (`utils/figures.py`, `utils/png.py`: the
 GPU machine has no matplotlib), their text in tEXt chunks.
+
+In a process group (`parallel/mesh.py`: one rank a GPU) it trains data
+parallel over every rank, as the JAX trainer trains over its mesh: each
+rank takes its rows of every global batch and the steps are the
+data-parallel ones (`parallel/train.py`). Rank 0's initial weights are
+broadcast; every checkpoint and autosave is read by rank 0 and its bytes
+broadcast, so the ranks need no shared disk; rank 0 alone writes the
+checkpoint, the autosave and the profile, and `model-train-2d` has it
+alone write the CSV and the figures. Every rank takes the same LR-finder
+and early-stopping decisions, as they follow from the global batch's
+losses. A process without a group trains on its one device.
 """
 
 import csv
@@ -35,6 +46,7 @@ from typing import Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 import volume_segmantics_tpu_torch.utils.base_data_utils as utils
 import volume_segmantics_tpu_torch.utils.config as cfg
@@ -47,14 +59,19 @@ from volume_segmantics_tpu_torch.data.metrics import get_eval_metric_fn
 from volume_segmantics_tpu_torch.data.settings_data import require_settings
 from volume_segmantics_tpu_torch.model.model_2d import create_model_on_device
 from volume_segmantics_tpu_torch.models.checkpoint import (
-    load_checkpoint,
+    checkpoint_from_bytes,
     save_checkpoint,
 )
 from volume_segmantics_tpu_torch.models.torch_export import flax_param_paths
+from volume_segmantics_tpu_torch.parallel.mesh import (
+    check_space,
+    get_mesh,
+    replicate,
+)
 from volume_segmantics_tpu_torch.parallel.train import (
     autocast,
-    build_eval_step,
-    build_train_step,
+    build_dp_eval_step,
+    build_dp_train_step,
     make_base_optimizer,
     normalise,
 )
@@ -81,19 +98,16 @@ def check_spatial_partitions(settings: SimpleNamespace,
                              device: torch.device) -> None:
     """The JAX trainer's `spatial_partitions` (optional, default 1): the
     axis of its device mesh that splits image height. A count that does not
-    divide the device count (the GPUs, or 1 on the CPU) raises the JAX
-    package's ValueError (its `parallel/mesh.py:get_mesh`); one that does
-    and is above 1 asks for multi-GPU training, which is not ported."""
+    divide the device count (the ranks of the process group; without one,
+    the GPUs, or 1 on the CPU) raises the JAX package's ValueError (its
+    `parallel/mesh.py:get_mesh`); one that does and is above 1 asks for
+    spatial partitioning, which is not ported (`parallel.mesh.check_space`)."""
     space = int(getattr(settings, "spatial_partitions", 1) or 1)
-    if space <= 1:
-        return
-    count = torch.cuda.device_count() if device.type == "cuda" else 1
-    if count % space:
-        raise ValueError(f"spatial_partitions={space} must divide the device "
-                         f"count ({count}).")
-    raise NotImplementedError(
-        f"spatial_partitions={space} shards training over {space} devices; "
-        "multi-GPU training is not ported yet (ROADMAP.md, section 1 item 4).")
+    if dist.is_initialized():
+        count = dist.get_world_size()
+    else:
+        count = torch.cuda.device_count() if device.type == "cuda" else 1
+    check_space(space, count)
 
 
 class VolSeg2dTrainer:
@@ -122,8 +136,12 @@ class VolSeg2dTrainer:
         # Slice stacks and epoch shuffles churn large host buffers; keep
         # freed pages in-process (utils/host_memory.py).
         tune_malloc_for_large_buffers()
-        self.device = resolve_device(device)
-        check_spatial_partitions(settings, self.device)
+        self.mesh = get_mesh(device=resolve_device(device))
+        check_spatial_partitions(settings, self.mesh.device)
+        self.device = self.mesh.device
+        if self.mesh.size > 1:
+            logging.info(f"Data-parallel training over {self.mesh.size} ranks "
+                         f"(this is rank {self.mesh.rank}).")
         # One seed, four independent streams: data split and order, model
         # initialisation, on-device augmentation and dropout masks (the
         # first three are spawned as they were before the fourth).
@@ -132,7 +150,7 @@ class VolSeg2dTrainer:
             seed).spawn(4)
         self.training_loader, self.validation_loader = get_2d_training_dataloaders(
             image_dir_path, label_dir_path, settings, self.device,
-            rng=np.random.default_rng(data_ss),
+            rng=np.random.default_rng(data_ss), mesh=self.mesh,
         )
         self._init_gen = torch.Generator().manual_seed(
             int(init_ss.generate_state(1)[0])
@@ -152,6 +170,8 @@ class VolSeg2dTrainer:
         self.log_lr_ratio = self._calculate_log_lr_ratio()
         self.lr_find_epochs = settings.lr_find_epochs
         self.lr_reduce_factor = settings.lr_reduce_factor
+        # Read and unused, as in the JAX package (its model_2d.py:94).
+        self.model_device_num = int(getattr(settings, "cuda_device", 0))
         self.patience = settings.patience
         self.loss_fn = get_loss_fn(settings)
         self.eval_metric_fn = get_eval_metric_fn(settings)
@@ -197,6 +217,7 @@ class VolSeg2dTrainer:
         self.model = create_model_on_device(
             self.device, self.model_struc_dict, generator=self._init_gen
         )
+        replicate(self.model, self.mesh)
         self._freezable = frozen_parameter_names(self.model,
                                                  self.model_struc_dict)
         self._set_frozen(frozen)
@@ -223,15 +244,17 @@ class VolSeg2dTrainer:
             if p.requires_grad:
                 trainable.append(p)
         self.optimizer = make_base_optimizer(trainable, self._weight_decay)
-        self._train_step = build_train_step(
+        self._train_step = build_dp_train_step(
             self.model, self.loss_fn, self.optimizer,
             num_labels=self.label_no, image_size=self.image_size,
-            compute_dtype=self.compute_dtype, augment=self.augment_on_device,
-            generator=self._aug_gen, dropout_generator=self._dropout_gen,
+            mesh=self.mesh, compute_dtype=self.compute_dtype,
+            augment=self.augment_on_device, generator=self._aug_gen,
+            dropout_generator=self._dropout_gen,
         )
-        self._eval_step = build_eval_step(
+        self._eval_step = build_dp_eval_step(
             self.model, self.loss_fn, self.eval_metric_fn,
-            num_labels=self.label_no, compute_dtype=self.compute_dtype,
+            num_labels=self.label_no, mesh=self.mesh,
+            compute_dtype=self.compute_dtype,
         )
 
     def _count_parameters(self) -> int:
@@ -339,7 +362,7 @@ class VolSeg2dTrainer:
                 profiler = self._stop_profiler(profiler, frozen)
             early_stopping(self.avg_valid_losses[-1], self.model,
                            self.optimizer, self.codes)
-            if autosave:
+            if autosave and self._writes:
                 self._write_autosave(
                     autosave_path, epoch=epoch, global_step=global_step,
                     lr_to_use=lr_to_use, early_stopping=early_stopping,
@@ -350,7 +373,7 @@ class VolSeg2dTrainer:
                 break
         if profiler is not None:
             self._stop_profiler(profiler, frozen)
-        if autosave and autosave_path.exists():
+        if autosave and self._writes and autosave_path.exists():
             autosave_path.unlink()
         self._load_in_weights(output_path)
 
@@ -376,13 +399,26 @@ class VolSeg2dTrainer:
             },
         )
 
+    @property
+    def _writes(self) -> bool:
+        """Whether this process writes the run's files: rank 0 alone."""
+        return self.mesh.rank == 0
+
+    def _read_checkpoint(self, path):
+        """The checkpoint at `path` as rank 0 reads it, on every rank; None
+        when rank 0 finds no file there."""
+        path = Path(path)
+        data = path.read_bytes() if self._writes and path.exists() else None
+        data = self.mesh.broadcast_object(data)
+        return None if data is None else checkpoint_from_bytes(data, path)
+
     def _try_resume(self, autosave_path, frozen):
         """Restore model, optimizer and loss lists from an epoch autosave
         of this package; returns its `extra` dict, or None to start
         afresh."""
-        if not autosave_path.exists():
+        ckpt = self._read_checkpoint(autosave_path)
+        if ckpt is None:
             return None
-        ckpt = load_checkpoint(autosave_path)
         extra = ckpt.get("extra")
         if not extra or bool(extra.get("frozen")) != bool(frozen):
             return None
@@ -401,7 +437,7 @@ class VolSeg2dTrainer:
     def _start_profiler(self):
         """A torch.profiler trace from here on when `profile_dir` is set
         (CUDA activity too on the GPU); None otherwise."""
-        if not getattr(self.settings, "profile_dir", None):
+        if not getattr(self.settings, "profile_dir", None) or not self._writes:
             return None
         activities = [torch.profiler.ProfilerActivity.CPU]
         if self.device.type == "cuda":
@@ -441,7 +477,9 @@ class VolSeg2dTrainer:
         return self._load_in_weights(output_path)
 
     def _load_in_weights(self, output_path):
-        ckpt = load_checkpoint(output_path)
+        ckpt = self._read_checkpoint(output_path)
+        if ckpt is None:
+            raise FileNotFoundError(f"No checkpoint at {output_path}")
         logging.info("Loading model weights.")
         self.model.load_state_dict(ckpt["model_state_dict"])
         return ckpt.get("loss_val", np.inf)
@@ -558,6 +596,7 @@ class VolSeg2dTrainer:
             path=output_path,
             model_dict=self.model_struc_dict,
             best_score=best_score,
+            write=self._writes,
         )
 
     # ------------------------------------------------------------------
@@ -568,7 +607,7 @@ class VolSeg2dTrainer:
         """Write the loss plot, `<stem>_loss_plot.png` (training and
         validation loss by epoch, a dashed red line at the best epoch), and
         the per-epoch CSV of losses and eval scores (reference trainer
-        :434-479)."""
+        :434-479). Under a data mesh, call it on rank 0 alone."""
         out_dir = model_out_path.parent
         stem = model_out_path.stem
         canvas, _, best = figures.loss_plot(self.avg_train_losses,
@@ -604,9 +643,10 @@ class VolSeg2dTrainer:
     def output_prediction_figure(self, model_path: Path) -> None:
         """Write `<stem>_prediction_image.png`: data, ground truth and
         prediction panels of up to 4 samples of the first validation batch
-        at native resolution, each min-max scaled (reference trainer
-        :481-535)."""
-        images, masks, _ = next(iter(self.validation_loader))
+        (the global batch) at native resolution, each min-max scaled
+        (reference trainer :481-535). Under a data mesh, call it on rank 0
+        alone."""
+        images, masks, _ = next(self.validation_loader.batches(whole=True))
         predictions = self.predict_batch(images)
         n_rows = min(images.shape[0], 4)
         canvas = figures.montage(

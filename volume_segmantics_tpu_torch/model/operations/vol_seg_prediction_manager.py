@@ -5,7 +5,11 @@ reference volume_segmantics/model/operations/vol_seg_prediction_manager.py:12-10
 A volume within the in-memory limit (from the GPU's memory) is predicted
 on the GPU whole; a lazy HDF5 source of that size is first assembled there
 slab by slab. A larger one streams through the slab predictor
-(vol_seg_large_predictor.py) into host memmaps. One GPU only."""
+(vol_seg_large_predictor.py) into host memmaps. On several devices (the
+predictor's) a lazy source is read straight onto them, a contiguous block
+of slices each, so that each holds its share: its in-memory limit then
+scales with the devices where they divide its slices, as the JAX
+manager's lazy limit does."""
 
 import logging
 import os
@@ -26,6 +30,7 @@ from volume_segmantics_tpu_torch.model.operations.vol_seg_2d_predictor import (
 from volume_segmantics_tpu_torch.model.operations.vol_seg_large_predictor import (
     VolSegLargeVolPredictor,
 )
+from volume_segmantics_tpu_torch.parallel.predict import upload_blocks
 
 
 class VolSeg2DPredictionManager(BaseDataManager):
@@ -41,10 +46,11 @@ class VolSeg2DPredictionManager(BaseDataManager):
     )
 
     def __init__(self, model_file_path, data_vol: Union[str, Path, np.ndarray],
-                 settings: SimpleNamespace, device=None) -> None:
+                 settings: SimpleNamespace, device=None, devices=None) -> None:
         require_settings(settings, self.REQUIRED_SETTINGS, "prediction")
         super().__init__(data_vol, settings)
-        self.predictor = VolSeg2dPredictor(model_file_path, settings, device)
+        self.predictor = VolSeg2dPredictor(model_file_path, settings, device,
+                                           devices)
         self.settings = settings
 
     def get_label_codes(self) -> dict:
@@ -70,22 +76,18 @@ class VolSeg2DPredictionManager(BaseDataManager):
         )
         return int(total * cfg.IN_MEMORY_PREDICT_SHARE / per_voxel)
 
-    def _upload_lazy_to_device(self, vol) -> torch.Tensor:
-        """Assemble a lazy (basic-sliceable) volume into one preallocated
-        uint8 tensor on the device, reading and transforming a slab at a
-        time: host memory stays O(slab) and the device holds the volume
-        once (no concatenate)."""
-        logging.info(f"Uploading lazy volume {tuple(vol.shape)} to the device "
-                     "slab by slab for in-memory prediction.")
-        slab = self._streaming_slab_size()
-        out = torch.empty(tuple(vol.shape), dtype=torch.uint8,
-                          device=self.predictor.device)
-        for start in range(0, vol.shape[0], slab):
-            part = np.asarray(vol[start:start + slab])
-            if part.dtype != np.uint8:
-                part = part.astype(np.uint8)
-            out[start:start + slab].copy_(torch.from_numpy(part))
-        return out
+    def _upload_lazy_to_device(self, vol):
+        """Assemble a lazy (basic-sliceable) volume into preallocated uint8
+        tensors, one a device holding its contiguous block of slices, read
+        and transformed from the source a slab at a time: host memory stays
+        O(slab) and the devices hold the volume once (no concatenate). One
+        device gets a tensor, several a `ShardedVolume`."""
+        devices = self.predictor.devices
+        logging.info(f"Uploading lazy volume {tuple(vol.shape)} to "
+                     f"{len(devices)} device(s) slab by slab for in-memory "
+                     "prediction.")
+        sharded = upload_blocks(vol, devices, self._streaming_slab_size())
+        return sharded.shards[0] if len(devices) == 1 else sharded
 
     def _streaming_slab_size(self) -> int:
         """The `streaming_slab_size` setting, else the prediction batch
@@ -141,6 +143,10 @@ class VolSeg2DPredictionManager(BaseDataManager):
         want_probs = output_path is not None and bool(self.settings.output_probs)
         limit = self.in_memory_limit_voxels(one_hot)
         data_vol = self.data_vol
+        n_dev = self.predictor.n_dev
+        if not isinstance(data_vol, np.ndarray) and data_vol.shape[0] % n_dev == 0:
+            # A lazy source splits over the devices (JAX manager :149-153).
+            limit *= n_dev
         if data_vol.size > limit:
             logging.info(f"Volume has {data_vol.size} voxels (> {limit}, the "
                          "in-memory limit); using the slab-streaming predictor "

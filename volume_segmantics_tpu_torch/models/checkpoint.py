@@ -17,6 +17,7 @@ maps that path (and the port's older one) to the port's enums.
 """
 
 import enum
+import io
 import logging
 import pickle
 import sys
@@ -114,10 +115,10 @@ def save_checkpoint(path, model: torch.nn.Module, model_struc_dict: dict,
     logging.info(f"Saved checkpoint to {path}.")
 
 
-def _load_native(path: Path) -> Dict[str, Any]:
+def _load_native(data: bytes) -> Dict[str, Any]:
     """A JAX package `VSTPU1` file, its weights mapped to the port's names.
     Its optax optimizer state is not read: the port cannot use it."""
-    blob = msgpack_restore(path.read_bytes()[len(MAGIC):])
+    blob = msgpack_restore(data[len(MAGIC):])
     struc = dict(blob["model_struc_dict"])
     if isinstance(struc.get("type"), str):
         struc["type"] = ModelType[struc["type"]]
@@ -132,12 +133,17 @@ def _load_native(path: Path) -> Dict[str, Any]:
 def load_checkpoint(path) -> Dict[str, Any]:
     """Load a checkpoint dict, tensors on the CPU. A torch file is unpickled
     in full: load only files you wrote or trust."""
-    path = Path(path)
-    with open(path, "rb") as f:
-        head = f.read(len(MAGIC))
-    if head == MAGIC:
-        return _load_native(path)
-    if zipfile.is_zipfile(path):
-        return torch.load(path, map_location="cpu", weights_only=False,
+    return checkpoint_from_bytes(Path(path).read_bytes(), path)
+
+
+def checkpoint_from_bytes(data: bytes, name="checkpoint") -> Dict[str, Any]:
+    """`load_checkpoint` of a file's bytes (a data-parallel trainer's ranks
+    take them from rank 0); `name` is for the error message."""
+    if data[:len(MAGIC)] == MAGIC:
+        return _load_native(data)
+    buf = io.BytesIO(data)
+    if zipfile.is_zipfile(buf):
+        buf.seek(0)
+        return torch.load(buf, map_location="cpu", weights_only=False,
                           pickle_module=REFERENCE_PICKLE)
-    raise ValueError(f"Unrecognized checkpoint format: {path}")
+    raise ValueError(f"Unrecognized checkpoint format: {name}")

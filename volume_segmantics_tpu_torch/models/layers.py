@@ -46,7 +46,17 @@ class BnAct(nn.Module):
     The activation ("relu", "silu" or None) runs after the cast, as the
     JAX `bn_apply_act` does: for SiLU under bf16 the order matters.
     Parameter and buffer names are BatchNorm2d's, so `state_dict()` keys
-    are the reference checkpoint's."""
+    are the reference checkpoint's.
+
+    The batch statistics are the sums of x and of x^2 in float32, divided
+    by the count once. Under a data mesh (`set_batch_statistics_mesh`) the
+    sums are summed over the ranks first, in one call of the mesh's
+    differentiable all-reduce, and the count is the local one times the
+    ranks (every rank holds as many rows: `Mesh.rows`), so every rank
+    normalises with the global batch's statistics, as the JAX step's one
+    program over the global batch does, and updates its running statistics
+    alike. One process runs the same arithmetic without the all-reduce:
+    the two agree bit for bit at world size 1."""
 
     momentum = 0.9
 
@@ -62,13 +72,18 @@ class BnAct(nn.Module):
         self.register_buffer(
             "num_batches_tracked", torch.tensor(0, dtype=torch.long)
         )
+        self.mesh = None
 
     def forward(self, x):
         if self.training:
             xf = x.float()
             dims = (0, 2, 3)
-            mean = xf.mean(dims)
-            mu2 = (xf * xf).mean(dims)
+            sums = torch.stack([xf.sum(dims), (xf * xf).sum(dims)])
+            count = xf.numel() // xf.shape[1]
+            if self.mesh is not None:
+                sums = self.mesh.all_reduce(sums)
+                count *= self.mesh.size
+            mean, mu2 = sums / count
             var = torch.clamp(mu2 - mean * mean, min=0.0)
             with torch.no_grad():
                 self.running_mean.copy_(
@@ -139,30 +154,48 @@ class Dropout(nn.Module):
     of NHWC, torch's Dropout2d) is kept with probability 1 - rate and scaled
     by 1 / (1 - rate). The mask comes from `generator` (a torch.Generator on
     the input's device; None draws from the device's default generator), so
-    a seeded run repeats. Eval mode and rate 0 draw nothing."""
+    a seeded run repeats. Eval mode and rate 0 draw nothing. Under a data
+    mesh the mask is drawn for the global batch and this rank keeps its
+    rows, so the ranks together drop what one process would."""
 
     def __init__(self, rate: float, channelwise: bool = False):
         super().__init__()
         self.rate = rate
         self.channelwise = channelwise
         self.generator: Optional[torch.Generator] = None
+        self.mesh = None
 
     def forward(self, x):
         if not self.training or self.rate == 0.0:
             return x
         keep_prob = 1.0 - self.rate
         shape = x.shape[:2] + (1, 1) if self.channelwise else x.shape
-        keep = torch.rand(shape, generator=self.generator,
+        n_global = shape[0] * (1 if self.mesh is None else self.mesh.size)
+        keep = torch.rand((n_global, *shape[1:]), generator=self.generator,
                           device=x.device) < keep_prob
+        if self.mesh is not None:
+            keep = keep[self.mesh.rows(n_global)]
         return torch.where(keep, x / keep_prob, 0.0)
 
 
 def set_dropout_generator(model: nn.Module,
-                          generator: Optional[torch.Generator]) -> None:
-    """Every Dropout of `model` draws its masks from `generator`."""
+                          generator: Optional[torch.Generator],
+                          mesh=None) -> None:
+    """Every Dropout of `model` draws its masks from `generator`, for the
+    global batch of `mesh` (`parallel.mesh.Mesh`; None: this process's
+    batch)."""
     for m in model.modules():
         if isinstance(m, Dropout):
             m.generator = generator
+            m.mesh = mesh
+
+
+def set_batch_statistics_mesh(model: nn.Module, mesh=None) -> None:
+    """Every BnAct of `model` takes its training statistics over the
+    global batch of `mesh` (None: this process's batch)."""
+    for m in model.modules():
+        if isinstance(m, BnAct):
+            m.mesh = mesh
 
 
 def upsample(x: torch.Tensor, factor: int = 2) -> torch.Tensor:

@@ -350,11 +350,22 @@ def apply_augment(geo: dict, inten: dict, images_u8: torch.Tensor,
 
 
 def augment_batch_u8(generator: torch.Generator, images_u8: torch.Tensor,
-                     masks_u8: torch.Tensor, size: int):
+                     masks_u8: torch.Tensor, size: int, mesh=None):
     """Augment a uint8 (N, S, S) batch on its device. On CUDA the warp and
     CLAHE run as kernels K1, K2 and K3; on the CPU as their plain versions.
-    `generator` must live on the batch's device."""
+    `generator` must live on the batch's device.
+
+    Under a data mesh (`parallel.mesh.Mesh`) the batch is this rank's rows
+    of the global batch: the parameters are drawn for the global batch,
+    from a generator every rank seeds alike, and this rank keeps its rows,
+    so the ranks together augment as one process would; K1-K3 run on this
+    rank's rows only."""
     n, dev = images_u8.shape[0], images_u8.device
-    geo = draw_geometric_params(generator, n, size, dev)
-    inten = draw_intensity_params(generator, n, dev)
+    n_global = n if mesh is None else n * mesh.size
+    geo = draw_geometric_params(generator, n_global, size, dev)
+    inten = draw_intensity_params(generator, n_global, dev)
+    if n_global != n:
+        rows = mesh.rows(n_global)
+        geo = {k: v[rows] for k, v in geo.items()}
+        inten = {k: v[rows] for k, v in inten.items()}
     return apply_augment(geo, inten, images_u8, masks_u8, size)

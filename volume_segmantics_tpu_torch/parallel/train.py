@@ -1,5 +1,5 @@
-"""Single-GPU train and eval steps (port of the JAX package's
-`parallel/train.py` for one device).
+"""Data-parallel train and eval steps (port of the JAX package's
+`parallel/train.py`).
 
 The train step is: uint8 batch -> on-device augmentation -> ImageNet
 normalisation -> forward under bf16 autocast -> NCHW one-hot targets ->
@@ -7,6 +7,19 @@ loss -> backward -> AdamW. Freezing is structural: frozen parameters have
 `requires_grad=False` and are left out of the optimizer, so autograd builds
 no backward for them and they get no update and no weight decay. BatchNorm
 running statistics still update in training mode.
+
+Over a data mesh (`parallel/mesh.py`) each rank steps on its rows of the
+global batch, and the step computes what the JAX step's one program over
+the global batch computes: augmentation and dropout drawn for the global
+batch, BatchNorm statistics over it, and one loss on the all-gathered
+logits and masks, the same on every rank. That is right for every shipped
+loss and metric at once, Dice, the class weights from batch sums and
+MeanIoU included, which a mean of per-rank losses would not be. The
+gradients are averaged over the ranks in one all-reduce a step
+(`Mesh.average_gradients` says why the mean), over the parameters that
+are trainable when the step is built, so a frozen step and an unfrozen one
+each reduce their own set. On a mesh of one process the collectives are
+the identity: `build_train_step` is the data-parallel step there.
 """
 
 from typing import Callable, Iterable
@@ -15,8 +28,12 @@ import torch
 import torch.nn.functional as F
 
 import volume_segmantics_tpu_torch.utils.config as cfg
-from volume_segmantics_tpu_torch.models.layers import set_dropout_generator
+from volume_segmantics_tpu_torch.models.layers import (
+    set_batch_statistics_mesh,
+    set_dropout_generator,
+)
 from volume_segmantics_tpu_torch.ops.augment import augment_batch_u8
+from volume_segmantics_tpu_torch.parallel.mesh import Mesh, get_mesh
 
 
 def make_base_optimizer(params: Iterable[torch.nn.Parameter],
@@ -47,34 +64,47 @@ def autocast(device: torch.device, compute_dtype: torch.dtype):
     )
 
 
-def build_train_step(model: torch.nn.Module, loss_fn: Callable,
-                     optimizer: torch.optim.Optimizer, num_labels: int = 2,
-                     image_size: int = 256,
-                     compute_dtype: torch.dtype = torch.bfloat16,
-                     augment: bool = True,
-                     generator: torch.Generator = None,
-                     dropout_generator: torch.Generator = None) -> Callable:
-    """Returns step(images_u8, masks_u8, lr) -> loss (a device scalar;
-    reading it waits for the step). `generator` draws the augmentation and
-    `dropout_generator` the masks of the model's dropout layers (FPN,
-    DeepLabV3/V3+); both must live on the batch's device."""
-    set_dropout_generator(model, dropout_generator)
+def _model_device(model: torch.nn.Module) -> torch.device:
+    return next(model.parameters()).device
+
+
+def build_dp_train_step(model: torch.nn.Module, loss_fn: Callable,
+                        optimizer: torch.optim.Optimizer, num_labels: int = 2,
+                        image_size: int = 256, mesh: Mesh = None,
+                        compute_dtype: torch.dtype = torch.bfloat16,
+                        augment: bool = True,
+                        generator: torch.Generator = None,
+                        dropout_generator: torch.Generator = None) -> Callable:
+    """Returns step(images_u8, masks_u8, lr) -> loss (a device scalar, the
+    global batch's; reading it waits for the step). The batch is this
+    rank's rows of the global batch (`Mesh.rows`). `mesh` defaults to
+    `get_mesh()` on the model's device. `generator` draws the augmentation
+    and `dropout_generator` the masks of the model's dropout layers (FPN,
+    DeepLabV3/V3+); both must live on the batch's device and be seeded
+    alike on every rank."""
+    if mesh is None:
+        mesh = get_mesh(device=_model_device(model))
+    set_dropout_generator(model, dropout_generator, mesh)
+    set_batch_statistics_mesh(model, mesh)
+    trainable = [p for group in optimizer.param_groups for p in group["params"]]
 
     def step(images_u8: torch.Tensor, masks_u8: torch.Tensor, lr: float):
         device = images_u8.device
         model.train()
         if augment:
             imgs, msks = augment_batch_u8(generator, images_u8, masks_u8,
-                                          image_size)
+                                          image_size, mesh)
         else:
             imgs, msks = images_u8.float() / 255.0, masks_u8
         x = normalise(imgs)
-        targets = _one_hot_nchw(msks, num_labels, compute_dtype)
         with autocast(device, compute_dtype):
             logits = model(x)
-        loss = loss_fn(logits.float(), targets)
+        targets = _one_hot_nchw(mesh.all_gather(msks), num_labels,
+                                compute_dtype)
+        loss = loss_fn(mesh.all_gather(logits.float()), targets)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        mesh.average_gradients(trainable)
         for group in optimizer.param_groups:
             group["lr"] = lr
         optimizer.step()
@@ -83,23 +113,41 @@ def build_train_step(model: torch.nn.Module, loss_fn: Callable,
     return step
 
 
-def build_eval_step(model: torch.nn.Module, loss_fn: Callable,
-                    eval_fn: Callable, num_labels: int,
-                    compute_dtype: torch.dtype = torch.bfloat16) -> Callable:
+def build_train_step(model: torch.nn.Module, loss_fn: Callable,
+                     optimizer: torch.optim.Optimizer, num_labels: int = 2,
+                     image_size: int = 256,
+                     compute_dtype: torch.dtype = torch.bfloat16,
+                     augment: bool = True,
+                     generator: torch.Generator = None,
+                     dropout_generator: torch.Generator = None) -> Callable:
+    """`build_dp_train_step` on this process alone (no collective)."""
+    return build_dp_train_step(
+        model, loss_fn, optimizer, num_labels, image_size, Mesh(),
+        compute_dtype, augment, generator, dropout_generator)
+
+
+def build_dp_eval_step(model: torch.nn.Module, loss_fn: Callable,
+                       eval_fn: Callable, num_labels: int, mesh: Mesh = None,
+                       compute_dtype: torch.dtype = torch.bfloat16) -> Callable:
     """Returns step(images_u8, masks_u8, n_valid) -> (loss, score) as device
-    scalars. `n_valid` marks how many leading batch entries are real; the
-    padded tail contributes nothing to the loss or the metric."""
+    scalars of the global batch, whose rows this rank's batch is.
+    `n_valid` marks how many leading entries of the global batch are real;
+    the padded tail contributes nothing to the loss or the metric."""
+    if mesh is None:
+        mesh = get_mesh(device=_model_device(model))
 
     @torch.no_grad()
     def step(images_u8: torch.Tensor, masks_u8: torch.Tensor, n_valid: int):
         device = images_u8.device
         model.eval()
         x = normalise(images_u8.float() / 255.0)
-        targets = _one_hot_nchw(masks_u8, num_labels, compute_dtype)
         with autocast(device, compute_dtype):
             logits = model(x).float()
+        logits = mesh.all_gather(logits)
+        targets = _one_hot_nchw(mesh.all_gather(masks_u8), num_labels,
+                                compute_dtype)
         sample_weights = (
-            torch.arange(images_u8.shape[0], device=device) < n_valid
+            torch.arange(logits.shape[0], device=device) < n_valid
         ).float()
         loss = loss_fn(logits, targets, sample_weights=sample_weights)
         probs = torch.softmax(logits, dim=1)
@@ -107,3 +155,11 @@ def build_eval_step(model: torch.nn.Module, loss_fn: Callable,
         return loss, score
 
     return step
+
+
+def build_eval_step(model: torch.nn.Module, loss_fn: Callable,
+                    eval_fn: Callable, num_labels: int,
+                    compute_dtype: torch.dtype = torch.bfloat16) -> Callable:
+    """`build_dp_eval_step` on this process alone."""
+    return build_dp_eval_step(model, loss_fn, eval_fn, num_labels, Mesh(),
+                              compute_dtype)

@@ -14,13 +14,21 @@ are the same.
         --data d.h5 --labels l.h5 --data_dir DIR
 
 It trains on the GPU; `main(argv, device="cpu")` runs the plain PyTorch
-path on the CPU.
+path on the CPU. On a host with k > 1 visible GPUs it trains data parallel
+over all of them, as the JAX CLI trains over every device: it spawns one
+rank a GPU (NCCL) and waits for them. A process that is already one rank
+of a group, or joins one under `VOLSEG_TPU_DISTRIBUTED=1` (torchrun's or
+the JAX runtime's variables; `parallel/mesh.py`), trains as that rank.
+Rank 0 alone writes the checkpoint, the CSV and the figures.
 """
 
 import logging
 import sys
 from datetime import date
 from pathlib import Path
+
+import torch
+import torch.distributed as dist
 
 import volume_segmantics_tpu_torch.utils.base_data_utils as utils
 import volume_segmantics_tpu_torch.utils.config as cfg
@@ -30,7 +38,12 @@ from volume_segmantics_tpu_torch.model import VolSeg2dTrainer
 from volume_segmantics_tpu_torch.models.pretrained import (
     pretrained_weights_available,
 )
+from volume_segmantics_tpu_torch.parallel.mesh import (
+    maybe_initialize_distributed,
+    spawn_ranks,
+)
 from volume_segmantics_tpu_torch.utils import get_2d_training_parser
+from volume_segmantics_tpu_torch.utils.device import resolve_device
 
 
 def _parse_cli(argv=None):
@@ -126,12 +139,44 @@ def _run_training_phases(trainer, model_out: Path, settings) -> None:
                             create=frozen_epochs == 0, frozen=False)
 
 
-def main(argv=None, device=None) -> None:
-    """Run `model-train-2d` with `argv` (default: the command line) on
-    `device` (default: the GPU)."""
+def _spawn_count(device) -> int:
+    """GPUs to spawn one rank each on: all visible ones, when `device` is
+    the GPU without an index and the process is no rank of a group; else
+    0 (train in this process)."""
+    dev = resolve_device(device)
+    if dev.type != "cuda" or dev.index is not None:
+        return 0
+    if maybe_initialize_distributed(dev) or dist.is_initialized():
+        return 0
+    count = torch.cuda.device_count()
+    return count if count > 1 else 0
+
+
+def _rank_main(rank, argv) -> None:
     logging.basicConfig(
         level=logging.INFO, format=cfg.LOGGING_FMT, datefmt=cfg.LOGGING_DATE_FMT
     )
+    _train(argv, "cuda")
+
+
+def main(argv=None, device=None) -> None:
+    """Run `model-train-2d` with `argv` (default: the command line) on
+    `device` (default: the GPU; every visible GPU, a rank each)."""
+    logging.basicConfig(
+        level=logging.INFO, format=cfg.LOGGING_FMT, datefmt=cfg.LOGGING_DATE_FMT
+    )
+    _parse_cli(argv)  # argument errors end the run before any rank starts
+    ranks = _spawn_count(device)
+    if ranks:
+        logging.info(f"Training data parallel over {ranks} GPUs.")
+        spawn_ranks(_rank_main, ranks,
+                    args=(sys.argv[1:] if argv is None else list(argv),),
+                    backend="nccl")
+        return
+    _train(argv, device)
+
+
+def _train(argv, device) -> None:
     data_vols, label_vols, root = _parse_cli(argv)
     settings = get_settings_data(
         root / cfg.SETTINGS_DIR / cfg.TRAIN_SETTINGS_FN, kind="training"
@@ -149,8 +194,9 @@ def main(argv=None, device=None) -> None:
     trainer = VolSeg2dTrainer(data, labels, codes, settings, device=device)
     model_out = _model_output_path(settings, root)
     _run_training_phases(trainer, model_out, settings)
-    trainer.output_loss_fig(model_out)
-    trainer.output_prediction_figure(model_out)
+    if trainer.mesh.rank == 0:  # one rank writes the run's files
+        trainer.output_loss_fig(model_out)
+        trainer.output_prediction_figure(model_out)
     last_slicer.clean_up_slices()
 
 

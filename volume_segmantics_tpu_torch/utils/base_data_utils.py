@@ -106,10 +106,13 @@ def _free_device_memory_gb(device) -> float:
 
 
 def get_batch_size(settings: SimpleNamespace, device="cuda",
-                   prediction: bool = False) -> int:
+                   prediction: bool = False, n_devices: int = 1) -> int:
     """Batch size from the `batch_size` (training) or
     `prediction_batch_size` setting, else from the device's free memory and,
-    for training, `performance_profile` (reference base_data_utils.py:104-122)."""
+    for training, `performance_profile` (reference base_data_utils.py:104-122);
+    either way rounded up to a multiple of `n_devices` (the ranks of a
+    data mesh, or a predictor's devices), as the JAX package rounds it to
+    its device count, so that every device takes whole rows."""
     profile = getattr(settings, "performance_profile", None) or "parity"
     if profile not in cfg.PERFORMANCE_PROFILES:
         raise ValueError(
@@ -120,21 +123,31 @@ def get_batch_size(settings: SimpleNamespace, device="cuda",
     override = getattr(settings, override_key, None)
     if override:
         logging.info(f"Using batch size {override} from settings.")
-        return int(override)
-    free_mem = _free_device_memory_gb(device)
-    if free_mem < cfg.BIG_HBM_THRESHOLD:
-        batch_size = cfg.SMALL_BATCH
-    elif prediction:
-        batch_size = cfg.BIG_PRED_BATCH
-    elif profile == "throughput":
-        batch_size = cfg.THROUGHPUT_TRAIN_BATCH
+        batch_size = int(override)
     else:
-        batch_size = cfg.BIG_TRAIN_BATCH
-    logging.info(
-        f"Free device memory is {free_mem:0.2f} GB. Batch size will be "
-        f"{batch_size}."
-    )
-    return batch_size
+        free_mem = _free_device_memory_gb(device)
+        if free_mem < cfg.BIG_HBM_THRESHOLD:
+            batch_size = cfg.SMALL_BATCH
+        elif prediction:
+            batch_size = cfg.BIG_PRED_BATCH
+        elif profile == "throughput":
+            batch_size = cfg.THROUGHPUT_TRAIN_BATCH
+        else:
+            batch_size = cfg.BIG_TRAIN_BATCH
+        logging.info(
+            f"Free device memory is {free_mem:0.2f} GB. Batch size will be "
+            f"{batch_size}."
+        )
+    return round_up_to_devices(batch_size, n_devices)
+
+
+def round_up_to_devices(batch_size: int, n_devices: int) -> int:
+    """`batch_size` rounded up to a multiple of `n_devices`."""
+    rounded = -(-int(batch_size) // n_devices) * n_devices
+    if rounded != batch_size:
+        logging.info(f"Rounded batch size up to {rounded} for {n_devices} "
+                     "devices.")
+    return rounded
 
 
 def rotate_array_to_axis(array: np.ndarray, axis: Axis = Axis.Z) -> np.ndarray:

@@ -13,7 +13,11 @@ class EarlyStopping:
     flags ``early_stop`` after ``patience`` epochs without improvement."""
 
     def __init__(self, patience=7, verbose=False, delta=0,
-                 path="checkpoint.pytorch", model_dict=None, best_score=None):
+                 path="checkpoint.pytorch", model_dict=None, best_score=None,
+                 write: bool = True):
+        # `write` False: decide alike but write nothing (the ranks of a
+        # data-parallel run other than rank 0).
+        self.write = write
         self.patience = patience
         self.verbose = verbose
         self.delta = delta
@@ -46,6 +50,7 @@ class EarlyStopping:
                 f"Validation loss decreased ({self.val_loss_min:.6f} --> "
                 f"{val_loss:.6f}).  Saving model ..."
             )
-        save_checkpoint(self.path, model, self.model_struc_dict, optimizer,
-                        loss_val=val_loss, label_codes=label_codes)
+        if self.write:
+            save_checkpoint(self.path, model, self.model_struc_dict, optimizer,
+                            loss_val=val_loss, label_codes=label_codes)
         self.val_loss_min = val_loss

@@ -62,14 +62,19 @@ NotImplementedError naming it: the szip filter, reduced-precision types
 selections, unlimited and printf-style (%b) mappings of virtual datasets,
 shared object header messages, other datatypes, offsets that are not 8
 bytes, steps and fancy indexing, and more. A path that is not in the file
-raises KeyError, as h5py does.
+raises KeyError, as h5py does. `ds.attrs` gives a dataset's attributes
+kept in its object header (attribute messages of versions 1 to 3) whose
+types the reader knows, numpy scalars for scalar ones as h5py gives them;
+dense attribute storage and shared messages raise NotImplementedError.
 
 The writer makes what ``h5py.File(p, "w").create_dataset(path, data=...,
-chunks=..., compression="gzip")`` makes: superblock version 0, one chunked,
-deflate-compressed dataset at the internal path (its groups as symbol-table
-groups), chunks equal to the given chunking or to h5py's `guess_chunk`.
-Chunks are compressed in a thread pool (zlib releases the GIL) and written
-in order, so the file does not depend on the pool.
+chunks=..., compression="gzip")`` makes: superblock version 0, chunked,
+deflate-compressed datasets at their internal paths (their groups as
+symbol-table groups of up to 8 entries), chunks equal to the given
+chunking or to h5py's `guess_chunk`, with attributes (`dset.attrs[name] =
+value` of integers or floats) as version 1 attribute messages. Chunks are
+compressed in a thread pool (zlib releases the GIL) and written in order,
+so the file does not depend on the pool.
 """
 
 import bisect
@@ -96,7 +101,8 @@ MAX_LINK_TRAVERSALS = 16  # soft and external links one lookup may follow
 # Object header message types.
 MSG_NIL, MSG_DATASPACE, MSG_LINK_INFO, MSG_DATATYPE = 0x0, 0x1, 0x2, 0x3
 MSG_FILL_OLD, MSG_FILL, MSG_LINK, MSG_EXTERNAL, MSG_LAYOUT = 0x4, 0x5, 0x6, 0x7, 0x8
-MSG_FILTERS, MSG_CONTINUATION, MSG_SYMBOL_TABLE = 0xB, 0x10, 0x11
+MSG_FILTERS, MSG_ATTRIBUTE, MSG_CONTINUATION, MSG_SYMBOL_TABLE = 0xB, 0xC, 0x10, 0x11
+MSG_ATTRIBUTE_INFO = 0x15
 FILTER_DEFLATE, FILTER_SHUFFLE, FILTER_FLETCHER32, FILTER_SZIP = 1, 2, 3, 4
 FILTER_NBIT, FILTER_SCALEOFFSET, FILTER_LZF = 5, 6, 32000
 FILTER_NAMES = {FILTER_DEFLATE: "deflate", FILTER_SHUFFLE: "shuffle",
@@ -726,6 +732,7 @@ class Dataset:
 
     def __init__(self, file: File, addr: int, name: str):
         self._f = file
+        self._addr = addr
         self.name = name
         msgs = file._messages(addr)
         for mtype in (MSG_DATASPACE, MSG_DATATYPE, MSG_LAYOUT):
@@ -969,6 +976,47 @@ class Dataset:
     @property
     def ndim(self) -> int:
         return len(self.shape)
+
+    @property
+    def attrs(self) -> dict:
+        """{name: value} of the attributes in the dataset's object header."""
+        msgs = self._f._messages(self._addr)
+        for _, d, _ in msgs.get(MSG_ATTRIBUTE_INFO, ()):
+            flags = self._f._buf[d + 1]
+            heap = self._f._u("Q", d + 2 + (2 if flags & 0x1 else 0))[0]
+            if heap != UNDEF:
+                raise unsupported("dense attribute storage")
+        out = {}
+        for flags, d, _ in msgs.get(MSG_ATTRIBUTE, ()):
+            if flags & 0x2:
+                raise unsupported("shared attribute messages")
+            name, value = self._attribute(d)
+            out[name] = value
+        return out
+
+    def _attribute(self, d) -> tuple:
+        """(name, value) of the attribute message at `d`: versions 1 (its
+        fields padded to 8 bytes), 2 and 3 (a name encoding byte)."""
+        buf, u = self._f._buf, self._f._u
+        version, flags = buf[d], buf[d + 1]
+        name_size, dt_size, ds_size = u("HHH", d + 2)
+        if version == 1:
+            p, pad = d + 8, lambda n: -(-n // 8) * 8
+        elif version in (2, 3):
+            if flags & 0x3:
+                raise unsupported("attributes of shared datatypes or dataspaces")
+            p, pad = d + 8 + (version == 3), lambda n: n
+        else:
+            raise unsupported(f"attribute message version {version}")
+        name = bytes(buf[p:p + name_size - 1]).decode()
+        p += pad(name_size)
+        dtype = self._datatype(p)
+        p += pad(dt_size)
+        shape, _ = self._dataspace(p)
+        p += pad(ds_size)
+        value = np.frombuffer(buf, dtype, math.prod(shape), offset=p)
+        value = value.astype(dtype.newbyteorder("=")).reshape(shape)
+        return name, value[()] if shape == () else value
 
     def _selection(self, key):
         """h5py's basic selection: ([(start, stop)] a dimension, the
@@ -1697,31 +1745,51 @@ class _Writer:
                 return parents[0][1]
             entries, level = parents, level + 1
 
-    def group(self, name: str, child: int) -> int:
-        """A symbol-table group holding one entry, `name` -> `child`;
-        returns its object header's, B-tree's and local heap's addresses."""
-        heap_data = b"\0" * 8 + name.encode() + b"\0"
-        heap_data += b"\0" * (-len(heap_data) % 8)
+    def group(self, entries) -> tuple:
+        """A symbol-table group of `entries` [(name, child address)], at
+        most SNOD_ENTRIES; returns its object header's, B-tree's and local
+        heap's addresses."""
+        if len(entries) > SNOD_ENTRIES:
+            raise ValueError(f"a group of {len(entries)} entries (the writer "
+                             f"makes groups of up to {SNOD_ENTRIES})")
+        entries = sorted(entries, key=lambda e: e[0].encode())
+        heap_data, offsets = b"\0" * 8, []
+        for name, _ in entries:
+            offsets.append(len(heap_data))
+            heap_data += name.encode() + b"\0"
+            heap_data += b"\0" * (-len(heap_data) % 8)
         heap_addr = self.f.tell()
         # Free list head 1 is libhdf5's "no free block" (H5HL_FREE_NULL).
         self.put(struct.pack("<4sB3xQQQ", b"HEAP", 0, len(heap_data), 1,
                              heap_addr + 32) + heap_data)
-        snod = struct.pack("<4sBxH", b"SNOD", 1, 1)
-        snod += struct.pack("<QQI4x16x", 8, child, 0)
+        snod = struct.pack("<4sBxH", b"SNOD", 1, len(entries))
+        for offset, (_, child) in zip(offsets, entries):
+            snod += struct.pack("<QQI4x16x", offset, child, 0)
         snod += b"\0" * (8 + SNOD_ENTRIES * SYMBOL_ENTRY_SIZE - len(snod))
         snod_addr = self.put(snod)
         btree = self.btree(0, [(struct.pack("<Q", 0), snod_addr)],
-                           struct.pack("<Q", 8), GROUP_NODE_ENTRIES, 8)
+                           struct.pack("<Q", offsets[-1]), GROUP_NODE_ENTRIES, 8)
         header = _object_header([_message(
             MSG_SYMBOL_TABLE, struct.pack("<QQ", btree, heap_addr))])
         return self.put(header), btree, heap_addr
 
 
-def write(path, data, internal_path: str = "/data", chunks=True) -> None:
-    """Write `data` as one chunked, deflate-compressed dataset at
-    `internal_path` of a new file. `chunks` is a tuple, or True or None for
-    h5py's guess. Blocks are read from `data` a chunk at a time, so a
-    memmapped source is never copied whole."""
+def _attribute_message(name: str, value) -> bytes:
+    """A version 1 attribute message of a number or an array of them."""
+    value = np.asarray(value)
+    dtype = value.dtype.newbyteorder("<")
+    dt = _datatype_message(dtype)
+    ds = struct.pack(f"<BBB5x{value.ndim}Q", 1, value.ndim, 0, *value.shape)
+    nm = name.encode() + b"\0"
+    pad = lambda b: b + b"\0" * (-len(b) % 8)
+    return _message(MSG_ATTRIBUTE, struct.pack("<BxHHH", 1, len(nm), len(dt),
+                                               len(ds))
+                    + pad(nm) + pad(dt) + pad(ds) + value.astype(dtype).tobytes())
+
+
+def _write_dataset(w: _Writer, data, chunks, attrs) -> int:
+    """Write `data` chunked and deflated, with `attrs`; returns its object
+    header's address."""
     shape = tuple(int(s) for s in data.shape)
     if not shape or 0 in shape:
         raise ValueError(f"cannot write an empty or scalar dataset {shape}")
@@ -1736,9 +1804,6 @@ def write(path, data, internal_path: str = "/data", chunks=True) -> None:
         raise ValueError(
             "Chunk shape must not be greater than data shape in any "
             f"dimension. {chunks} is not compatible with {shape}")
-    parts = [p for p in str(internal_path).split("/") if p]
-    if not parts:
-        raise ValueError("the internal path must name a dataset")
     rank = len(shape)
     offsets = list(itertools.product(
         *(range(0, s, c) for s, c in zip(shape, chunks))))
@@ -1753,33 +1818,69 @@ def write(path, data, internal_path: str = "/data", chunks=True) -> None:
         return zlib.compress(np.ascontiguousarray(block).tobytes(),
                              HDF5_GZIP_LEVEL)
 
+    entries = []
+    with ThreadPoolExecutor() as pool:
+        for offset, blob in zip(offsets, pool.map(compress, offsets)):
+            key = struct.pack(f"<II{rank + 1}Q", len(blob), 0, *offset, 0)
+            entries.append((key, w.put(blob)))
+    last = [o + c for o, c in zip(offsets[-1], chunks)]
+    right_key = struct.pack(f"<II{rank + 1}Q", 0, 0, *last, 0)
+    btree = w.btree(1, entries, right_key, CHUNK_NODE_ENTRIES, 8 + 8 * (rank + 1))
+    return w.put(_object_header([
+        _message(MSG_DATASPACE, struct.pack(f"<BBB5x{rank}Q", 1, rank, 0,
+                                            *shape)),
+        _message(MSG_DATATYPE, dtype_msg, flags=1),
+        # Version 2, incremental allocation, fill if set, the default
+        # fill value (zeros), as h5py writes it.
+        _message(MSG_FILL, struct.pack("<BBBBI", 2, 3, 2, 1, 0), flags=1),
+        _message(MSG_LAYOUT, struct.pack(f"<BBBQ{rank + 1}I", 3, 2, rank + 1,
+                                         btree, *chunks, dtype.itemsize)),
+        _message(MSG_FILTERS, struct.pack("<BB6xHHHH8sI4x", 1, 1,
+                                          FILTER_DEFLATE, 8, 1, 1,
+                                          b"deflate", HDF5_GZIP_LEVEL),
+                 flags=1),
+        *(_attribute_message(k, v) for k, v in (attrs or {}).items()),
+    ]))
+
+
+def write(path, data, internal_path: str = "/data", chunks=True,
+          attrs: dict = None) -> None:
+    """Write `data` as one chunked, deflate-compressed dataset at
+    `internal_path` of a new file, with `attrs` ({name: number}). `chunks`
+    is a tuple, or True or None for h5py's guess. Blocks are read from
+    `data` a chunk at a time, so a memmapped source is never copied
+    whole."""
+    write_datasets(path, {internal_path: (data, attrs)}, chunks)
+
+
+def write_datasets(path, datasets: dict, chunks=True) -> None:
+    """`write` of several datasets into one new file: `datasets` maps each
+    internal path to (data, attrs or None); `chunks` applies to each."""
+    tree = {}
+    for internal_path, (data, attrs) in datasets.items():
+        parts = [p for p in str(internal_path).split("/") if p]
+        if not parts:
+            raise ValueError("the internal path must name a dataset")
+        node = tree
+        for name in parts[:-1]:
+            node = node.setdefault(name, {})
+            if not isinstance(node, dict):
+                raise ValueError(f"{internal_path}: {name} is a dataset")
+        if parts[-1] in node:
+            raise ValueError(f"{internal_path} is given twice")
+        node[parts[-1]] = (data, attrs)
+
     with open(path, "wb") as f:
         w = _Writer(f)
         w.put(b"\0" * 96)  # the superblock, written last
-        entries = []
-        with ThreadPoolExecutor() as pool:
-            for offset, blob in zip(offsets, pool.map(compress, offsets)):
-                key = struct.pack(f"<II{rank + 1}Q", len(blob), 0, *offset, 0)
-                entries.append((key, w.put(blob)))
-        last = [o + c for o, c in zip(offsets[-1], chunks)]
-        right_key = struct.pack(f"<II{rank + 1}Q", 0, 0, *last, 0)
-        btree = w.btree(1, entries, right_key, CHUNK_NODE_ENTRIES, 8 + 8 * (rank + 1))
-        addr = w.put(_object_header([
-            _message(MSG_DATASPACE, struct.pack(f"<BBB5x{rank}Q", 1, rank, 0,
-                                                *shape)),
-            _message(MSG_DATATYPE, dtype_msg, flags=1),
-            # Version 2, incremental allocation, fill if set, the default
-            # fill value (zeros), as h5py writes it.
-            _message(MSG_FILL, struct.pack("<BBBBI", 2, 3, 2, 1, 0), flags=1),
-            _message(MSG_LAYOUT, struct.pack(f"<BBBQ{rank + 1}I", 3, 2, rank + 1,
-                                             btree, *chunks, dtype.itemsize)),
-            _message(MSG_FILTERS, struct.pack("<BB6xHHHH8sI4x", 1, 1,
-                                              FILTER_DEFLATE, 8, 1, 1,
-                                              b"deflate", HDF5_GZIP_LEVEL),
-                     flags=1),
-        ]))
-        for name in reversed(parts):
-            addr, btree, heap = w.group(name, addr)
+
+        def emit(node) -> tuple:
+            entries = [(name, emit(child)[0] if isinstance(child, dict)
+                        else _write_dataset(w, child[0], chunks, child[1]))
+                       for name, child in node.items()]
+            return w.group(entries)
+
+        addr, btree, heap = emit(tree)
         eof = f.tell()
         f.seek(0)
         f.write(SIGNATURE + struct.pack("<8BHHI", 0, 0, 0, 0, 0, 8, 8, 0, 4, 16, 0)
