@@ -200,7 +200,7 @@
    over the tile in memory, slab-streamed from a lazy source (both
    thresholds below it) and from a gzip copy of the materialised volume
    written by `utils/hdf5.write`: labels equal at every voxel.
-16. Train-batch sweep (`THROUGHPUT_TRAIN_BATCH`): 15 timed
+16. Train-batch sweep (`THROUGHPUT_TRAIN_BATCH`): `SWEEP_STEPS` timed
    `build_train_step` steps on one seeded batch at batches 12, 32, 64, 128
    and 256 (bf16, unfrozen), samples/s and peak memory; the smallest batch
    within 5% of the best samples/s is printed beside the configured one.
@@ -234,9 +234,32 @@
    did not run them. (6) The predictor with `devices=["cuda:0", "cuda:0"]`
    at MEDIUM, float32, on the 256^3 volume against one device under the
    near-tie rule.
-18. Prints a `{"kernels": [...]}` line (launches of the slice, CLI, losses,
-   pretrained, architectures, encoders, formats, interchange, virtual and
-   parallel phases, the last on every rank) and, last, the device line.
+18. Spatial phase (run after the parallel phase), two gloo ranks sharing
+   cuda:0 in child processes on a 1 data x 2 space mesh (image height
+   split over the ranks, `parallel/spatial.py`), inputs in
+   `<out-dir>/spatial`: (a) U-Net/ResNet-34 at 256x256, a global batch of
+   12 Z slices of a vessels volume, augmentation on, float32, TF32 off,
+   `SPATIAL_STEPS` steps at `SPATIAL_LR` against one process's plain step
+   from the same state: as the parallel phase's (2) (losses within 1e-5
+   relative, first-step gradients within 30x the one-process float32 noise
+   against a float64 step, running statistics, moved parameters within
+   1e-6, here on more than 10% of the elements), both ranks' states equal
+   after every step, each kernel launched once a step on each rank; median
+   step ms of both. (b) `SPATIAL_MEMORY`: at
+   1024x1024, global batch 4, bf16, two steps on the two ranks and then in
+   one process (plain step): each rank's `max_memory_allocated`, and the
+   larger at most `SPATIAL_MEMORY_RATIO` of the one process's; each kernel
+   launched once a step on each rank. (c) `model-train-2d` in the group
+   with the shipped settings, `spatial_partitions: 2`, 0+1 epochs, on a
+   `SPATIAL_TRAIN_SHAPE` gzip HDF5 pair (49 steps a rank): the ranks'
+   weights equal before the load, one dated checkpoint and one CSV, finite
+   eval scores, each kernel launched once a step on each rank; then the
+   checkpoint through the one-process `model-predict-2d` on the training
+   volume: labels of its shape (MeanIoU recorded).
+19. Prints a `{"kernels": [...]}` line (launches of the slice, CLI, losses,
+   pretrained, architectures, encoders, formats, interchange, virtual,
+   parallel and spatial phases, the last two on every rank) and, last, the
+   device line.
 
 Exits non-zero on any failure, without a GPU, and outside a checkout of the
 repository (the package is imported from beside this file).
@@ -1443,7 +1466,7 @@ LOSS_STEPS = 20
 STRUC = {"type": "U_Net", "encoder_name": "resnet34", "encoder_weights": None,
          "in_channels": 1, "classes": 2}
 SWEEP_BATCHES = (12, 32, 64, 128, 256)
-SWEEP_STEPS = 15  # 30 in the first card run; cut to keep the script short
+SWEEP_STEPS = 10  # 30 in the first card run, then 15; cut to keep the script short
 
 
 def loss_settings(name, **more) -> SimpleNamespace:
@@ -2134,7 +2157,7 @@ ARCH_PARAMS = {
     "DeepLabV3_Plus": 22431442, "MA_Net": 31777506, "Linknet": 21765442,
     "PAN": 21469833,
 }
-ARCH_STEPS = 10  # 20 until the parallel phase came; cut to keep the script short
+ARCH_STEPS = 6  # 20 until the parallel phase came, 10 until the spatial one
 DROPOUT_ARCHS = ("FPN", "DeepLabV3")
 # Card against CPU, float32 eval, TF32 off, over the logits' largest
 # magnitude (at least 1). The CPU tests hold the port to JAX within 3e-5
@@ -2539,7 +2562,7 @@ ENCODER_PARAMS = {
     "timm-resnest101e": (55256514, 132, 40640),
 }
 ENCODER_FROZEN_STEPS = 5
-ENCODER_STEPS = 10  # 20 until the parallel phase came; cut as ARCH_STEPS
+ENCODER_STEPS = 6  # 20 until the parallel phase came, 10 until the spatial one
 # The dilated forms held card against CPU beside U-Net (output stride 16
 # and 8).
 ENCODER_DILATED = ("DeepLabV3_Plus", "DeepLabV3")
@@ -3281,7 +3304,8 @@ def virtual_phase(dev, out_dir: Path):
     return res
 
 
-PARALLEL_STEPS_ONE = 20  # NCCL world 1: DP steps, then as many plain ones
+PARALLEL_STEPS_ONE = 10  # NCCL world 1: DP steps, then as many plain ones (20
+# until the spatial phase came)
 PARALLEL_STEPS_TWO = 10  # two gloo ranks on one card, float32
 PARALLEL_LR = 1e-4  # world 1: bit for bit at any rate
 # Two ranks against one process: Adam moves an element whose gradient is
@@ -3305,13 +3329,14 @@ def digest(state: dict) -> str:
 
 
 def dp_run(state, images, masks, mesh, steps, compute_dtype, dev, lr, dp=True,
-           seed=3):
+           seed=3, side=S, digests=False):
     """`steps` seeded DiceLoss train steps of U-Net/ResNet-34 from `state`
-    on this rank's rows of the global batch (augmentation on): the
-    data-parallel step over `mesh`, or with `dp` False the plain one. Returns
-    the losses, each step's synchronised ms, the kernel launches, the first
-    step's gradients, parameters and running statistics, and the final
-    state."""
+    on this rank's rows of the global batch (augmentation on, to `side`):
+    the data-parallel step over `mesh` (its space partitions too), or with
+    `dp` False the plain one. Returns the losses, each step's synchronised
+    ms, the kernel launches, the first step's gradients, parameters and
+    running statistics, the final state and, with `digests`, the state's
+    digest after each step."""
     from volume_segmantics_tpu_torch.data.losses import get_loss_fn
     from volume_segmantics_tpu_torch.models.registry import create_model
     from volume_segmantics_tpu_torch.ops import kernels
@@ -3326,7 +3351,7 @@ def dp_run(state, images, masks, mesh, steps, compute_dtype, dev, lr, dp=True,
     optimizer = make_base_optimizer(model.parameters())
     gens = (torch.Generator(dev).manual_seed(seed),
             torch.Generator(dev).manual_seed(seed + 1))
-    common = dict(num_labels=2, image_size=S, compute_dtype=compute_dtype,
+    common = dict(num_labels=2, image_size=side, compute_dtype=compute_dtype,
                   augment=True, generator=gens[0], dropout_generator=gens[1])
     loss_fn = get_loss_fn(loss_settings("DiceLoss"))
     step = (build_dp_train_step(model, loss_fn, optimizer, mesh=mesh, **common)
@@ -3334,13 +3359,15 @@ def dp_run(state, images, masks, mesh, steps, compute_dtype, dev, lr, dp=True,
     rows = mesh.rows(images.shape[0]) if dp else slice(None)
     x = torch.from_numpy(images[rows]).to(dev)
     y = torch.from_numpy(masks[rows]).to(dev)
-    out = {"losses": [], "ms": []}
+    out = {"losses": [], "ms": [], "digests": []}
     kernels.reset_launch_counts()
     for k in range(steps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out["losses"].append(step(x, y, lr).item())
         out["ms"].append(1e3 * (time.perf_counter() - t0))
+        if digests:
+            out["digests"].append(digest(model.state_dict()))
         if k == 0:
             sd = model.state_dict()
             out["grads1"] = {n: p.grad.clone() for n, p in model.named_parameters()}
@@ -3392,7 +3419,7 @@ def float64_first_step(state, images, masks, dev, seed=3):
     return {n: p.grad for n, p in model.named_parameters()}, stats
 
 
-def against_one_process(got, ref, grads64, stats64) -> dict:
+def against_one_process(got, ref, grads64, stats64, covered=0.25) -> dict:
     """`tests/torch_parallel_cases.py:against_one_process` on the card: the
     2-rank run against the one-process run on the global batch, each
     figure a ratio to its allowance: the losses (1e-5 relative; <= 1
@@ -3401,7 +3428,7 @@ def against_one_process(got, ref, grads64, stats64) -> dict:
     largest gradient; <= 3 passes, and a factor 2 gives > 10), running
     statistics (the larger of 1e-4 and 10x that noise; <= 1) and the
     parameters where the first gradient stands 10x clear of the two runs'
-    difference (1e-6)."""
+    difference (1e-6), more than `covered` of the trainable elements."""
     res = {"loss_ratio": max(abs(a - b) / (1e-5 * abs(b))
                              for a, b in zip(got["losses"], ref["losses"])),
            "grad_ratio": 0.0, "stats_ratio": 0.0, "param_err": 0.0,
@@ -3423,7 +3450,7 @@ def against_one_process(got, ref, grads64, stats64) -> dict:
                                  .abs().max().item() / floor)
     res["ok"] = bool(res["loss_ratio"] <= 1 and res["grad_ratio"] <= 3
                      and res["stats_ratio"] <= 1 and res["param_err"] <= 1e-6
-                     and res["n_clear"] > 0.25 * res["n_trainable"])
+                     and res["n_clear"] > covered * res["n_trainable"])
     return res
 
 
@@ -3685,6 +3712,227 @@ def parallel_phase(model_file: Path, out_dir: Path):
     return res
 
 
+SPATIAL_STEPS = 5  # (a): 1 data x 2 space gloo ranks on one card, float32
+SPATIAL_LR = 1e-6  # as PARALLEL_LR_TWO: Adam's steps stay linear
+SPATIAL_MEMORY = (1024, 4, 2)  # (b): image side, global batch, bf16 steps
+SPATIAL_MEMORY_RATIO = 0.7  # a space rank's peak against one process's
+# (c): model-train-2d, 0 + 1 epochs: 108 slices, 7 steps an epoch, 42
+# LR-finder steps, so 49 steps a rank.
+SPATIAL_TRAIN_SHAPE = (12, 48, 48)
+
+
+def spatial_rank(rank, work, device):
+    """Spatial phase (a)-(c) as one of two gloo ranks sharing `device`
+    (cuda:0 on the card) on a 1 data x 2 space mesh (see the module
+    doc)."""
+    import torch.distributed as dist
+
+    from volume_segmantics_tpu_torch.ops import kernels
+    from volume_segmantics_tpu_torch.parallel.mesh import Mesh, get_mesh
+    from volume_segmantics_tpu_torch.scripts import train_2d_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    work = Path(work)
+    blob = torch.load(work / "in.pt", weights_only=False)
+    mesh = get_mesh(device=dev, space=2)
+    res = {"rank": rank, "mesh": [mesh.data_size, mesh.space_size,
+                                  mesh.space_index]}
+
+    # (a): float32 spatial steps against one process from the same state.
+    run = dp_run(blob["state"], blob["images"], blob["masks"], mesh,
+                 SPATIAL_STEPS, torch.float32, dev, SPATIAL_LR, digests=True)
+    res.update(losses=run["losses"], step_ms=statistics.median(run["ms"][1:]),
+               launches=run["launches"], digests=run["digests"])
+    if rank == 0:
+        ref = dp_run(blob["state"], blob["images"], blob["masks"], Mesh(),
+                     SPATIAL_STEPS, torch.float32, dev, SPATIAL_LR, dp=False)
+        # The band split moves float32 sums more than the batch split:
+        # its first card run compared 18% of the elements (two DP ranks:
+        # more than 25%), every ratio far inside its allowance.
+        res["against_one_process"] = against_one_process(
+            run, ref, *float64_first_step(blob["state"], blob["images"],
+                                          blob["masks"], dev), covered=0.1)
+        res.update(one_process_losses=ref["losses"],
+                   one_process_step_ms=statistics.median(ref["ms"][1:]))
+        del ref
+    del run
+    torch.cuda.empty_cache()
+
+    # (b): peak memory of a space rank against one process, bf16.
+    side, n, steps = SPATIAL_MEMORY
+    reps = (1, side // S, side // S)
+    big = [np.tile(blob[k][:n], reps) for k in ("images", "masks")]
+
+    def peak_run(on, dp):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        got = dp_run(blob["state"], *big, on, steps, torch.bfloat16, dev,
+                     SPATIAL_LR, dp=dp, side=side)
+        torch.cuda.synchronize()
+        out = {"peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+               "step_ms": got["ms"], "losses": got["losses"],
+               "launches": got["launches"]}
+        del got
+        torch.cuda.empty_cache()
+        return out
+
+    res["memory"] = peak_run(mesh, True)
+    dist.barrier()
+    if rank == 0:
+        res["memory_one_process"] = peak_run(Mesh(), False)
+    dist.barrier()
+
+    # (c): model-train-2d with spatial_partitions: 2 in the group.
+    trainers, digests = [], []
+
+    class Recorded(train_2d_model.VolSeg2dTrainer):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            trainers.append(self)
+
+        def _load_in_weights(self, output_path):
+            digests.append(digest(self.model.state_dict()))
+            return super()._load_in_weights(output_path)
+
+    train_2d_model.VolSeg2dTrainer = Recorded
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    train_2d_model.main(["--data", str(work / "cli" / "train_data.h5"),
+                         "--labels", str(work / "cli" / "train_labels.h5"),
+                         "--data_dir", str(work / "cli")], device=dev)
+    torch.cuda.synchronize()
+    (trainer,) = trainers
+    res["cli"] = {"main_s": time.perf_counter() - t0,
+                  "mesh": [trainer.mesh.data_size, trainer.mesh.space_size,
+                           trainer.mesh.rank],
+                  "train_steps": trainer.train_steps,
+                  "launches": dict(kernels.LAUNCHES),
+                  "digests_before_load": digests,
+                  "eval_scores": trainer.avg_eval_scores,
+                  "median_lr_find_step_ms": 1e3 * statistics.median(
+                      trainer.lr_find_step_seconds)}
+    (work / f"rank{rank}.json").write_text(json.dumps(res))
+
+
+def spatial_phase(dev, out_dir: Path):
+    """Spatial partitioning over two gloo ranks in child processes on `dev`
+    (cuda:0 on the card; see the module doc)."""
+    import volume_segmantics_tpu_torch.utils.config as cfg
+    from volume_segmantics_tpu_torch.models.registry import create_model
+    from volume_segmantics_tpu_torch.parallel.mesh import spawn_ranks
+    from volume_segmantics_tpu_torch.scripts import predict_2d_model
+    from volume_segmantics_tpu_torch.utils import hdf5
+
+    t_phase = time.perf_counter()
+    failures, res = [], {"phase": "spatial", "card": nvidia_smi_line()}
+    work = out_dir / "spatial"
+    shutil.rmtree(work, ignore_errors=True)
+    (work / "cli" / cfg.SETTINGS_DIR).mkdir(parents=True)
+    vol, truth = make_vessel_volume((N, S, S), seed=7)
+    torch.manual_seed(11)
+    torch.save({"state": create_model(STRUC).state_dict(), "images": vol,
+                "masks": truth}, work / "in.pt")
+    data, labels = make_vessel_volume(SPATIAL_TRAIN_SHAPE, seed=3)
+    hdf5.write(work / "cli" / "train_data.h5", data, chunks=True)
+    hdf5.write(work / "cli" / "train_labels.h5", labels, chunks=True)
+    settings = work / "cli" / cfg.SETTINGS_DIR
+    (settings / cfg.TRAIN_SETTINGS_FN).write_text(settings_text(
+        cfg.TRAIN_SETTINGS_FN, num_cyc_frozen=0, num_cyc_unfrozen=1, seed=0,
+        spatial_partitions=2))
+    (settings / cfg.PREDICTION_SETTINGS_FN).write_text(
+        settings_text(cfg.PREDICTION_SETTINGS_FN))
+    res["inputs_s"] = time.perf_counter() - t_phase
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", 0) if dev.type == "cuda" else dev
+    spawn_ranks(spatial_rank, 2, args=(str(work), str(dev)),
+                backend="gloo", timeout=PARALLEL_TIMEOUT_S)
+    res["spawn_s"] = time.perf_counter() - t0
+    ranks = [json.loads((work / f"rank{r}.json").read_text()) for r in range(2)]
+    one, mem_one = ranks[0]["against_one_process"], ranks[0]["memory_one_process"]
+    res.update(
+        meshes=[r["mesh"] for r in ranks], step_ms=[r["step_ms"] for r in ranks],
+        one_process_step_ms=ranks[0]["one_process_step_ms"],
+        losses=ranks[0]["losses"],
+        one_process_losses=ranks[0]["one_process_losses"],
+        against_one_process=one,
+        memory={"side": SPATIAL_MEMORY[0], "batch": SPATIAL_MEMORY[1],
+                "rank_peak_gib": [r["memory"]["peak_gib"] for r in ranks],
+                "one_process_peak_gib": mem_one["peak_gib"],
+                "rank_step_ms": [r["memory"]["step_ms"] for r in ranks],
+                "one_process_step_ms": mem_one["step_ms"],
+                "losses": ranks[0]["memory"]["losses"],
+                "one_process_losses": mem_one["losses"]},
+        cli=[r["cli"] for r in ranks])
+    mem = res["memory"]
+    mem["ratio"] = max(mem["rank_peak_gib"]) / mem["one_process_peak_gib"]
+
+    # (a)
+    if res["meshes"] != [[1, 2, 0], [1, 2, 1]]:
+        failures.append(f"meshes {res['meshes']}")
+    if not one["ok"]:
+        failures.append(f"spatial steps against one process {one}")
+    if ranks[0]["digests"] != ranks[1]["digests"] or \
+            ranks[0]["losses"] != ranks[1]["losses"]:
+        failures.append("the ranks' states differ after a spatial step")
+    # (b)
+    if not mem["ratio"] <= SPATIAL_MEMORY_RATIO:
+        failures.append(f"a space rank's peak is {mem['ratio']:.3f} of one "
+                        f"process's (limit {SPATIAL_MEMORY_RATIO})")
+    if not all(np.isfinite(mem["losses"] + mem["one_process_losses"])):
+        failures.append(f"1024 losses {mem['losses']} "
+                        f"{mem['one_process_losses']}")
+    # (c)
+    cli = res["cli"]
+    if [c["mesh"] for c in cli] != [[1, 2, 0], [1, 2, 1]]:
+        failures.append(f"model-train-2d meshes {[c['mesh'] for c in cli]}")
+    if cli[0]["digests_before_load"] != cli[1]["digests_before_load"] or \
+            not cli[0]["digests_before_load"]:
+        failures.append("the ranks' weights differ before a load")
+    if not all(np.isfinite(cli[0]["eval_scores"])):
+        failures.append(f"model-train-2d eval scores {cli[0]['eval_scores']}")
+    ckpts = sorted((work / "cli").glob("*_U_Net_trained_2d_model.pytorch"))
+    csvs = sorted((work / "cli").glob("*_train_stats.csv"))
+    if len(ckpts) != 1 or len(csvs) != 1:
+        failures.append(f"{len(ckpts)} checkpoints, {len(csvs)} CSVs")
+    else:
+        t0 = time.perf_counter()
+        predict_2d_model.main([str(ckpts[0]), str(work / "cli" / "train_data.h5"),
+                               "--data_dir", str(work / "cli")])
+        res["predict_main_s"] = time.perf_counter() - t0
+        out = predict_2d_model.create_output_path(work / "cli",
+                                                  Path("train_data.h5"))
+        predicted, _ = hdf5.read(out)
+        res["predicted_shape"] = list(predicted.shape)
+        res["predicted_mean_iou"] = volume_mean_iou(predicted, labels, dev)
+        if predicted.shape != labels.shape or predicted.max() > 1:
+            failures.append(f"predicted labels {predicted.shape} "
+                            f"max {predicted.max()}")
+
+    launches = {entry: 0 for _, _, entry, _, _ in KERNELS}
+    for r in ranks:
+        runs = (("spatial steps", r["launches"], SPATIAL_STEPS),
+                ("1024 steps", r["memory"]["launches"], SPATIAL_MEMORY[2]),
+                ("model-train-2d steps", r["cli"]["launches"],
+                 r["cli"]["train_steps"]))
+        for what, counted, steps in runs:
+            for entry in launches:
+                if counted[entry] != steps:
+                    failures.append(f"rank {r['rank']}: {entry} launched "
+                                    f"{counted[entry]} times in {steps} {what}")
+                launches[entry] += counted[entry]
+    shutil.rmtree(work, ignore_errors=True)
+    res["launches"] = launches
+    res["phase_s"] = time.perf_counter() - t_phase
+    res["failures"] = failures
+    print(json.dumps(res), flush=True)
+    return res
+
+
 KERNELS = (
     ("K1", "warp_u8", "volseg_warp_u8", "volume_segmantics_tpu_torch/ops/csrc/warp.cu",
      "volume_segmantics_tpu/ops/warp.py:420"),
@@ -3750,9 +3998,10 @@ def main() -> int:
         interchange = interchange_phase(dev, out_dir)
         virtual = virtual_phase(dev, out_dir)
         parallel = parallel_phase(model_out, out_dir)
+    spatial = spatial_phase(dev, out_dir)
     sweep = train_batch_sweep(images, masks, dev)
     counted = (summary, cli, losses, pretrained, archs, encoders, formats,
-               interchange, virtual, parallel)
+               interchange, virtual, parallel, spatial)
     kernels_line = {"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": sum(phase["launches"][entry] for phase in counted),
@@ -3764,7 +4013,7 @@ def main() -> int:
     failed = [k for k in kres if not kres[k]["ok"]] + [
         f for phase in (summary, predicted, cli, losses, ckpt, large, pretrained,
                         archs, encoders, formats, interchange, virtual, parallel,
-                        sweep)
+                        spatial, sweep)
         for f in phase["failures"]]
     if failed:
         print(json.dumps({"failed": failed}), file=sys.stderr)

@@ -53,7 +53,7 @@ def test_every_module_imports_and_no_kernel_is_built():
                    "utils.png", "utils.tiff", "utils.figures", "data.datasets",
                    "models.torch_convert", "scripts.convert_torch_encoder",
                    "parallel.mesh", "parallel.predict",
-                   "parallel.multihost_predict",
+                   "parallel.multihost_predict", "parallel.spatial",
                    *(f"models.decoders.{d}" for d in (
                        "unetpp", "fpn", "deeplab", "manet", "linknet", "pan")),
                    *(f"models.encoders.{e}" for e in (

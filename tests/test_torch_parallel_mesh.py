@@ -87,8 +87,7 @@ def test_a_process_alone_is_a_mesh_of_one():
     assert shard_batch(np.arange(6), Mesh(rank=1, size=2)).tolist() == [3, 4, 5]
     with pytest.raises(ValueError, match="does not split over 4 ranks"):
         Mesh(rank=0, size=4).rows(6)
-    with pytest.raises(NotImplementedError, match="spatial partitioning"):
-        check_space(2, 2)
+    check_space(2, 2)  # a divisor: spatial partitioning over 2 ranks
     with pytest.raises(ValueError, match=r"must divide the device count \(1\)"):
         get_mesh(space=2, device="cpu")
 

@@ -184,14 +184,15 @@ def against_one_process(got: dict, ref: dict, first64) -> dict:
 
 
 def train_cases_rank(rank: int, in_path: str, out_dir: str) -> None:
-    """Each case of `in_path` over the group. Every rank saves its losses
+    """Each case of `in_path` over the group, split into the blob's `space`
+    partitions (default 1). Every rank saves its losses
     and its final state's digest; rank 0 adds, for a case against JAX
     (augmentation off), the losses, running statistics and first-step
     parameters, and for a case against the one-process step (augmentation
     on) the comparison with that run, made here."""
     torch.set_num_threads(THREADS)
     blob = torch.load(in_path, weights_only=False)
-    mesh = get_mesh(device="cpu")
+    mesh = get_mesh(device="cpu", space=blob.get("space", 1))
     results = []
     for case in blob["cases"]:
         run = train_run(case, blob["images"], blob["masks"], mesh)
@@ -211,10 +212,11 @@ def train_cases_rank(rank: int, in_path: str, out_dir: str) -> None:
 
 
 def eval_rank(rank: int, in_path: str, out_dir: str) -> None:
-    """One DP eval step (DiceLoss, MeanIoU) with the padded tail given."""
+    """One DP eval step (DiceLoss, MeanIoU) with the padded tail given,
+    over the blob's `space` partitions (default 1)."""
     torch.set_num_threads(THREADS)
     blob = torch.load(in_path, weights_only=False)
-    mesh = get_mesh(device="cpu")
+    mesh = get_mesh(device="cpu", space=blob.get("space", 1))
     model = create_model(blob["struc"])
     model.load_state_dict(blob["state"])
     step = build_dp_eval_step(model, loss_fn("DiceLoss"), mean_iou,
@@ -296,6 +298,7 @@ def cli_rank(rank: int, argv: list, min_lr_find_steps: int,
     train_2d_model.main(argv, device="cpu")
     (trainer,) = made
     torch.save({"size": trainer.mesh.size, "rank": trainer.mesh.rank,
+                "space": trainer.mesh.space_size,
                 "rows": trainer.training_loader.rows,
                 "steps": trainer.train_steps,
                 "digest": digest(trainer.model.state_dict())},

@@ -27,8 +27,11 @@ GPU machine has no matplotlib), their text in tEXt chunks.
 In a process group (`parallel/mesh.py`: one rank a GPU) it trains data
 parallel over every rank, as the JAX trainer trains over its mesh: each
 rank takes its rows of every global batch and the steps are the
-data-parallel ones (`parallel/train.py`). Rank 0's initial weights are
-broadcast; every checkpoint and autosave is read by rank 0 and its bytes
+data-parallel ones (`parallel/train.py`). With `spatial_partitions: s`
+the mesh is (world / s) data x s space, as the JAX trainer's: the s ranks
+of a data row share its rows and split image height
+(`parallel/spatial.py`). Rank 0's initial weights are broadcast; every
+checkpoint and autosave is read by rank 0 and its bytes
 broadcast, so the ranks need no shared disk; rank 0 alone writes the
 checkpoint, the autosave and the profile, and `model-train-2d` has it
 alone write the CSV and the figures. Every rank takes the same LR-finder
@@ -68,6 +71,7 @@ from volume_segmantics_tpu_torch.parallel.mesh import (
     get_mesh,
     replicate,
 )
+from volume_segmantics_tpu_torch.parallel.spatial import check_spatial_model
 from volume_segmantics_tpu_torch.parallel.train import (
     autocast,
     build_dp_eval_step,
@@ -95,19 +99,25 @@ def frozen_parameter_names(model: torch.nn.Module,
 
 
 def check_spatial_partitions(settings: SimpleNamespace,
-                             device: torch.device) -> None:
+                             device: torch.device) -> int:
     """The JAX trainer's `spatial_partitions` (optional, default 1): the
-    axis of its device mesh that splits image height. A count that does not
-    divide the device count (the ranks of the process group; without one,
-    the GPUs, or 1 on the CPU) raises the JAX package's ValueError (its
-    `parallel/mesh.py:get_mesh`); one that does and is above 1 asks for
-    spatial partitioning, which is not ported (`parallel.mesh.check_space`)."""
+    axis of its device mesh that splits image height; returned. A count
+    that does not divide the device count (the ranks of the process group;
+    without one, the GPUs, or 1 on the CPU) raises the JAX package's
+    ValueError (its `parallel/mesh.py:get_mesh`). Above 1 the model must
+    be one whose every layer splits its rows: a (decoder, encoder) pair
+    outside `parallel.spatial.SPATIAL_DECODERS` x `SPATIAL_ENCODERS` raises
+    NotImplementedError naming it."""
     space = int(getattr(settings, "spatial_partitions", 1) or 1)
     if dist.is_initialized():
         count = dist.get_world_size()
     else:
         count = torch.cuda.device_count() if device.type == "cuda" else 1
     check_space(space, count)
+    if space > 1:
+        check_spatial_model(settings.model["type"],
+                            settings.model.get("encoder_name", "resnet34"))
+    return space
 
 
 class VolSeg2dTrainer:
@@ -136,12 +146,16 @@ class VolSeg2dTrainer:
         # Slice stacks and epoch shuffles churn large host buffers; keep
         # freed pages in-process (utils/host_memory.py).
         tune_malloc_for_large_buffers()
-        self.mesh = get_mesh(device=resolve_device(device))
-        check_spatial_partitions(settings, self.mesh.device)
+        device = resolve_device(device)
+        self.mesh = get_mesh(device=device, space=check_spatial_partitions(
+            settings, device))
         self.device = self.mesh.device
         if self.mesh.size > 1:
-            logging.info(f"Data-parallel training over {self.mesh.size} ranks "
-                         f"(this is rank {self.mesh.rank}).")
+            space = self.mesh.space_size
+            shape = (f"{self.mesh.data_size} data x {space} space" if space > 1
+                     else f"{self.mesh.size} ranks")
+            logging.info(f"Data-parallel training over {shape} (this is rank "
+                         f"{self.mesh.rank}).")
         # One seed, four independent streams: data split and order, model
         # initialisation, on-device augmentation and dropout masks (the
         # first three are spawned as they were before the fourth).

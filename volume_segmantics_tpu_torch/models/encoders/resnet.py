@@ -18,7 +18,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from volume_segmantics_tpu_torch.models.layers import BnAct, max_pool
+from volume_segmantics_tpu_torch.models.layers import BnAct, Conv2d, max_pool
 
 STAGE_PLANES = (64, 128, 256, 512)
 # output stride -> (strides, dilations) of stages 1-4
@@ -30,8 +30,8 @@ DILATION_PLANS = {
 
 
 def _conv(in_ch, out_ch, k, stride=1, dilation=1, groups=1):
-    return nn.Conv2d(in_ch, out_ch, k, stride, (k // 2) * dilation, dilation,
-                     groups, bias=False)
+    return Conv2d(in_ch, out_ch, k, stride, (k // 2) * dilation, dilation,
+                  groups, bias=False)
 
 
 def _downsample(in_ch, out_ch, stride):
@@ -98,7 +98,7 @@ class ResNetEncoder(nn.Module):
             raise ValueError(f"output_stride {output_stride} is not one of "
                              f"{sorted(DILATION_PLANS)}")
         strides, dilations = DILATION_PLANS[output_stride]
-        self.conv1 = nn.Conv2d(in_channels, 64, 7, 2, 3, bias=False)
+        self.conv1 = Conv2d(in_channels, 64, 7, 2, 3, bias=False)
         self.bn1 = BnAct(64, act="relu")
         in_ch = 64
         for stage, (planes, n_blocks, stride, dilation) in enumerate(

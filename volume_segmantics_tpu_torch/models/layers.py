@@ -7,6 +7,10 @@ the EfficientNet encoders.
 The TPU re-expressions of a plain convolution there (space-to-depth stem,
 phase-decomposed upsample+conv) are not ported: a plain conv computes the
 same function.
+
+Under spatial partitioning (inside `parallel.spatial.split_rows`) `Conv2d`,
+`max_pool` and `upsample` compute this rank's band of rows, exchanging
+halos over the space group; outside it they are the plain ops.
 """
 
 import functools
@@ -17,6 +21,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from volume_segmantics_tpu_torch.parallel import spatial
 
 
 def lecun_normal_(weight: torch.Tensor, generator: torch.Generator = None,
@@ -31,6 +36,14 @@ def lecun_normal_(weight: torch.Tensor, generator: torch.Generator = None,
         return nn.init.trunc_normal_(
             weight, 0.0, std, -2.0 * std, 2.0 * std, generator=generator
         )
+
+
+def _global_pixels(x: torch.Tensor) -> int:
+    """Rows of the batch times the image's pixels, of this rank's (N, C,
+    h, W) part: inside `parallel.spatial.split_rows` h is a band of the
+    image's W rows (the images are square), elsewhere all of them."""
+    height = x.shape[2] if spatial.active_mesh() is None else x.shape[3]
+    return x.shape[0] * height * x.shape[3]
 
 
 class BnAct(nn.Module):
@@ -49,10 +62,12 @@ class BnAct(nn.Module):
     are the reference checkpoint's.
 
     The batch statistics are the sums of x and of x^2 in float32, divided
-    by the count once. Under a data mesh (`set_batch_statistics_mesh`) the
-    sums are summed over the ranks first, in one call of the mesh's
-    differentiable all-reduce, and the count is the local one times the
-    ranks (every rank holds as many rows: `Mesh.rows`), so every rank
+    by the count once. Under a mesh (`set_batch_statistics_mesh`) the sums
+    are summed over every rank first, in one call of the mesh's
+    differentiable all-reduce, and the count is the global batch's: the
+    local rows times the data ranks (every data rank holds as many rows:
+    `Mesh.rows`) times the global image (under spatial partitioning the
+    band's height is not the image's: `_global_pixels`). So every rank
     normalises with the global batch's statistics, as the JAX step's one
     program over the global batch does, and updates its running statistics
     alike. One process runs the same arithmetic without the all-reduce:
@@ -82,7 +97,7 @@ class BnAct(nn.Module):
             count = xf.numel() // xf.shape[1]
             if self.mesh is not None:
                 sums = self.mesh.all_reduce(sums)
-                count *= self.mesh.size
+                count = self.mesh.data_size * _global_pixels(xf)
             mean, mu2 = sums / count
             var = torch.clamp(mu2 - mean * mean, min=0.0)
             with torch.no_grad():
@@ -105,6 +120,18 @@ class BnAct(nn.Module):
         return F.silu(y) if self.act == "silu" else y
 
 
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d (zero padding) whose rows are split over the space group
+    inside `parallel.spatial.split_rows` (`spatial.conv2d`)."""
+
+    def forward(self, x):
+        mesh = spatial.active_mesh()
+        if mesh is None:
+            return super().forward(x)
+        return spatial.conv2d(x, self.weight, self.bias, self.stride,
+                              self.padding, self.dilation, self.groups, mesh)
+
+
 class ConvBnAct(nn.Sequential):
     """conv (no bias, symmetric padding ((k - 1) * dilation) // 2) ->
     BatchNorm -> ReLU, smp's Conv2dReLU: the submodules are named `0`
@@ -113,9 +140,9 @@ class ConvBnAct(nn.Sequential):
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3,
                  dilation: int = 1):
         super().__init__(
-            nn.Conv2d(in_ch, out_ch, kernel_size,
-                      padding=((kernel_size - 1) * dilation) // 2,
-                      dilation=dilation, bias=False),
+            Conv2d(in_ch, out_ch, kernel_size,
+                   padding=((kernel_size - 1) * dilation) // 2,
+                   dilation=dilation, bias=False),
             BnAct(out_ch),
         )
 
@@ -156,7 +183,8 @@ class Dropout(nn.Module):
     the input's device; None draws from the device's default generator), so
     a seeded run repeats. Eval mode and rate 0 draw nothing. Under a data
     mesh the mask is drawn for the global batch and this rank keeps its
-    rows, so the ranks together drop what one process would."""
+    rows, so the ranks together drop what one process would. (No decoder
+    that spatial partitioning takes has a Dropout.)"""
 
     def __init__(self, rate: float, channelwise: bool = False):
         super().__init__()
@@ -170,7 +198,7 @@ class Dropout(nn.Module):
             return x
         keep_prob = 1.0 - self.rate
         shape = x.shape[:2] + (1, 1) if self.channelwise else x.shape
-        n_global = shape[0] * (1 if self.mesh is None else self.mesh.size)
+        n_global = shape[0] * (1 if self.mesh is None else self.mesh.data_size)
         keep = torch.rand((n_global, *shape[1:]), generator=self.generator,
                           device=x.device) < keep_prob
         if self.mesh is not None:
@@ -199,7 +227,13 @@ def set_batch_statistics_mesh(model: nn.Module, mesh=None) -> None:
 
 
 def upsample(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
-    """Nearest-neighbour integer-factor upsampling, NCHW."""
+    """Nearest-neighbour integer-factor upsampling, NCHW (x2 on a band of
+    rows inside `parallel.spatial.split_rows`)."""
+    mesh = spatial.active_mesh()
+    if mesh is not None and factor == 2:
+        return spatial.upsample2x(x, mesh)
+    if mesh is not None:
+        raise NotImplementedError(f"x{factor} upsampling of a band of rows")
     return F.interpolate(x, scale_factor=factor, mode="nearest")
 
 
@@ -258,7 +292,11 @@ def resize_align_corners(x: torch.Tensor, out_h: int,
 
 def max_pool(x: torch.Tensor, window: int = 3, stride: int = 2,
              padding: int = 1) -> torch.Tensor:
-    """Max pooling with symmetric padding (torch MaxPool2d(3, 2, 1))."""
+    """Max pooling with symmetric padding (torch MaxPool2d(3, 2, 1)), on a
+    band of rows inside `parallel.spatial.split_rows`."""
+    mesh = spatial.active_mesh()
+    if mesh is not None:
+        return spatial.max_pool2d(x, window, stride, padding, mesh)
     return F.max_pool2d(x, window, stride, padding)
 
 

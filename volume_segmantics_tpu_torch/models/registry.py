@@ -28,7 +28,11 @@ from volume_segmantics_tpu_torch.models.encoders import (
     resnest,
     resnet,
 )
-from volume_segmantics_tpu_torch.models.layers import init_like_flax, resize_to
+from volume_segmantics_tpu_torch.models.layers import (
+    Conv2d,
+    init_like_flax,
+    resize_to,
+)
 from volume_segmantics_tpu_torch.utils.base_data_utils import (
     ModelType,
     create_enum_from_setting,
@@ -71,8 +75,8 @@ class SegmentationModel(nn.Module):
         self.decoder = decoder
         self.head_upsampling = head_upsampling
         self.segmentation_head = nn.Sequential(
-            nn.Conv2d(decoder.out_channels, classes, head_kernel,
-                      padding=head_kernel // 2, bias=True)
+            Conv2d(decoder.out_channels, classes, head_kernel,
+                   padding=head_kernel // 2, bias=True)
         )
 
     def forward(self, x):

@@ -359,9 +359,10 @@ def augment_batch_u8(generator: torch.Generator, images_u8: torch.Tensor,
     of the global batch: the parameters are drawn for the global batch,
     from a generator every rank seeds alike, and this rank keeps its rows,
     so the ranks together augment as one process would; K1-K3 run on this
-    rank's rows only."""
+    rank's rows only. (The ranks of a space group hold the same rows and
+    augment them alike.)"""
     n, dev = images_u8.shape[0], images_u8.device
-    n_global = n if mesh is None else n * mesh.size
+    n_global = n if mesh is None else n * mesh.data_size
     geo = draw_geometric_params(generator, n_global, size, dev)
     inten = draw_intensity_params(generator, n_global, dev)
     if n_global != n:

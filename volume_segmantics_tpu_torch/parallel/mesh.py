@@ -15,8 +15,16 @@ the global batch that the JAX step is (see `Mesh.average_gradients` for
 the factor this leaves).
 
 A process with no group is a mesh of one: rank 0 of 1, no collective.
-Spatial partitioning (the `space` axis, halo-exchanging convolutions) is
-not ported; `get_mesh(space > 1)` refuses it by name.
+
+With `space` > 1 the mesh is 2-D, (data, space), laid out as the JAX
+package lays out its devices: rank r sits at data row r // space and space
+column r % space. A space group (one `dist.new_group` each, created by
+every rank in the same order) holds the ranks of one data row, which take
+the same rows of the global batch and split image height between them
+(`Mesh.band`); `parallel/spatial.py` exchanges the halos of its
+convolutions over that group. Every other collective (BatchNorm
+statistics, the gathers, the gradient mean, the broadcasts) spans every
+rank.
 """
 
 import logging
@@ -79,18 +87,10 @@ def maybe_initialize_distributed(device=None) -> bool:
 
 def check_space(space: int, count: int) -> None:
     """`spatial_partitions` against the mesh's device count: the JAX
-    package's ValueError where it does not divide the count; above 1 it
-    asks for spatial partitioning, which is not ported."""
-    if space <= 1:
-        return
-    if count % space:
+    package's ValueError where it does not divide the count."""
+    if space > 1 and count % space:
         raise ValueError(f"spatial_partitions={space} must divide the device "
                          f"count ({count}).")
-    raise NotImplementedError(
-        f"spatial_partitions={space} splits image height over {space} "
-        "devices; spatial partitioning (halo-exchanging convolutions on a "
-        f"'{SPACE_AXIS}' mesh axis) is not ported yet (ROADMAP.md, section 1 "
-        "item 1).")
 
 
 class _AllReduceSum(torch.autograd.Function):
@@ -111,19 +111,19 @@ class _AllReduceSum(torch.autograd.Function):
         return out, None
 
 
-class _AllGather(torch.autograd.Function):
-    """The ranks' (n, ...) tensors stacked along the batch, rank order. It
-    is a SUM all-reduce of a zeroed (size * n, ...) buffer holding this
-    rank's rows (x + 0 is x exactly), the collective that NCCL and gloo
-    both carry for CUDA and CPU tensors. Its adjoint is a reduce-scatter
-    SUM: this rank's rows of the ranks' summed gradients."""
+class _Place(torch.autograd.Function):
+    """This rank's `x` placed at `region` of a tensor of `shape` that the
+    ranks fill together (each element held by one rank): a SUM all-reduce
+    of a zeroed buffer holding this rank's part (x + 0 is x exactly), the
+    collective that NCCL and gloo both carry for CUDA and CPU tensors. Its
+    adjoint is a reduce-scatter SUM: this rank's region of the ranks'
+    summed gradients."""
 
     @staticmethod
-    def forward(ctx, x, group, rank, size):
-        ctx.group, ctx.rows = group, slice(rank * x.shape[0],
-                                           (rank + 1) * x.shape[0])
-        out = x.new_zeros((size * x.shape[0], *x.shape[1:]))
-        out[ctx.rows] = x
+    def forward(ctx, x, group, shape, region):
+        ctx.group, ctx.region = group, region
+        out = x.new_zeros(shape)
+        out[region] = x
         dist.all_reduce(out, group=group)
         return out
 
@@ -131,42 +131,73 @@ class _AllGather(torch.autograd.Function):
     def backward(ctx, grad):
         out = grad.contiguous().clone()
         dist.all_reduce(out, group=ctx.group)
-        return out[ctx.rows], None, None, None
+        return out[ctx.region], None, None, None
+
+
+def band(height: int, parts: int, index: int) -> slice:
+    """Rows of a `height` split into `parts` bands, as GSPMD shards an
+    axis: every band but the last ones holds ceil(height / parts) rows,
+    the last holding rows the remainder leaves it, and bands past the end
+    none (3 rows over 2: 2 and 1; 3 over 4: 1, 1, 1 and 0)."""
+    per = -(-height // parts)
+    return slice(min(index * per, height), min((index + 1) * per, height))
 
 
 class Mesh:
-    """The `DATA_AXIS` of the port's mesh: `size` ranks of a process group
+    """The port's (data, space) mesh: `size` ranks of a process group
     (`group`, None for a process alone), this process being `rank` and
-    driving `device`."""
+    driving `device`. `space_size` ranks of each data row share its rows of
+    the global batch and split image height (`space_group` holds them;
+    None at space size 1), so there are `data_size` = size / space_size
+    rows of ranks. This rank is at data row `data_index`, space column
+    `space_index`."""
 
     def __init__(self, group=None, rank: int = 0, size: int = 1,
-                 device=None):
+                 device=None, space_size: int = 1, space_group=None):
         self.group = group
         self.rank = rank
         self.size = size
         self.device = torch.device("cpu" if device is None else device)
+        self.space_size = space_size
+        self.space_group = space_group
+        self.data_size = size // space_size
+        self.data_index, self.space_index = divmod(rank, space_size)
 
     def __deepcopy__(self, memo):
         # A handle on the process group: a copied model shares it.
         return self
 
     def rows(self, n_global: int) -> slice:
-        """This rank's contiguous rows of a global batch of `n_global`."""
-        if n_global % self.size:
+        """This rank's contiguous rows of a global batch of `n_global`:
+        its data row's share."""
+        if n_global % self.data_size:
             raise ValueError(f"a global batch of {n_global} does not split "
-                             f"over {self.size} ranks")
-        per = n_global // self.size
-        return slice(self.rank * per, (self.rank + 1) * per)
+                             f"over {self.data_size} ranks")
+        per = n_global // self.data_size
+        return slice(self.data_index * per, (self.data_index + 1) * per)
+
+    def band(self, height: int) -> slice:
+        """This rank's band of `height` image rows (`band`)."""
+        return band(height, self.space_size, self.space_index)
 
     def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
         """Differentiable SUM over the ranks (x itself on a mesh of one)."""
         return x if self.group is None else _AllReduceSum.apply(x, self.group)
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
-        """Differentiable concatenation of the ranks' `x` along dim 0."""
+        """Differentiable global batch of the ranks' `x`: the data rows'
+        concatenated along dim 0 and, on a space mesh, the space group's
+        bands of rows (`band`) along dim -2, whose global height is x's
+        width (the steps' images are square)."""
         if self.group is None:
             return x
-        return _AllGather.apply(x, self.group, self.rank, self.size)
+        n = x.shape[0]
+        shape = [self.data_size * n, *x.shape[1:]]
+        region = [slice(self.data_index * n, (self.data_index + 1) * n)]
+        if self.space_size > 1:
+            shape[-2] = x.shape[-1]
+            region += [slice(None)] * (x.dim() - 3) + [self.band(x.shape[-1])]
+        return _Place.apply(x, self.group, tuple(shape), tuple(region))
 
     def average_gradients(self, params) -> None:
         """Replace each `.grad` of `params` by its mean over the ranks, in
@@ -178,7 +209,12 @@ class Mesh:
         ranks' copies, R * L, and the SUM over ranks of the parameters'
         gradients is R * dL/dtheta. (Two gloo ranks on the CPU: 6 where the
         single global loss gives 3.) Dividing by R gives dL/dtheta, the
-        gradient of the JAX step's one program."""
+        gradient of the JAX step's one program. Under space partitioning
+        the factor is the same: the halo exchanges (`parallel/spatial.py`)
+        only move rows, and their adjoint adds each halo row's gradient
+        into the rank that holds the row, once, so a rank's gradients are
+        R times what its band and rows contribute to dL/dtheta, as
+        before."""
         if self.group is None:
             return
         grads = [p.grad for p in params if p.grad is not None]
@@ -211,11 +247,12 @@ class Mesh:
 
 def get_mesh(n_devices: Optional[int] = None, space: int = 1,
              device=None) -> Mesh:
-    """The data mesh over every rank of the process group (joined here when
+    """The mesh over every rank of the process group (joined here when
     `VOLSEG_TPU_DISTRIBUTED=1`), or over this process alone when there is
-    none. `n_devices` below the world size (a mesh over some of the ranks)
-    is not ported; `space` > 1 raises as `check_space` says. `device`
-    (default: the GPU, this rank's under NCCL) is where the rank works."""
+    none: (world / space) data x `space` space, `space` dividing the world
+    size (`check_space`). `n_devices` below the world size (a mesh over
+    some of the ranks) is not ported. `device` (default: the GPU, this
+    rank's under NCCL) is where the rank works."""
     maybe_initialize_distributed(device)
     if dist.is_initialized():
         size, rank, group = dist.get_world_size(), dist.get_rank(), dist.group.WORLD
@@ -225,16 +262,26 @@ def get_mesh(n_devices: Optional[int] = None, space: int = 1,
         raise NotImplementedError(
             f"a mesh over {n_devices} of the group's {size} ranks is not "
             "ported: the data mesh spans the whole group.")
-    check_space(int(space or 1), size)
+    space = int(space or 1)
+    check_space(space, size)
+    space_group = None
+    if 1 < space < size:
+        # Every rank creates every group, in the same order.
+        for row in range(size // space):
+            made = dist.new_group(list(range(row * space, (row + 1) * space)))
+            if row == rank // space:
+                space_group = made
+    elif space > 1:
+        space_group = group
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
-    return Mesh(group, rank, size, dev)
+    return Mesh(group, rank, size, dev, space, space_group)
 
 
 def space_size(mesh: Mesh) -> int:
-    """Size of the spatial-partition axis: 1, the only size ported."""
-    return 1
+    """Size of the spatial-partition axis (1 on a pure data mesh)."""
+    return mesh.space_size
 
 
 def shard_batch(batch, mesh: Mesh):

@@ -20,6 +20,17 @@ gradients are averaged over the ranks in one all-reduce a step
 are trainable when the step is built, so a frozen step and an unfrozen one
 each reduce their own set. On a mesh of one process the collectives are
 the identity: `build_train_step` is the data-parallel step there.
+
+Over a (data, space) mesh (`spatial_partitions` > 1) every rank of a space
+group augments its data row's whole images, with the global batch's draws
+as above (augmentation warps gather from anywhere in the image, so a band
+could not be augmented alone, and the JAX step keeps it batch-sharded
+too), then keeps its band of rows of the images and masks. The model runs
+on the band inside `parallel.spatial.split_rows`, each convolution and
+pool exchanging its halos, BatchNorm reducing over every rank, and the
+logits and masks are gathered over both axes into the global (N, C, H, W)
+before the one loss and metric. The images must be square, and the model
+one that `parallel.spatial.check_spatial_model` passes.
 """
 
 from typing import Callable, Iterable
@@ -34,6 +45,7 @@ from volume_segmantics_tpu_torch.models.layers import (
 )
 from volume_segmantics_tpu_torch.ops.augment import augment_batch_u8
 from volume_segmantics_tpu_torch.parallel.mesh import Mesh, get_mesh
+from volume_segmantics_tpu_torch.parallel.spatial import split_rows
 
 
 def make_base_optimizer(params: Iterable[torch.nn.Parameter],
@@ -68,6 +80,23 @@ def _model_device(model: torch.nn.Module) -> torch.device:
     return next(model.parameters()).device
 
 
+def _band(imgs: torch.Tensor, mesh: Mesh) -> slice:
+    """This rank's band of the (N, H, W) images' rows: all of them at
+    space size 1."""
+    if mesh.space_size > 1 and imgs.shape[-2] != imgs.shape[-1]:
+        raise ValueError("spatial partitioning takes square images, not "
+                         f"{tuple(imgs.shape[-2:])}")
+    return mesh.band(imgs.shape[-2])
+
+
+def _forward(model, imgs, mesh, compute_dtype) -> torch.Tensor:
+    """Float32 logits of this rank's (N, H, W) images in [0, 1] (its rows,
+    its band of rows under spatial partitioning)."""
+    with autocast(imgs.device, compute_dtype), split_rows(mesh):
+        return model(normalise(imgs)).float()
+
+
+
 def build_dp_train_step(model: torch.nn.Module, loss_fn: Callable,
                         optimizer: torch.optim.Optimizer, num_labels: int = 2,
                         image_size: int = 256, mesh: Mesh = None,
@@ -89,19 +118,17 @@ def build_dp_train_step(model: torch.nn.Module, loss_fn: Callable,
     trainable = [p for group in optimizer.param_groups for p in group["params"]]
 
     def step(images_u8: torch.Tensor, masks_u8: torch.Tensor, lr: float):
-        device = images_u8.device
         model.train()
         if augment:
             imgs, msks = augment_batch_u8(generator, images_u8, masks_u8,
                                           image_size, mesh)
         else:
             imgs, msks = images_u8.float() / 255.0, masks_u8
-        x = normalise(imgs)
-        with autocast(device, compute_dtype):
-            logits = model(x)
-        targets = _one_hot_nchw(mesh.all_gather(msks), num_labels,
+        band = _band(imgs, mesh)
+        logits = _forward(model, imgs[:, band], mesh, compute_dtype)
+        targets = _one_hot_nchw(mesh.all_gather(msks[:, band]), num_labels,
                                 compute_dtype)
-        loss = loss_fn(mesh.all_gather(logits.float()), targets)
+        loss = loss_fn(mesh.all_gather(logits), targets)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
         mesh.average_gradients(trainable)
@@ -138,16 +165,14 @@ def build_dp_eval_step(model: torch.nn.Module, loss_fn: Callable,
 
     @torch.no_grad()
     def step(images_u8: torch.Tensor, masks_u8: torch.Tensor, n_valid: int):
-        device = images_u8.device
         model.eval()
-        x = normalise(images_u8.float() / 255.0)
-        with autocast(device, compute_dtype):
-            logits = model(x).float()
-        logits = mesh.all_gather(logits)
-        targets = _one_hot_nchw(mesh.all_gather(masks_u8), num_labels,
-                                compute_dtype)
+        band = _band(images_u8, mesh)
+        logits = mesh.all_gather(_forward(
+            model, images_u8[:, band].float() / 255.0, mesh, compute_dtype))
+        targets = _one_hot_nchw(mesh.all_gather(masks_u8[:, band]),
+                                num_labels, compute_dtype)
         sample_weights = (
-            torch.arange(logits.shape[0], device=device) < n_valid
+            torch.arange(logits.shape[0], device=logits.device) < n_valid
         ).float()
         loss = loss_fn(logits, targets, sample_weights=sample_weights)
         probs = torch.softmax(logits, dim=1)
