@@ -39,10 +39,10 @@
    launch. Then times MEDIUM and HIGH on a 512^3 volume (the clipped
    256^3 one tiled 2x2x2), uint8 ndarray in to labels on the host; MEDIUM
    from the raw 512^3 volume with the manager's set-up (checkpoint load,
-   clip_to_uint8) timed too; and MEDIUM at prediction batches 16, 32, 64
-   and 128 (median of 3 runs each).
+   clip_to_uint8) timed too; and MEDIUM at the prediction batches
+   `PRED_BATCHES` (median of 3 runs each).
 6. CLI phase, in process so that the launch counters see it, in
-   `<out-dir>/cli`: writes an 80x288x320 vessels training pair as gzip
+   `<out-dir>/cli`: writes a `CLI_TRAIN_SHAPE` vessels training pair as gzip
    HDF5 (chunks=True) with the port's writer, and the shipped settings
    files (train: one frozen and one unfrozen epoch, seed 0; predict:
    output_probs on). `model-train-2d` (`scripts/train_2d_model.main`) on
@@ -57,8 +57,8 @@
    written, timed by part: HDF5 read, the manager's clip, checkpoint load,
    sweeps, HDF5 write, and `main`'s wall time.
 7. Losses phase, from one seeded U-Net/ResNet-34 at 256x256, batch 12,
-   bf16: for each of the five losses of the shipped settings, 20 train
-   steps through `build_train_step`, each followed by the eval step with
+   bf16: for each of the five losses of the shipped settings,
+   `LOSS_STEPS` train steps through `build_train_step`, each followed by the eval step with
    MeanIoU and with DiceCoefficient; fails unless every loss and score is
    finite and each kernel launched once per step. Then each loss, its
    gradient on the logits and both metrics on the card against the CPU on
@@ -93,7 +93,7 @@
 10. Pretrained phase: the slice model's encoder, its first convolution
    widened to 3 channels (the kernel, then zeros), as
    `$VOLSEG_TPU_WEIGHTS_DIR/resnet34.vstpu`; `model-train-2d` on the CLI
-   phase's HDF5 pair with the shipped settings plus
+   phase's `ROUND_TRIP_SHAPE` HDF5 pair with the shipped settings plus
    `skip_frozen_without_pretrained`, `autosave` and `profile_dir`: fails
    unless the frozen phase runs, every model the trainer creates starts
    from the slice model's encoder, each kernel launched once per step, the
@@ -116,8 +116,8 @@
    its LOW sweeps, and the same weights as a JAX `VSTPU1` file through
    `model-predict-2d` giving the same labels. Then `model-train-2d` with the
    shipped settings as written but `type: U_Net_Plus_Plus` (1+1 epochs,
-   seed 0) on the CLI phase's pair: last eval score >= 0.5, each kernel
-   launched once a step; `model-predict-2d` on 256^3 equal to the manager's
+   seed 0) on the CLI phase's `ROUND_TRIP_SHAPE` pair: last eval score >=
+   0.5, each kernel launched once a step; `model-predict-2d` on 256^3 equal to the manager's
    labels.
 12. Encoders phase, for each of the six encoders beside resnet34
    (ResNet-50, ResNeXt-50 32x4d, EfficientNet-B3/-B4, ResNeSt-50d/-101e)
@@ -234,7 +234,8 @@
    did not run them. (6) The predictor with `devices=["cuda:0", "cuda:0"]`
    at MEDIUM, float32, on the 256^3 volume against one device under the
    near-tie rule.
-18. Spatial phase (run after the parallel phase), two gloo ranks sharing
+18. Spatial phase (run beside the interchange, virtual and parallel
+   phases, so their times include its load), two gloo ranks sharing
    cuda:0 in child processes on a 1 data x 2 space mesh (image height
    split over the ranks, `parallel/spatial.py`), inputs in
    `<out-dir>/spatial`: (a) U-Net/ResNet-34 at 256x256, a global batch of
@@ -255,7 +256,20 @@
    weights equal before the load, one dated checkpoint and one CSV, finite
    eval scores, each kernel launched once a step on each rank; then the
    checkpoint through the one-process `model-predict-2d` on the training
-   volume: labels of its shape (MeanIoU recorded).
+   volume: labels of its shape (MeanIoU recorded). (d) `SPATIAL_PAIRS`,
+   the other decoders on ResNet-34 and U-Net on the EfficientNet and
+   ResNeSt encoders, at full width and 256x256, a global batch of
+   `SPATIAL_PAIR_BATCH` Z slices, augmentation on, float32, from one
+   seeded state each: `SPATIAL_PAIR_STEPS` train steps at `SPATIAL_LR` on
+   the two ranks (dropout from one seeded generator), then the eval step
+   (DiceLoss, MeanIoU) on the slices, against the one process's plain
+   steps and eval step from the same state: the first loss within
+   `SPATIAL_PAIR_RTOL` relative, or twice the one process's distance from
+   its float64 loss where that is larger, the later ones within
+   `SPATIAL_PAIR_LATER_RTOL`, eval loss and score within
+   `SPATIAL_PAIR_EVAL_ATOL`, both ranks' states equal after every step,
+   each kernel launched once a step on each rank; step ms of both and
+   each rank's `max_memory_allocated`.
 19. Prints a `{"kernels": [...]}` line (launches of the slice, CLI, losses,
    pretrained, architectures, encoders, formats, interchange, virtual,
    parallel and spatial phases, the last two on every rank) and, last, the
@@ -266,6 +280,7 @@ repository (the package is imported from beside this file).
 """
 
 import argparse
+import concurrent.futures
 import contextlib
 import csv
 import functools
@@ -292,7 +307,13 @@ REPO = Path(__file__).resolve().parent
 N, S = 12, 256  # parity batch and image size of the shipped settings
 P = 256  # side of the prediction phase's vessels volume; timed at 2 P
 CLI_TRAIN_SHAPE = (80, 288, 320)  # no side is S: every slice is resized
-PRED_BATCHES = (16, 32, 64, 128)
+# The pretrained phase's run and the U-Net++ and EfficientNet-B3
+# `model-train-2d` round trips, which hold no MeanIoU floor on a
+# prediction: half the CLI pair's depth (132 steps a run, not 180). (The
+# CLI phase's own run keeps its pair: trained on this one, its prediction
+# of the 256^3 volume scored a MeanIoU of 0.489 against its 0.75 floor.)
+ROUND_TRIP_SHAPE = (40, 144, 160)
+PRED_BATCHES = (32, 128)  # (16, 32, 64, 128) before the spatial phase's (d)
 CROP = (24, 72, 40)  # card against plain path: no side a multiple of 32
 GPU_BANDWIDTH = (  # bytes/s by card name (NVIDIA data sheets)
     ("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12), ("H200", 4.8e12),
@@ -977,6 +998,9 @@ def cli_phase(dev, out_dir: Path):
     data, labels = make_vessel_volume(CLI_TRAIN_SHAPE, seed=2)
     hdf5.write(root / "train_data.h5", data, chunks=True)
     hdf5.write(root / "train_labels.h5", labels, chunks=True)
+    data, labels = make_vessel_volume(ROUND_TRIP_SHAPE, seed=2)
+    hdf5.write(root / "round_trip_data.h5", data, chunks=True)
+    hdf5.write(root / "round_trip_labels.h5", labels, chunks=True)
     (settings_dir / cfg.TRAIN_SETTINGS_FN).write_text(settings_text(
         cfg.TRAIN_SETTINGS_FN, num_cyc_frozen=1, num_cyc_unfrozen=1, seed=0))
     (settings_dir / cfg.PREDICTION_SETTINGS_FN).write_text(settings_text(
@@ -1240,7 +1264,7 @@ def write_tiff(path: Path, vol: np.ndarray, compression=None, predictor=1,
     Path(path).write_bytes(out)
 
 
-FORMATS_STEPS = 20
+FORMATS_STEPS = 10  # 20 before the spatial phase's (d)
 
 
 def formats_phase(dev, out_dir: Path, cli_res):
@@ -1462,11 +1486,11 @@ def formats_phase(dev, out_dir: Path, cli_res):
 SHIPPED_LOSSES = ("DiceLoss", "BCEDiceLoss", "BCELoss", "GeneralizedDiceLoss",
                   "CrossEntropyLoss")  # 2d_model_train_settings.yaml:20
 METRICS = ("MeanIoU", "DiceCoefficient")  # :23
-LOSS_STEPS = 20
+LOSS_STEPS = 10  # 20 before the spatial phase's (d)
 STRUC = {"type": "U_Net", "encoder_name": "resnet34", "encoder_weights": None,
          "in_channels": 1, "classes": 2}
 SWEEP_BATCHES = (12, 32, 64, 128, 256)
-SWEEP_STEPS = 10  # 30 in the first card run, then 15; cut to keep the script short
+SWEEP_STEPS = 6  # 30 in the first card run, then 15, then 10; cut for time
 
 
 def loss_settings(name, **more) -> SimpleNamespace:
@@ -2046,8 +2070,10 @@ def pretrained_phase(model_file: Path, dev, out_dir: Path, cli_res):
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     try:
-        train_2d_model.main(["--data", str(out_dir / "cli" / "train_data.h5"),
-                             "--labels", str(out_dir / "cli" / "train_labels.h5"),
+        train_2d_model.main(["--data",
+                             str(out_dir / "cli" / "round_trip_data.h5"),
+                             "--labels",
+                             str(out_dir / "cli" / "round_trip_labels.h5"),
                              "--data_dir", str(root)])
     finally:
         train_2d_model.VolSeg2dTrainer = RecordedTrainer.__bases__[0]
@@ -2157,7 +2183,7 @@ ARCH_PARAMS = {
     "DeepLabV3_Plus": 22431442, "MA_Net": 31777506, "Linknet": 21765442,
     "PAN": 21469833,
 }
-ARCH_STEPS = 6  # 20 until the parallel phase came, 10 until the spatial one
+ARCH_STEPS = 4  # 20 before the parallel phase, 10 before spatial, 6 before (d)
 DROPOUT_ARCHS = ("FPN", "DeepLabV3")
 # Card against CPU, float32 eval, TF32 off, over the logits' largest
 # magnitude (at least 1). The CPU tests hold the port to JAX within 3e-5
@@ -2224,9 +2250,7 @@ def card_against_cpu(struc, x, dev, seed=31, randomize_bn=False):
         "cpu", struc, generator=torch.Generator().manual_seed(seed)).eval()
     if randomize_bn:
         randomize_batchnorms(cpu_model, seed)
-    model = create_model_on_device(dev, struc)
-    model.load_state_dict(cpu_model.state_dict())
-    model.eval()
+    model = model_from_state(struc, cpu_model.state_dict(), dev).eval()
     with torch.no_grad():
         ref = cpu_model(x)
         got = model(x.to(dev)).cpu()
@@ -2290,7 +2314,7 @@ def architectures_phase(images_u8, masks_u8, dev, out_dir: Path):
                          "archs": {}}
     root, predict_settings, vol, truth = prediction_root(out_dir /
                                                          "architectures")
-    x_card = torch.randn(2, 1, S, S, generator=torch.Generator().manual_seed(3))
+    x_card = torch.randn(1, 1, S, S, generator=torch.Generator().manual_seed(3))
     big = throughput_batch(images_u8, masks_u8)
     launches = dict.fromkeys(kernels.LAUNCHES, 0)
 
@@ -2367,7 +2391,7 @@ def architectures_phase(images_u8, masks_u8, dev, out_dir: Path):
               flush=True)
 
     # 6. model-train-2d then model-predict-2d with the shipped files as
-    # written, type U_Net_Plus_Plus, on the CLI phase's pair.
+    # written, type U_Net_Plus_Plus, on the CLI phase's round-trip pair.
     text = settings_text(cfg.TRAIN_SETTINGS_FN, num_cyc_frozen=1,
                          num_cyc_unfrozen=1, seed=0)
     rt = cli_round_trip("U-Net++", text.replace('type: "U_Net"',
@@ -2481,8 +2505,8 @@ def prediction_checks(name, ckpt, vol, truth, predict_settings, root: Path,
 def cli_round_trip(name, train_text, root: Path, out_dir: Path, vol, truth,
                    predict_settings, dev, failures, trainer_cls=None):
     """`model-train-2d` with `train_text` as the train settings file on the
-    CLI phase's pair, in `root`/cli: the last eval score >= 0.5 and each
-    kernel launched once a step; then `model-predict-2d` on `vol` (`root`
+    CLI phase's round-trip pair, in `root`/cli: the last eval score >= 0.5
+    and each kernel launched once a step; then `model-predict-2d` on `vol` (`root`
     holds it as `vessels_256.h5`, and the prediction settings) equal to the
     manager's labels. `trainer_cls` (default the CLI's) records the run.
     Returns the results; misses go into `failures`."""
@@ -2511,8 +2535,10 @@ def cli_round_trip(name, train_text, root: Path, out_dir: Path, vol, truth,
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     try:
-        train_2d_model.main(["--data", str(out_dir / "cli" / "train_data.h5"),
-                             "--labels", str(out_dir / "cli" / "train_labels.h5"),
+        train_2d_model.main(["--data",
+                             str(out_dir / "cli" / "round_trip_data.h5"),
+                             "--labels",
+                             str(out_dir / "cli" / "round_trip_labels.h5"),
                              "--data_dir", str(cli)])
     finally:
         train_2d_model.VolSeg2dTrainer = saved
@@ -2561,8 +2587,8 @@ ENCODER_PARAMS = {
     "timm-resnest50d": (34446882, 64, 18880),
     "timm-resnest101e": (55256514, 132, 40640),
 }
-ENCODER_FROZEN_STEPS = 5
-ENCODER_STEPS = 6  # 20 until the parallel phase came, 10 until the spatial one
+ENCODER_FROZEN_STEPS = 3  # 5 before the spatial phase's (d)
+ENCODER_STEPS = 4  # 20 before the parallel phase, 10 before spatial, 6 before (d)
 # The dilated forms held card against CPU beside U-Net (output stride 16
 # and 8).
 ENCODER_DILATED = ("DeepLabV3_Plus", "DeepLabV3")
@@ -2603,7 +2629,7 @@ def encoders_phase(images_u8, masks_u8, dev, out_dir: Path):
                          "card_vs_cpu_rtol": ARCH_CARD_VS_CPU_RTOL,
                          "encoders": {}}
     root, predict_settings, vol, truth = prediction_root(out_dir / "encoders")
-    x_card = torch.randn(2, 1, S, S, generator=torch.Generator().manual_seed(3))
+    x_card = torch.randn(1, 1, S, S, generator=torch.Generator().manual_seed(3))
     big = throughput_batch(images_u8, masks_u8)
     launches = dict.fromkeys(kernels.LAUNCHES, 0)
     cache_tree = None
@@ -3306,7 +3332,7 @@ def virtual_phase(dev, out_dir: Path):
 
 PARALLEL_STEPS_ONE = 10  # NCCL world 1: DP steps, then as many plain ones (20
 # until the spatial phase came)
-PARALLEL_STEPS_TWO = 10  # two gloo ranks on one card, float32
+PARALLEL_STEPS_TWO = 6  # two gloo ranks on one card, float32 (10 before (d))
 PARALLEL_LR = 1e-4  # world 1: bit for bit at any rate
 # Two ranks against one process: Adam moves an element whose gradient is
 # within float32 noise by 2 x lr either way, and over 10 steps at 1e-4 the
@@ -3328,9 +3354,21 @@ def digest(state: dict) -> str:
     return h.hexdigest()
 
 
+def model_from_state(struc, state, dev):
+    """`struc`'s model on `dev` holding `state`, built on the meta device
+    (no initialisation: every tensor is loaded)."""
+    from volume_segmantics_tpu_torch.models.registry import create_model
+
+    with torch.device("meta"):
+        model = create_model(struc)
+    model = model.to_empty(device=dev)
+    model.load_state_dict(state)
+    return model
+
+
 def dp_run(state, images, masks, mesh, steps, compute_dtype, dev, lr, dp=True,
-           seed=3, side=S, digests=False):
-    """`steps` seeded DiceLoss train steps of U-Net/ResNet-34 from `state`
+           seed=3, side=S, digests=False, struc=STRUC):
+    """`steps` seeded DiceLoss train steps of `struc`'s model from `state`
     on this rank's rows of the global batch (augmentation on, to `side`):
     the data-parallel step over `mesh` (its space partitions too), or with
     `dp` False the plain one. Returns the losses, each step's synchronised
@@ -3338,7 +3376,6 @@ def dp_run(state, images, masks, mesh, steps, compute_dtype, dev, lr, dp=True,
     running statistics, the final state and, with `digests`, the state's
     digest after each step."""
     from volume_segmantics_tpu_torch.data.losses import get_loss_fn
-    from volume_segmantics_tpu_torch.models.registry import create_model
     from volume_segmantics_tpu_torch.ops import kernels
     from volume_segmantics_tpu_torch.parallel.train import (
         build_dp_train_step,
@@ -3346,8 +3383,7 @@ def dp_run(state, images, masks, mesh, steps, compute_dtype, dev, lr, dp=True,
         make_base_optimizer,
     )
 
-    model = create_model(STRUC).to(dev)
-    model.load_state_dict(state)
+    model = model_from_state(struc, state, dev)
     optimizer = make_base_optimizer(model.parameters())
     gens = (torch.Generator(dev).manual_seed(seed),
             torch.Generator(dev).manual_seed(seed + 1))
@@ -3376,6 +3412,7 @@ def dp_run(state, images, masks, mesh, steps, compute_dtype, dev, lr, dp=True,
                              if n.endswith(("running_mean", "running_var"))}
     out["launches"] = dict(kernels.LAUNCHES)
     out["final"] = {n: v.clone() for n, v in model.state_dict().items()}
+    out["model"] = model
     return out
 
 
@@ -3389,7 +3426,9 @@ def _bn_act_float64(self, x):
         self.running_var.mul_(self.momentum).add_((1 - self.momentum) * var)
     mul = torch.rsqrt(var + self.eps) * self.weight
     y = x * mul[:, None, None] + (self.bias - mean * mul)[:, None, None]
-    return torch.relu(y) if self.act == "relu" else y
+    if self.act == "relu":
+        return torch.relu(y)
+    return torch.nn.functional.silu(y) if self.act == "silu" else y
 
 
 def float64_first_step(state, images, masks, dev, seed=3):
@@ -3397,13 +3436,10 @@ def float64_first_step(state, images, masks, dev, seed=3):
     augmentation drawn as the steps draw it, in float32)."""
     from volume_segmantics_tpu_torch.data.losses import get_loss_fn
     from volume_segmantics_tpu_torch.models.layers import BnAct
-    from volume_segmantics_tpu_torch.models.registry import create_model
     from volume_segmantics_tpu_torch.ops.augment import augment_batch_u8
     from volume_segmantics_tpu_torch.parallel.train import normalise
 
-    model = create_model(STRUC).to(dev)
-    model.load_state_dict(state)
-    model = model.double().train()
+    model = model_from_state(STRUC, state, dev).double().train()
     imgs, msks = augment_batch_u8(torch.Generator(dev).manual_seed(seed),
                                   torch.from_numpy(images).to(dev),
                                   torch.from_numpy(masks).to(dev), S)
@@ -3417,6 +3453,34 @@ def float64_first_step(state, images, masks, dev, seed=3):
     stats = {n: v for n, v in model.state_dict().items()
              if n.endswith(("running_mean", "running_var"))}
     return {n: p.grad for n, p in model.named_parameters()}, stats
+
+
+def float64_first_loss(struc, state, images, masks, dev, seed=3) -> float:
+    """The first `dp_run` step's loss of `struc`'s model in float64: the
+    same augmentation draws (in float32) and dropout masks, BatchNorm in
+    float64."""
+    from volume_segmantics_tpu_torch.data.losses import get_loss_fn
+    from volume_segmantics_tpu_torch.models.layers import (
+        BnAct,
+        set_dropout_generator,
+    )
+    from volume_segmantics_tpu_torch.ops.augment import augment_batch_u8
+    from volume_segmantics_tpu_torch.parallel.train import normalise
+
+    model = model_from_state(struc, state, dev).double().train()
+    set_dropout_generator(model, torch.Generator(dev).manual_seed(seed + 1))
+    imgs, msks = augment_batch_u8(torch.Generator(dev).manual_seed(seed),
+                                  torch.from_numpy(images).to(dev),
+                                  torch.from_numpy(masks).to(dev),
+                                  images.shape[-1])
+    targets = torch.nn.functional.one_hot(msks.long(), 2).permute(0, 3, 1, 2)
+    forward, BnAct.forward = BnAct.forward, _bn_act_float64
+    try:
+        with torch.no_grad():
+            return get_loss_fn(loss_settings("DiceLoss"))(
+                model(normalise(imgs.double())), targets.double()).item()
+    finally:
+        BnAct.forward = forward
 
 
 def against_one_process(got, ref, grads64, stats64, covered=0.25) -> dict:
@@ -3712,25 +3776,44 @@ def parallel_phase(model_file: Path, out_dir: Path):
     return res
 
 
-SPATIAL_STEPS = 5  # (a): 1 data x 2 space gloo ranks on one card, float32
+SPATIAL_STEPS = 3  # (a): 1 x 2 gloo ranks on one card, float32 (5 before (d))
 SPATIAL_LR = 1e-6  # as PARALLEL_LR_TWO: Adam's steps stay linear
 SPATIAL_MEMORY = (1024, 4, 2)  # (b): image side, global batch, bf16 steps
 SPATIAL_MEMORY_RATIO = 0.7  # a space rank's peak against one process's
 # (c): model-train-2d, 0 + 1 epochs: 108 slices, 7 steps an epoch, 42
 # LR-finder steps, so 49 steps a rank.
 SPATIAL_TRAIN_SHAPE = (12, 48, 48)
+# (d): every other decoder on ResNet-34 and U-Net on the other encoders
+# (the registry's widths), over the 1 x 2 mesh against one process.
+SPATIAL_PAIRS = (("LinkNet", "resnet34"), ("FPN", "resnet34"),
+                 ("DeepLabV3", "resnet34"), ("DeepLabV3_Plus", "resnet34"),
+                 ("PAN", "resnet34"), ("MA_Net", "resnet34"),
+                 ("U_Net", "efficientnet-b3"), ("U_Net", "efficientnet-b4"),
+                 ("U_Net", "timm-resnest50d"), ("U_Net", "timm-resnest101e"))
+SPATIAL_PAIR_BATCH = 4
+SPATIAL_PAIR_STEPS = 2
+SPATIAL_PAIR_RTOL = 1e-5  # first train loss, relative (as (a)), at least
+# Later losses: Adam's first update moves every parameter by about lr
+# whatever its gradient, so gradients at float32 noise move some 2 x lr
+# apart; PAN's second loss lay 8.2e-6 from one process's on an H100.
+SPATIAL_PAIR_LATER_RTOL = 1e-4
+SPATIAL_PAIR_EVAL_ATOL = 1e-4  # eval loss and MeanIoU, each from its own weights
 
 
-def spatial_rank(rank, work, device):
-    """Spatial phase (a)-(c) as one of two gloo ranks sharing `device`
-    (cuda:0 on the card) on a 1 data x 2 space mesh (see the module
-    doc)."""
+def spatial_rank(rank, work, device, pairs_only=False):
+    """Spatial phase (a)-(d), or (d) alone, as one of two gloo ranks
+    sharing `device` (cuda:0 on the card) on a 1 data x 2 space mesh (see
+    the module doc)."""
     import torch.distributed as dist
 
+    from volume_segmantics_tpu_torch.models.pretrained import WEIGHTS_DIR_ENV
     from volume_segmantics_tpu_torch.ops import kernels
     from volume_segmantics_tpu_torch.parallel.mesh import Mesh, get_mesh
     from volume_segmantics_tpu_torch.scripts import train_2d_model
 
+    # (c) starts from a random encoder, whatever cache a phase running
+    # beside this one points the parent at when the ranks start.
+    os.environ.pop(WEIGHTS_DIR_ENV, None)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device(device)
@@ -3741,6 +3824,10 @@ def spatial_rank(rank, work, device):
     mesh = get_mesh(device=dev, space=2)
     res = {"rank": rank, "mesh": [mesh.data_size, mesh.space_size,
                                   mesh.space_index]}
+    if pairs_only:
+        res["pairs"], res["pairs_s"] = timed_pairs(rank, mesh, blob, dev)
+        (work / f"rank{rank}.json").write_text(json.dumps(res))
+        return
 
     # (a): float32 spatial steps against one process from the same state.
     run = dp_run(blob["state"], blob["images"], blob["masks"], mesh,
@@ -3815,12 +3902,81 @@ def spatial_rank(rank, work, device):
                   "eval_scores": trainer.avg_eval_scores,
                   "median_lr_find_step_ms": 1e3 * statistics.median(
                       trainer.lr_find_step_seconds)}
+    res["pairs"], res["pairs_s"] = timed_pairs(rank, mesh, blob, dev)
     (work / f"rank{rank}.json").write_text(json.dumps(res))
 
 
-def spatial_phase(dev, out_dir: Path):
+def timed_pairs(rank, mesh, blob, dev):
+    """`spatial_pairs` and its seconds."""
+    t0 = time.perf_counter()
+    return spatial_pairs(rank, mesh, blob, dev), time.perf_counter() - t0
+
+
+def spatial_pairs(rank, mesh, blob, dev):
+    """Spatial phase (d) on this rank: for each of `SPATIAL_PAIRS`, the
+    spatial train steps and eval step from the pair's seeded state and
+    this rank's peak memory; then, for every other pair (rank r takes
+    pairs r, r + 2, ...: the two ranks' references run side by side on
+    the card), the one process's steps, eval step and float64 first loss
+    from the same state."""
+    from volume_segmantics_tpu_torch.data.losses import get_loss_fn
+    from volume_segmantics_tpu_torch.data.metrics import mean_iou
+    from volume_segmantics_tpu_torch.models.registry import create_model
+    from volume_segmantics_tpu_torch.parallel.mesh import Mesh
+    from volume_segmantics_tpu_torch.parallel.train import build_dp_eval_step
+
+    images = blob["images"][:SPATIAL_PAIR_BATCH]
+    masks = blob["masks"][:SPATIAL_PAIR_BATCH]
+
+    def evaluate(model, on):
+        step = build_dp_eval_step(model, get_loss_fn(loss_settings("DiceLoss")),
+                                  mean_iou, num_labels=2, mesh=on,
+                                  compute_dtype=torch.float32)
+        rows = on.rows(images.shape[0])
+        loss, score = step(torch.from_numpy(images[rows]).to(dev),
+                           torch.from_numpy(masks[rows]).to(dev),
+                           images.shape[0])
+        return [loss.item(), score.item()]
+
+    out, states = [], {}
+    for i, (model_type, encoder) in enumerate(SPATIAL_PAIRS):
+        struc = dict(STRUC, type=model_type, encoder_name=encoder)
+        torch.manual_seed(11)
+        state = create_model(struc).state_dict()
+        if i % mesh.size == rank:
+            states[i] = struc, state
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        run = dp_run(state, images, masks, mesh, SPATIAL_PAIR_STEPS,
+                     torch.float32, dev, SPATIAL_LR, side=images.shape[-1],
+                     digests=True, struc=struc)
+        res = {"type": model_type, "encoder": encoder, "losses": run["losses"],
+               "step_ms": run["ms"], "digests": run["digests"],
+               "launches": run["launches"], "eval": evaluate(run["model"], mesh)}
+        torch.cuda.synchronize()
+        res["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+        del run, state
+        torch.cuda.empty_cache()
+        out.append(res)
+    for i, (struc, state) in states.items():
+        ref = dp_run(state, images, masks, Mesh(), SPATIAL_PAIR_STEPS,
+                     torch.float32, dev, SPATIAL_LR, dp=False,
+                     side=images.shape[-1], struc=struc)
+        out[i].update(one_process_losses=ref["losses"],
+                      one_process_step_ms=ref["ms"],
+                      one_process_eval=evaluate(ref["model"], Mesh()))
+        del ref
+        # FPN's GroupNorm runs in float32 whatever its input.
+        out[i]["first_loss64"] = None if struc["type"] == "FPN" else (
+            float64_first_loss(struc, state, images, masks, dev))
+        torch.cuda.empty_cache()
+    return out
+
+
+def spatial_phase(dev, out_dir: Path, pairs_only=False):
     """Spatial partitioning over two gloo ranks in child processes on `dev`
-    (cuda:0 on the card; see the module doc)."""
+    (cuda:0 on the card; see the module doc): (a)-(d), or with
+    `pairs_only` (d) alone."""
     import volume_segmantics_tpu_torch.utils.config as cfg
     from volume_segmantics_tpu_torch.models.registry import create_model
     from volume_segmantics_tpu_torch.parallel.mesh import spawn_ranks
@@ -3833,9 +3989,10 @@ def spatial_phase(dev, out_dir: Path):
     shutil.rmtree(work, ignore_errors=True)
     (work / "cli" / cfg.SETTINGS_DIR).mkdir(parents=True)
     vol, truth = make_vessel_volume((N, S, S), seed=7)
-    torch.manual_seed(11)
-    torch.save({"state": create_model(STRUC).state_dict(), "images": vol,
-                "masks": truth}, work / "in.pt")
+    model = create_model(STRUC, generator=torch.Generator().manual_seed(11))
+    torch.save({"state": model.state_dict(), "images": vol, "masks": truth},
+               work / "in.pt")
+    del model
     data, labels = make_vessel_volume(SPATIAL_TRAIN_SHAPE, seed=3)
     hdf5.write(work / "cli" / "train_data.h5", data, chunks=True)
     hdf5.write(work / "cli" / "train_labels.h5", labels, chunks=True)
@@ -3849,76 +4006,124 @@ def spatial_phase(dev, out_dir: Path):
 
     t0 = time.perf_counter()
     dev = torch.device("cuda", 0) if dev.type == "cuda" else dev
-    spawn_ranks(spatial_rank, 2, args=(str(work), str(dev)),
+    spawn_ranks(spatial_rank, 2, args=(str(work), str(dev), pairs_only),
                 backend="gloo", timeout=PARALLEL_TIMEOUT_S)
     res["spawn_s"] = time.perf_counter() - t0
     ranks = [json.loads((work / f"rank{r}.json").read_text()) for r in range(2)]
-    one, mem_one = ranks[0]["against_one_process"], ranks[0]["memory_one_process"]
-    res.update(
-        meshes=[r["mesh"] for r in ranks], step_ms=[r["step_ms"] for r in ranks],
-        one_process_step_ms=ranks[0]["one_process_step_ms"],
-        losses=ranks[0]["losses"],
-        one_process_losses=ranks[0]["one_process_losses"],
-        against_one_process=one,
-        memory={"side": SPATIAL_MEMORY[0], "batch": SPATIAL_MEMORY[1],
-                "rank_peak_gib": [r["memory"]["peak_gib"] for r in ranks],
-                "one_process_peak_gib": mem_one["peak_gib"],
-                "rank_step_ms": [r["memory"]["step_ms"] for r in ranks],
-                "one_process_step_ms": mem_one["step_ms"],
-                "losses": ranks[0]["memory"]["losses"],
-                "one_process_losses": mem_one["losses"]},
-        cli=[r["cli"] for r in ranks])
-    mem = res["memory"]
-    mem["ratio"] = max(mem["rank_peak_gib"]) / mem["one_process_peak_gib"]
-
-    # (a)
+    res["meshes"] = [r["mesh"] for r in ranks]
     if res["meshes"] != [[1, 2, 0], [1, 2, 1]]:
         failures.append(f"meshes {res['meshes']}")
-    if not one["ok"]:
-        failures.append(f"spatial steps against one process {one}")
-    if ranks[0]["digests"] != ranks[1]["digests"] or \
-            ranks[0]["losses"] != ranks[1]["losses"]:
-        failures.append("the ranks' states differ after a spatial step")
-    # (b)
-    if not mem["ratio"] <= SPATIAL_MEMORY_RATIO:
-        failures.append(f"a space rank's peak is {mem['ratio']:.3f} of one "
-                        f"process's (limit {SPATIAL_MEMORY_RATIO})")
-    if not all(np.isfinite(mem["losses"] + mem["one_process_losses"])):
-        failures.append(f"1024 losses {mem['losses']} "
-                        f"{mem['one_process_losses']}")
-    # (c)
-    cli = res["cli"]
-    if [c["mesh"] for c in cli] != [[1, 2, 0], [1, 2, 1]]:
-        failures.append(f"model-train-2d meshes {[c['mesh'] for c in cli]}")
-    if cli[0]["digests_before_load"] != cli[1]["digests_before_load"] or \
-            not cli[0]["digests_before_load"]:
-        failures.append("the ranks' weights differ before a load")
-    if not all(np.isfinite(cli[0]["eval_scores"])):
-        failures.append(f"model-train-2d eval scores {cli[0]['eval_scores']}")
-    ckpts = sorted((work / "cli").glob("*_U_Net_trained_2d_model.pytorch"))
-    csvs = sorted((work / "cli").glob("*_train_stats.csv"))
-    if len(ckpts) != 1 or len(csvs) != 1:
-        failures.append(f"{len(ckpts)} checkpoints, {len(csvs)} CSVs")
-    else:
-        t0 = time.perf_counter()
-        predict_2d_model.main([str(ckpts[0]), str(work / "cli" / "train_data.h5"),
-                               "--data_dir", str(work / "cli")])
-        res["predict_main_s"] = time.perf_counter() - t0
-        out = predict_2d_model.create_output_path(work / "cli",
-                                                  Path("train_data.h5"))
-        predicted, _ = hdf5.read(out)
-        res["predicted_shape"] = list(predicted.shape)
-        res["predicted_mean_iou"] = volume_mean_iou(predicted, labels, dev)
-        if predicted.shape != labels.shape or predicted.max() > 1:
-            failures.append(f"predicted labels {predicted.shape} "
-                            f"max {predicted.max()}")
+    if not pairs_only:
+        one = ranks[0]["against_one_process"]
+        mem_one = ranks[0]["memory_one_process"]
+        res.update(
+            step_ms=[r["step_ms"] for r in ranks],
+            one_process_step_ms=ranks[0]["one_process_step_ms"],
+            losses=ranks[0]["losses"],
+            one_process_losses=ranks[0]["one_process_losses"],
+            against_one_process=one,
+            memory={"side": SPATIAL_MEMORY[0], "batch": SPATIAL_MEMORY[1],
+                    "rank_peak_gib": [r["memory"]["peak_gib"] for r in ranks],
+                    "one_process_peak_gib": mem_one["peak_gib"],
+                    "rank_step_ms": [r["memory"]["step_ms"] for r in ranks],
+                    "one_process_step_ms": mem_one["step_ms"],
+                    "losses": ranks[0]["memory"]["losses"],
+                    "one_process_losses": mem_one["losses"]},
+            cli=[r["cli"] for r in ranks])
+        mem = res["memory"]
+        mem["ratio"] = max(mem["rank_peak_gib"]) / mem["one_process_peak_gib"]
+
+        # (a)
+        if not one["ok"]:
+            failures.append(f"spatial steps against one process {one}")
+        if ranks[0]["digests"] != ranks[1]["digests"] or \
+                ranks[0]["losses"] != ranks[1]["losses"]:
+            failures.append("the ranks' states differ after a spatial step")
+        # (b)
+        if not mem["ratio"] <= SPATIAL_MEMORY_RATIO:
+            failures.append(f"a space rank's peak is {mem['ratio']:.3f} of one "
+                            f"process's (limit {SPATIAL_MEMORY_RATIO})")
+        if not all(np.isfinite(mem["losses"] + mem["one_process_losses"])):
+            failures.append(f"1024 losses {mem['losses']} "
+                            f"{mem['one_process_losses']}")
+        # (c)
+        cli = res["cli"]
+        if [c["mesh"] for c in cli] != [[1, 2, 0], [1, 2, 1]]:
+            failures.append(f"model-train-2d meshes {[c['mesh'] for c in cli]}")
+        if cli[0]["digests_before_load"] != cli[1]["digests_before_load"] or \
+                not cli[0]["digests_before_load"]:
+            failures.append("the ranks' weights differ before a load")
+        if not all(np.isfinite(cli[0]["eval_scores"])):
+            failures.append(f"model-train-2d eval scores {cli[0]['eval_scores']}")
+        ckpts = sorted((work / "cli").glob("*_U_Net_trained_2d_model.pytorch"))
+        csvs = sorted((work / "cli").glob("*_train_stats.csv"))
+        if len(ckpts) != 1 or len(csvs) != 1:
+            failures.append(f"{len(ckpts)} checkpoints, {len(csvs)} CSVs")
+        else:
+            t0 = time.perf_counter()
+            predict_2d_model.main([str(ckpts[0]), str(work / "cli" / "train_data.h5"),
+                                   "--data_dir", str(work / "cli")])
+            res["predict_main_s"] = time.perf_counter() - t0
+            out = predict_2d_model.create_output_path(work / "cli",
+                                                      Path("train_data.h5"))
+            predicted, _ = hdf5.read(out)
+            res["predicted_shape"] = list(predicted.shape)
+            res["predicted_mean_iou"] = volume_mean_iou(predicted, labels, dev)
+            if predicted.shape != labels.shape or predicted.max() > 1:
+                failures.append(f"predicted labels {predicted.shape} "
+                                f"max {predicted.max()}")
+
+    # (d)
+    res["pairs_s"], res["pairs"] = ranks[0]["pairs_s"], []
+    for i, (mine, other) in enumerate(zip(ranks[0]["pairs"], ranks[1]["pairs"])):
+        # The rank that ran the pair's one-process reference.
+        mine = dict(mine, **{k: v for k, v in ranks[i % 2]["pairs"][i].items()
+                             if k.startswith(("one_process", "first_loss64"))})
+        name = f"{mine['type']}/{mine['encoder']}"
+        pair = {"pair": name, "losses": mine["losses"],
+                "one_process_losses": mine["one_process_losses"],
+                "eval": mine["eval"], "one_process_eval": mine["one_process_eval"],
+                "step_ms": [mine["step_ms"], other["step_ms"]],
+                "one_process_step_ms": mine["one_process_step_ms"],
+                "peak_gib": [mine["peak_gib"], other["peak_gib"]]}
+        pair["loss_rel_err"] = [
+            abs(a - b) / abs(b) for a, b in zip(mine["losses"],
+                                                mine["one_process_losses"])]
+        # BatchNorm over few values (ResNeSt's split attention over the
+        # batch's pooled values) amplifies float32 rounding: the allowance
+        # is at least twice the one process's first-step distance from
+        # float64.
+        first = mine["one_process_losses"][0]
+        pair["loss64_rel_dist"] = (0.0 if mine["first_loss64"] is None else
+                                   abs(first - mine["first_loss64"]) / abs(first))
+        rtol = max(SPATIAL_PAIR_RTOL, 2 * pair["loss64_rel_dist"])
+        pair["loss_rtol"] = [rtol] + [max(rtol, SPATIAL_PAIR_LATER_RTOL)] * (
+            len(mine["losses"]) - 1)
+        pair["eval_abs_err"] = max(
+            abs(a - b) for a, b in zip(mine["eval"], mine["one_process_eval"]))
+        res["pairs"].append(pair)
+        if not all(e <= t for e, t in zip(pair["loss_rel_err"],
+                                          pair["loss_rtol"])):
+            failures.append(f"{name}: spatial losses {mine['losses']} against "
+                            f"{mine['one_process_losses']}")
+        if not pair["eval_abs_err"] <= SPATIAL_PAIR_EVAL_ATOL:
+            failures.append(f"{name}: spatial eval {mine['eval']} against "
+                            f"{mine['one_process_eval']}")
+        if mine["digests"] != other["digests"] or \
+                mine["losses"] != other["losses"] or mine["eval"] != other["eval"]:
+            failures.append(f"{name}: the ranks differ after a spatial step")
+        if not all(np.isfinite(mine["losses"] + mine["eval"])):
+            failures.append(f"{name}: losses {mine['losses']} eval {mine['eval']}")
 
     launches = {entry: 0 for _, _, entry, _, _ in KERNELS}
     for r in ranks:
-        runs = (("spatial steps", r["launches"], SPATIAL_STEPS),
-                ("1024 steps", r["memory"]["launches"], SPATIAL_MEMORY[2]),
-                ("model-train-2d steps", r["cli"]["launches"],
-                 r["cli"]["train_steps"]))
+        runs = [(f"{p['type']}/{p['encoder']} steps", p["launches"],
+                 SPATIAL_PAIR_STEPS) for p in r["pairs"]]
+        if not pairs_only:
+            runs += [("spatial steps", r["launches"], SPATIAL_STEPS),
+                     ("1024 steps", r["memory"]["launches"], SPATIAL_MEMORY[2]),
+                     ("model-train-2d steps", r["cli"]["launches"],
+                      r["cli"]["train_steps"])]
         for what, counted, steps in runs:
             for entry in launches:
                 if counted[entry] != steps:
@@ -3995,10 +4200,15 @@ def main() -> int:
         archs = architectures_phase(images, masks, dev, out_dir)
         encoders = encoders_phase(images, masks, dev, out_dir)
         formats = formats_phase(dev, out_dir, cli)
-        interchange = interchange_phase(dev, out_dir)
-        virtual = virtual_phase(dev, out_dir)
-        parallel = parallel_phase(model_out, out_dir)
-    spatial = spatial_phase(dev, out_dir)
+        # The spatial phase's ranks step beside the interchange, virtual
+        # and parallel phases (the card and the host idle through most of
+        # each), in child processes that count their own launches.
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            spatial_run = pool.submit(spatial_phase, dev, out_dir)
+            interchange = interchange_phase(dev, out_dir)
+            virtual = virtual_phase(dev, out_dir)
+            parallel = parallel_phase(model_out, out_dir)
+            spatial = spatial_run.result()
     sweep = train_batch_sweep(images, masks, dev)
     counted = (summary, cli, losses, pretrained, archs, encoders, formats,
                interchange, virtual, parallel, spatial)

@@ -1,8 +1,10 @@
 """`spatial_partitions` in the trainer's settings, against the JAX
 trainer: a count that does not divide the device count raises the JAX
 package's ValueError; on the CPU the port has one device. A count that
-divides it and is above 1 splits image height, for the (decoder, encoder)
-pairs the port row-shards; any other pair is refused by name."""
+divides it and is above 1 splits image height, for every (decoder,
+encoder) pair that the registry builds (PAN on a ResNeSt it refuses
+itself, as the JAX registry does); an image side whose logits the
+segmentation head would resize to the input is refused by name."""
 
 import jax
 import numpy as np
@@ -55,7 +57,7 @@ def test_one_partition_or_none_trains_on_one_device(settings, partitions):
 def test_partitions_dividing_the_gpu_count_name_multi_gpu(settings, monkeypatch):
     """On a host with two GPUs, two partitions divide the count: the JAX
     trainer splits image height over both, and so does the port for U-Net
-    on ResNet-34; FPN, or U-Net on an EfficientNet, it refuses by name. Four
+    on ResNet-34, for FPN, and for U-Net on an EfficientNet. Four
     partitions do not divide two GPUs."""
     import torch
 
@@ -68,14 +70,10 @@ def test_partitions_dividing_the_gpu_count_name_multi_gpu(settings, monkeypatch)
     settings.model = dict(settings.model, type="U_Net", encoder_name="resnet34")
     assert check_spatial_partitions(settings, torch.device("cuda")) == 2
     settings.model = dict(settings.model, type="FPN")
-    with pytest.raises(NotImplementedError,
-                       match="spatial partitioning .* the FPN decoder"):
-        check_spatial_partitions(settings, torch.device("cuda"))
+    assert check_spatial_partitions(settings, torch.device("cuda")) == 2
     settings.model = dict(settings.model, type="U_Net",
                           encoder_name="efficientnet-b3")
-    with pytest.raises(NotImplementedError,
-                       match="spatial partitioning .* the efficientnet-b3 encoder"):
-        check_spatial_partitions(settings, torch.device("cuda"))
+    assert check_spatial_partitions(settings, torch.device("cuda")) == 2
     settings.spatial_partitions = 4
     with pytest.raises(ValueError, match=r"must divide the device count \(2\)"):
         check_spatial_partitions(settings, torch.device("cuda"))
@@ -88,18 +86,50 @@ def _all_pairs():
 
 
 @pytest.mark.parametrize("model_type,encoder", _all_pairs())
-def test_spatial_partitioning_takes_the_row_sharded_pairs_only(model_type,
-                                                               encoder):
-    """U-Net and U-Net++ on resnet34, resnet50 and resnext50_32x4d pass;
-    every other pair raises NotImplementedError naming its decoder, or,
-    under U-Net or U-Net++, its encoder."""
-    from volume_segmantics_tpu_torch.parallel.spatial import check_spatial_model
+def test_spatial_partitioning_takes_the_row_sharded_pairs_only(
+        settings, monkeypatch, model_type, encoder):
+    """Every pair passes the trainer's check on two GPUs with two
+    partitions at the shipped image size, but PAN on a ResNeSt, which the
+    registry itself refuses (the JAX registry's ValueError)."""
+    import torch
 
-    if model_type in ("U_NET", "U_NET_PLUS_PLUS") and encoder in (
-            "resnet34", "resnet50", "resnext50_32x4d"):
-        check_spatial_model(model_type, encoder)
-        return
-    named = encoder if model_type in ("U_NET", "U_NET_PLUS_PLUS") else model_type
+    from volume_segmantics_tpu_torch.model.operations.vol_seg_2d_trainer import (
+        check_spatial_partitions,
+    )
+    from volume_segmantics_tpu_torch.models.registry import create_model
+
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    settings.spatial_partitions = 2
+    settings.image_size = 256
+    settings.model = dict(settings.model, type=model_type, encoder_name=encoder)
+    assert check_spatial_partitions(settings, torch.device("cuda")) == 2
+    if model_type == "PAN" and "resnest" in encoder:
+        with pytest.raises(ValueError, match="not compatible with PAN"):
+            create_model(settings.model)
+
+
+@pytest.mark.parametrize("model_type,image_size",
+                         [("DeepLabV3", 100), ("FPN", 98), ("PAN", 66)])
+def test_an_image_size_whose_logits_the_head_resizes_is_refused_by_name(
+        settings, monkeypatch, model_type, image_size):
+    """A side that is not a multiple of the head's upsampling (x8 for
+    DeepLabV3, x4 for FPN and PAN) leaves logits the head resizes to the
+    input with half-pixel centres, which is not row-sharded; a multiple
+    of it passes, and so does any side without partitions."""
+    import torch
+
+    from volume_segmantics_tpu_torch.model.operations.vol_seg_2d_trainer import (
+        check_spatial_partitions,
+    )
+
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    settings.model = dict(settings.model, type=model_type)
+    settings.image_size = image_size
+    settings.spatial_partitions = 1
+    assert check_spatial_partitions(settings, torch.device("cuda")) == 1
+    settings.spatial_partitions = 2
     with pytest.raises(NotImplementedError,
-                       match=f"spatial partitioning .* the {named} "):
-        check_spatial_model(model_type, encoder)
+                       match="spatial partitioning .* half-pixel resize"):
+        check_spatial_partitions(settings, torch.device("cuda"))
+    settings.image_size = image_size - image_size % 8
+    assert check_spatial_partitions(settings, torch.device("cuda")) == 2

@@ -178,3 +178,185 @@ def trainer_rank(rank: int, in_path: str, out_dir: str) -> None:
                         trainer_settings(**blob["settings"]), blob["lr"])
     got["log"] = [m for m in records if "Data-parallel training" in m]
     torch.save(got, Path(out_dir, f"rank{rank}.pt"))
+
+
+def op_layer(case: dict):
+    """The layer an op case of `test_torch_spatial_ops.py` names, its
+    parameters from the case's seed (float64, or float32 where the layer
+    computes in float32): a function of its input, and the module whose
+    parameters get gradients (None for a function)."""
+    from volume_segmantics_tpu_torch.models.decoders.pan import Pool2
+
+    kind, c = case["op"], case["channels"]
+    torch.manual_seed(case["seed"])
+    if kind == "conv_transpose":
+        module = layers.ConvTranspose2d(c, 6, 4, stride=2, padding=1,
+                                        bias=True)
+    elif kind == "same_conv":
+        k, s, d = case["args"]
+        module = layers.SameConv2d(c, c, k, s, d, groups=c, bias=True)
+    elif kind == "conv":
+        k, d = case["args"]
+        module = layers.Conv2d(c, 6, k, padding=d * (k // 2), dilation=d)
+    elif kind == "group_norm":
+        module = layers.GroupNorm(2, c)
+        torch.nn.init.uniform_(module.weight, 0.5, 1.5)
+        torch.nn.init.normal_(module.bias)
+    elif kind == "pooled":  # 1x1 conv + BnAct on the pooled value
+        module = layers.Pooled(layers.Conv2d(c, 6, 1), layers.BnAct(6))
+        torch.nn.init.normal_(module[1].bias)
+    else:
+        module = None
+    if module is not None:
+        layers.init_like_flax(module, torch.Generator().manual_seed(case["seed"]))
+        module = module.to(case["x"].dtype)
+        return module, module
+    if kind == "mean":
+        return layers.global_avg_pool, None
+    if kind == "resize":
+        out = case["args"]
+        return (lambda x: layers.resize_align_corners(x, out, out)), None
+    if kind == "avg_pool":
+        k, s, p = case["args"]
+        return (lambda x: layers.avg_pool(x, k, s, p)), None
+    if kind == "avg_pool_floor":
+        return layers.AvgPool2d(2, 2), None
+    if kind == "pool2":
+        return Pool2(), None
+    rate, channelwise = case["args"]
+    module = layers.Dropout(rate, channelwise)
+    return module, None
+
+
+def prepare_layer(module: torch.nn.Module, case: dict, mesh=None) -> None:
+    """Training mode, BatchNorm statistics over `mesh`'s global batch and
+    dropout masks from the case's seed (the same on every rank)."""
+    module.train()
+    layers.set_batch_statistics_mesh(module, mesh)
+    layers.set_dropout_generator(
+        module, torch.Generator().manual_seed(case["seed"]), mesh)
+
+
+def ops_rank(rank: int, in_path: str, out_dir: str) -> None:
+    """Each op case of `in_path` (`test_torch_spatial_ops.py`) on this
+    rank's rows and band of rows over the case's (data, space) mesh, in
+    training mode: the output (its band, or the whole value where the op
+    gives one every rank holds), the input band's gradient of
+    sum(y * gy) (gy the case's global output weights; a whole output's
+    sum divided by the space size, so the ranks' losses add up to one),
+    the parameters' gradients and any running statistics."""
+    torch.set_num_threads(cases.THREADS)
+    blob = torch.load(in_path, weights_only=False)
+    meshes = {space: get_mesh(device="cpu", space=space)
+              for space in blob["spaces"]}
+    out = {}
+    for case in blob["cases"]:
+        mesh = meshes[case["space"]]
+        x, gy = case["x"], case["gy"]
+        rows = mesh.rows(x.shape[0])
+        xb = x[rows, :, mesh.band(x.shape[2])].clone().requires_grad_()
+        fn, module = op_layer(case)
+        if isinstance(fn, torch.nn.Module):
+            prepare_layer(fn, case, mesh)
+        with split_rows(mesh):
+            y = fn(xb)
+        whole = case["whole_output"]
+        weights = gy[rows] if whole else gy[rows, :, mesh.band(gy.shape[2])]
+        ((y * weights).sum() / (mesh.space_size if whole else 1)).backward()
+        out[case["name"]] = {
+            "rows": rows, "band": mesh.band(x.shape[2]),
+            "out_band": slice(None) if whole else mesh.band(gy.shape[2]),
+            "y": y.detach(), "gx": xb.grad,
+            "gparams": None if module is None else {
+                n: p.grad for n, p in module.named_parameters()},
+            "stats": None if module is None else {
+                n: v for n, v in module.state_dict().items()
+                if n.endswith(("running_mean", "running_var"))}}
+    torch.save(out, Path(out_dir, f"rank{rank}.pt"))
+
+
+def seeded_model(struc: dict, seed: int = 11):
+    """`struc`'s model with seeded random weights (the same in every
+    process: the CPU generator)."""
+    from volume_segmantics_tpu_torch.models.registry import create_model
+
+    torch.manual_seed(seed)
+    return create_model(struc)
+
+
+def float64_first_loss(case: dict, images, masks) -> float:
+    """The first train step's loss of `case` on the global batch in
+    float64 (`torch_parallel_cases.float64_first_step`'s forward: the same
+    augmentation draws and dropout masks; BatchNorm in float64)."""
+    from volume_segmantics_tpu_torch.models.registry import create_model
+    from volume_segmantics_tpu_torch.ops.augment import augment_batch_u8
+    from volume_segmantics_tpu_torch.parallel.train import normalise
+
+    model = create_model(case["struc"])
+    model.load_state_dict(case["state"])
+    model = model.double().train()
+    layers.set_dropout_generator(
+        model, torch.Generator().manual_seed(case["seed"] + 1))
+    imgs, msks = augment_batch_u8(torch.Generator().manual_seed(case["seed"]),
+                                  torch.from_numpy(images),
+                                  torch.from_numpy(masks), images.shape[-1])
+    targets = torch.nn.functional.one_hot(msks.long(), case["struc"]["classes"])
+    forward, layers.BnAct.forward = layers.BnAct.forward, cases._bn_act_float64
+    try:
+        with torch.no_grad():
+            return cases.loss_fn(case["loss"])(
+                model(normalise(imgs.double())),
+                targets.permute(0, 3, 1, 2).double()).item()
+    finally:
+        layers.BnAct.forward = forward
+
+
+def family_rank(rank: int, in_path: str, out_dir: str) -> None:
+    """Over a 1 x 2 mesh, from each pair's seeded weights
+    (`seeded_model`): for each of the blob's `train` pairs one train step
+    (`torch_parallel_cases.train_run`: DiceLoss, augmentation on, a seeded
+    dropout generator, lr `lr`), rank 0 adding the one-process step, the
+    comparison (`against_one_process`, without a float64 step) and the
+    first step's float64 loss (`float64_first_loss`; none for FPN, whose
+    GroupNorm runs in float32 whatever its input); for
+    each of its `eval` pairs the eval step (DiceLoss, MeanIoU), rank 0
+    adding the one-process eval step."""
+    from volume_segmantics_tpu_torch.data.metrics import mean_iou
+    from volume_segmantics_tpu_torch.parallel.mesh import Mesh
+    from volume_segmantics_tpu_torch.parallel.train import build_dp_eval_step
+
+    torch.set_num_threads(cases.THREADS)
+    blob = torch.load(in_path, weights_only=False)
+    mesh = get_mesh(device="cpu", space=2)
+    images, masks = blob["images"], blob["masks"]
+
+    def evaluate(model, on):
+        step = build_dp_eval_step(model, cases.loss_fn("DiceLoss"), mean_iou,
+                                  num_labels=2, mesh=on,
+                                  compute_dtype=torch.float32)
+        rows = on.rows(images.shape[0])
+        loss, score = step(torch.from_numpy(images[rows]),
+                           torch.from_numpy(masks[rows]), images.shape[0])
+        return loss.item(), score.item()
+
+    out = {"train": [], "eval": []}
+    for struc in blob["train"]:
+        case = dict(struc=struc, state=seeded_model(struc).state_dict(),
+                    loss="DiceLoss",
+                    frozen=False, augment=True, lr=blob["lr"], steps=1,
+                    seed=11)
+        run = cases.train_run(case, images, masks, mesh)
+        res = {"losses": run["losses"], "digest": cases.digest(run["final"])}
+        if rank == 0:
+            ref = cases.train_run(case, images, masks, Mesh())
+            res.update(cases.against_one_process(run, ref, None), loss64=(
+                None if struc["type"] == "FPN"
+                else float64_first_loss(case, images, masks)))
+        out["train"].append(res)
+    for struc in blob["eval"]:
+        model = seeded_model(struc)
+        res = {"eval": evaluate(model, mesh)}
+        if rank == 0:
+            res["ref_eval"] = evaluate(model, Mesh())
+        out["eval"].append(res)
+    torch.save(out, Path(out_dir, f"rank{rank}.pt"))

@@ -2,10 +2,11 @@
 """`chip_smoke.py`'s spatial phase alone, on a GPU. Builds the kernels,
 turns TF32 off as `chip_smoke.py` does, prints the card's line and the
 phase's JSON line, writes its result to `--json` and exits 1 on any
-failure.
+failure. `--pairs-only` runs its part (d) alone: the other (decoder,
+encoder) pairs over the two ranks against one process.
 
     python3 tools/run_torch_spatial_phase.py [--out-dir chip_smoke_out]
-        [--json chip_smoke_out/spatial.json]
+        [--json chip_smoke_out/spatial.json] [--pairs-only]
 """
 
 import argparse
@@ -26,6 +27,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out-dir", default="chip_smoke_out")
     parser.add_argument("--json", default="chip_smoke_out/spatial.json")
+    parser.add_argument("--pairs-only", action="store_true",
+                        help="run part (d) alone")
     args = parser.parse_args()
     from volume_segmantics_tpu_torch.ops import kernels
 
@@ -37,7 +40,8 @@ def main() -> int:
     kernels.library()
     out = Path(args.out_dir)
     out.mkdir(parents=True, exist_ok=True)
-    res = chip_smoke.spatial_phase(torch.device("cuda"), out)
+    res = chip_smoke.spatial_phase(torch.device("cuda"), out,
+                                   pairs_only=args.pairs_only)
     res["command_s"] = time.perf_counter() - t0
     Path(args.json).parent.mkdir(parents=True, exist_ok=True)
     Path(args.json).write_text(json.dumps(res, indent=1))

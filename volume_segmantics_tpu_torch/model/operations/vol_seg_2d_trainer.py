@@ -65,13 +65,13 @@ from volume_segmantics_tpu_torch.models.checkpoint import (
     checkpoint_from_bytes,
     save_checkpoint,
 )
+from volume_segmantics_tpu_torch.models.registry import check_head_resize
 from volume_segmantics_tpu_torch.models.torch_export import flax_param_paths
 from volume_segmantics_tpu_torch.parallel.mesh import (
     check_space,
     get_mesh,
     replicate,
 )
-from volume_segmantics_tpu_torch.parallel.spatial import check_spatial_model
 from volume_segmantics_tpu_torch.parallel.train import (
     autocast,
     build_dp_eval_step,
@@ -104,10 +104,11 @@ def check_spatial_partitions(settings: SimpleNamespace,
     axis of its device mesh that splits image height; returned. A count
     that does not divide the device count (the ranks of the process group;
     without one, the GPUs, or 1 on the CPU) raises the JAX package's
-    ValueError (its `parallel/mesh.py:get_mesh`). Above 1 the model must
-    be one whose every layer splits its rows: a (decoder, encoder) pair
-    outside `parallel.spatial.SPATIAL_DECODERS` x `SPATIAL_ENCODERS` raises
-    NotImplementedError naming it."""
+    ValueError (its `parallel/mesh.py:get_mesh`). Above 1 every (decoder,
+    encoder) pair that `create_model` builds splits its rows; an image
+    side whose logits the segmentation head would resize to the input,
+    which is not row-sharded, raises NotImplementedError naming it
+    (`models.registry.check_head_resize`), before any step."""
     space = int(getattr(settings, "spatial_partitions", 1) or 1)
     if dist.is_initialized():
         count = dist.get_world_size()
@@ -115,8 +116,10 @@ def check_spatial_partitions(settings: SimpleNamespace,
         count = torch.cuda.device_count() if device.type == "cuda" else 1
     check_space(space, count)
     if space > 1:
-        check_spatial_model(settings.model["type"],
-                            settings.model.get("encoder_name", "resnet34"))
+        check_head_resize(
+            utils.create_enum_from_setting(settings.model["type"],
+                                           utils.ModelType),
+            int(settings.image_size))
     return space
 
 

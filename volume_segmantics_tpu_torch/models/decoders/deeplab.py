@@ -20,9 +20,11 @@ import torch.nn as nn
 
 from volume_segmantics_tpu_torch.models.layers import (
     BnAct,
+    Conv2d,
     ConvBnAct,
     Dropout,
-    GlobalAvgPool,
+    Pooled,
+    image_size,
     resize_align_corners,
 )
 
@@ -37,9 +39,9 @@ def separable_conv(in_ch: int, out_ch: int, dilation: int = 1):
     """smp SeparableConv2d: depthwise 3x3 (padding = dilation), then a
     pointwise 1x1, both without bias."""
     return nn.Sequential(
-        nn.Conv2d(in_ch, in_ch, 3, padding=dilation, dilation=dilation,
-                  groups=in_ch, bias=False),
-        nn.Conv2d(in_ch, out_ch, 1, bias=False),
+        Conv2d(in_ch, in_ch, 3, padding=dilation, dilation=dilation,
+               groups=in_ch, bias=False),
+        Conv2d(in_ch, out_ch, 1, bias=False),
     )
 
 
@@ -54,12 +56,11 @@ class ASPP(nn.Module):
                     separable_conv(in_ch, out_ch, rate), BnAct(out_ch)))
             else:
                 branches.append(ConvBnAct(in_ch, out_ch, 3, dilation=rate))
-        branches.append(nn.Sequential(
-            GlobalAvgPool(), nn.Conv2d(in_ch, out_ch, 1, bias=False),
-            BnAct(out_ch)))
+        branches.append(Pooled(Conv2d(in_ch, out_ch, 1, bias=False),
+                               BnAct(out_ch)))
         self.convs = nn.ModuleList(branches)
         self.project = nn.Sequential(
-            nn.Conv2d(len(branches) * out_ch, out_ch, 1, bias=False),
+            Conv2d(len(branches) * out_ch, out_ch, 1, bias=False),
             BnAct(out_ch), Dropout(ASPP_DROPOUT))
 
     def forward(self, x):
@@ -76,7 +77,7 @@ class DeepLabV3Decoder(nn.Sequential):
     def __init__(self, encoder_channels: Sequence[int]):
         super().__init__(
             ASPP(encoder_channels[-1]),
-            nn.Conv2d(OUT_CHANNELS, OUT_CHANNELS, 3, padding=1, bias=False),
+            Conv2d(OUT_CHANNELS, OUT_CHANNELS, 3, padding=1, bias=False),
             BnAct(OUT_CHANNELS),
         )
 
@@ -102,6 +103,6 @@ class DeepLabV3PlusDecoder(nn.Module):
     def forward(self, features):
         x = self.aspp(features[-1])
         high = features[-4]  # stride 4
-        x = resize_align_corners(x, high.shape[2], high.shape[3])
+        x = resize_align_corners(x, *image_size(high))
         high = self.block1(high)
         return self.block2(torch.cat([x, high.to(x.dtype)], dim=1))

@@ -15,7 +15,12 @@ from typing import Sequence
 import torch.nn as nn
 import torch.nn.functional as F
 
-from volume_segmantics_tpu_torch.models.layers import Dropout, upsample
+from volume_segmantics_tpu_torch.models.layers import (
+    Conv2d,
+    Dropout,
+    GroupNorm,
+    upsample,
+)
 
 PYRAMID_CHANNELS = 256
 SEGMENTATION_CHANNELS = 128
@@ -27,8 +32,8 @@ class Conv3x3GNReLU(nn.Module):
         super().__init__()
         self.do_upsample = do_upsample
         self.block = nn.Sequential(
-            nn.Conv2d(in_ch, out_ch, 3, padding=1, bias=False),
-            nn.GroupNorm(32, out_ch, eps=1e-5),
+            Conv2d(in_ch, out_ch, 3, padding=1, bias=False),
+            GroupNorm(32, out_ch, eps=1e-5),
         )
 
     def forward(self, x):
@@ -54,7 +59,7 @@ class SegmentationBlock(nn.Module):
 class FPNBlock(nn.Module):
     def __init__(self, pyramid_ch: int, skip_ch: int):
         super().__init__()
-        self.skip_conv = nn.Conv2d(skip_ch, pyramid_ch, 1)
+        self.skip_conv = Conv2d(skip_ch, pyramid_ch, 1)
 
     def forward(self, x, skip):
         return upsample(x, 2) + self.skip_conv(skip)
@@ -66,7 +71,7 @@ class FPNDecoder(nn.Module):
     def __init__(self, encoder_channels: Sequence[int]):
         super().__init__()
         c2, c3, c4, c5 = encoder_channels[-4:]
-        self.p5 = nn.Conv2d(c5, PYRAMID_CHANNELS, 1)
+        self.p5 = Conv2d(c5, PYRAMID_CHANNELS, 1)
         self.p4 = FPNBlock(PYRAMID_CHANNELS, c4)
         self.p3 = FPNBlock(PYRAMID_CHANNELS, c3)
         self.p2 = FPNBlock(PYRAMID_CHANNELS, c2)

@@ -15,7 +15,11 @@ from typing import Sequence
 
 import torch.nn as nn
 
-from volume_segmantics_tpu_torch.models.layers import BnAct, ConvBnAct
+from volume_segmantics_tpu_torch.models.layers import (
+    BnAct,
+    ConvBnAct,
+    ConvTranspose2d,
+)
 
 PREFINAL_CHANNELS = 32
 
@@ -27,7 +31,7 @@ class LinknetDecoderBlock(nn.Module):
         self.block = nn.Sequential(
             ConvBnAct(in_ch, mid, 1),
             nn.Sequential(
-                nn.ConvTranspose2d(mid, mid, 4, stride=2, padding=1, bias=False),
+                ConvTranspose2d(mid, mid, 4, stride=2, padding=1, bias=False),
                 BnAct(mid),
             ),
             ConvBnAct(mid, out_ch, 1),

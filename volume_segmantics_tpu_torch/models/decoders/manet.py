@@ -23,10 +23,12 @@ from volume_segmantics_tpu_torch.models.decoders.unet import (
     UnetDecoderBlock,
 )
 from volume_segmantics_tpu_torch.models.layers import (
+    Conv2d,
     ConvBnAct,
-    GlobalAvgPool,
+    Pooled,
     upsample,
 )
+from volume_segmantics_tpu_torch.parallel import spatial
 
 PAB_CHANNELS = 64
 REDUCTION = 16
@@ -37,12 +39,23 @@ class PAB(nn.Module):
 
     def __init__(self, channels: int):
         super().__init__()
-        self.top_conv = nn.Conv2d(channels, PAB_CHANNELS, 1)
-        self.center_conv = nn.Conv2d(channels, PAB_CHANNELS, 1)
-        self.bottom_conv = nn.Conv2d(channels, channels, 3, padding=1)
-        self.out_conv = nn.Conv2d(channels, channels, 3, padding=1)
+        self.top_conv = Conv2d(channels, PAB_CHANNELS, 1)
+        self.center_conv = Conv2d(channels, PAB_CHANNELS, 1)
+        self.bottom_conv = Conv2d(channels, channels, 3, padding=1)
+        self.out_conv = Conv2d(channels, channels, 3, padding=1)
 
     def forward(self, x):
+        mesh = spatial.active_mesh()
+        if mesh is None:
+            return self._attend(x)
+        # The softmax spans every position of a sample: gather the map
+        # whole on each rank of the space group (8x8 at 256x256), attend,
+        # keep this rank's band.
+        with spatial.replicated():
+            out = self._attend(spatial.gather_rows(x, mesh))
+        return out[:, :, mesh.band(x.shape[3])]
+
+    def _attend(self, x):
         n, c, h, w = x.shape
         top = self.top_conv(x).flatten(2)  # (N, P, HW)
         center = self.center_conv(x).flatten(2).transpose(1, 2)  # (N, HW, P)
@@ -60,11 +73,10 @@ def channel_se(channels: int) -> nn.Sequential:
     """smp MFAB's channel attention: pool, 1x1 squeeze (bias), ReLU, 1x1
     excite (bias), sigmoid; the convs at `1` and `3`."""
     squeezed = max(channels // REDUCTION, 1)
-    return nn.Sequential(
-        GlobalAvgPool(),
-        nn.Conv2d(channels, squeezed, 1),
+    return Pooled(
+        Conv2d(channels, squeezed, 1),
         nn.ReLU(),
-        nn.Conv2d(squeezed, channels, 1),
+        Conv2d(squeezed, channels, 1),
         nn.Sigmoid(),
     )
 

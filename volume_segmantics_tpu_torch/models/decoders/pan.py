@@ -19,11 +19,13 @@ from typing import Sequence
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from volume_segmantics_tpu_torch.models.layers import (
     BnAct,
-    GlobalAvgPool,
+    Conv2d,
+    Pooled,
+    image_size,
+    max_pool,
     resize_align_corners,
 )
 
@@ -37,8 +39,8 @@ class ConvBnRelu(nn.Module):
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int,
                  add_relu: bool = True):
         super().__init__()
-        self.conv = nn.Conv2d(in_ch, out_ch, kernel_size,
-                              padding=kernel_size // 2)
+        self.conv = Conv2d(in_ch, out_ch, kernel_size,
+                           padding=kernel_size // 2)
         self.bn = BnAct(out_ch, "relu" if add_relu else None)
 
     def forward(self, x):
@@ -46,20 +48,19 @@ class ConvBnRelu(nn.Module):
 
 
 class Pool2(nn.Module):
-    """MaxPool2d(2, 2), or x itself once a side is below 2 (the JAX
-    decoder's `_pool2`)."""
+    """MaxPool2d(2, 2), or x itself once a side of the (global) image is
+    below 2 (the JAX decoder's `_pool2`)."""
 
     def forward(self, x):
-        if x.shape[2] < 2 or x.shape[3] < 2:
+        if min(image_size(x)) < 2:
             return x
-        return F.max_pool2d(x, 2, 2)
+        return max_pool(x, 2, 2, 0)
 
 
 class FPABlock(nn.Module):
     def __init__(self, in_ch: int, out_ch: int):
         super().__init__()
-        self.branch1 = nn.Sequential(GlobalAvgPool(),
-                                     ConvBnRelu(in_ch, out_ch, 1))
+        self.branch1 = Pooled(ConvBnRelu(in_ch, out_ch, 1))
         self.mid = nn.Sequential(ConvBnRelu(in_ch, out_ch, 1))
         self.down1 = nn.Sequential(Pool2(), ConvBnRelu(in_ch, 1, 7))
         self.down2 = nn.Sequential(Pool2(), ConvBnRelu(1, 1, 5))
@@ -69,7 +70,7 @@ class FPABlock(nn.Module):
         self.conv1 = ConvBnRelu(1, 1, 7)
 
     def forward(self, x):
-        h, w = x.shape[2], x.shape[3]
+        h, w = image_size(x)
         glob = self.branch1(x)
         mid = self.mid(x)
         x1 = self.down1(x)
@@ -89,12 +90,11 @@ class GAUBlock(nn.Module):
 
     def __init__(self, in_ch: int, out_ch: int):
         super().__init__()
-        self.conv1 = nn.Sequential(
-            GlobalAvgPool(), ConvBnRelu(out_ch, out_ch, 1, add_relu=False))
+        self.conv1 = Pooled(ConvBnRelu(out_ch, out_ch, 1, add_relu=False))
         self.conv2 = ConvBnRelu(in_ch, out_ch, 3)
 
     def forward(self, x_low, y_high):
-        y_up = resize_align_corners(y_high, x_low.shape[2], x_low.shape[3])
+        y_up = resize_align_corners(y_high, *image_size(x_low))
         x = self.conv2(x_low)
         g = torch.sigmoid(self.conv1(y_high)).to(x.dtype)
         return y_up + x * g

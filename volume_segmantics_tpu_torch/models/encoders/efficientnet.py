@@ -30,7 +30,13 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from volume_segmantics_tpu_torch.models.layers import BnAct, SameConv2d
+from volume_segmantics_tpu_torch.models.layers import (
+    BnAct,
+    Conv2d,
+    SameConv2d,
+    global_avg_pool,
+)
+from volume_segmantics_tpu_torch.parallel import spatial
 
 # Base (B0) stages: (expand, kernel, stride, channels, repeats)
 B0_STAGES = (
@@ -88,23 +94,25 @@ class MBConvBlock(nn.Module):
         mid = in_ch * expand
         self.expand = expand != 1
         if self.expand:
-            self._expand_conv = nn.Conv2d(in_ch, mid, 1, bias=False)
+            self._expand_conv = Conv2d(in_ch, mid, 1, bias=False)
             self._bn0 = BnAct(mid, "silu", BN_EPS)
         self._depthwise_conv = SameConv2d(mid, mid, kernel, stride, dilation,
                                           groups=mid)
         self._bn1 = BnAct(mid, "silu", BN_EPS)
         se_ch = max(1, int(in_ch * SE_RATIO))
-        self._se_reduce = nn.Conv2d(mid, se_ch, 1)
-        self._se_expand = nn.Conv2d(se_ch, mid, 1)
-        self._project_conv = nn.Conv2d(mid, out_ch, 1, bias=False)
+        self._se_reduce = Conv2d(mid, se_ch, 1)
+        self._se_expand = Conv2d(se_ch, mid, 1)
+        self._project_conv = Conv2d(mid, out_ch, 1, bias=False)
         self._bn2 = BnAct(out_ch, None, BN_EPS)
         self.residual = stride == 1 and in_ch == out_ch
 
     def forward(self, x):
         h = self._bn0(self._expand_conv(x)) if self.expand else x
         h = self._bn1(self._depthwise_conv(h))
-        s = F.silu(self._se_reduce(h.mean(dim=(2, 3), keepdim=True)))
-        h = h * torch.sigmoid(self._se_expand(s))
+        pooled = global_avg_pool(h)
+        with spatial.replicated():  # whole on every rank of a space group
+            s = self._se_expand(F.silu(self._se_reduce(pooled)))
+        h = h * torch.sigmoid(s)
         h = self._bn2(self._project_conv(h))
         return h + x if self.residual else h
 

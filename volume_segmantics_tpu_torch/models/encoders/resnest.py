@@ -27,15 +27,23 @@ from volume_segmantics_tpu_torch.models.encoders.resnet import (
     DILATION_PLANS,
     STAGE_PLANES,
 )
-from volume_segmantics_tpu_torch.models.layers import BnAct, max_pool
+from volume_segmantics_tpu_torch.models.layers import (
+    AvgPool2d,
+    BnAct,
+    Conv2d,
+    avg_pool,
+    global_avg_pool,
+    max_pool,
+)
+from volume_segmantics_tpu_torch.parallel import spatial
 
 RADIX = 2
 REDUCTION = 4
 
 
 def _conv(in_ch, out_ch, k, stride=1, dilation=1, groups=1):
-    return nn.Conv2d(in_ch, out_ch, k, stride, (k // 2) * dilation, dilation,
-                     groups, bias=False)
+    return Conv2d(in_ch, out_ch, k, stride, (k // 2) * dilation, dilation,
+                  groups, bias=False)
 
 
 class SplitAttn(nn.Module):
@@ -50,16 +58,17 @@ class SplitAttn(nn.Module):
         inter = max(channels * RADIX // REDUCTION, 32)
         self.conv = _conv(in_ch, channels * RADIX, 3, 1, dilation, RADIX)
         self.bn0 = BnAct(channels * RADIX)
-        self.fc1 = nn.Conv2d(channels, inter, 1)
+        self.fc1 = Conv2d(channels, inter, 1)
         self.bn1 = BnAct(inter)
-        self.fc2 = nn.Conv2d(inter, channels * RADIX, 1)
+        self.fc2 = Conv2d(inter, channels * RADIX, 1)
 
     def forward(self, x):
         h = self.bn0(self.conv(x))
         n = h.shape[0]
         splits = h.unflatten(1, (RADIX, -1))
-        gap = splits.sum(dim=1).mean(dim=(2, 3), keepdim=True)
-        a = self.fc2(self.bn1(self.fc1(gap)))
+        gap = global_avg_pool(splits.sum(dim=1))
+        with spatial.replicated():  # whole on every rank of a space group
+            a = self.fc2(self.bn1(self.fc1(gap)))
         att = torch.softmax(a.view(n, RADIX, -1).float(), dim=1).to(h.dtype)
         return (splits * att[..., None, None]).sum(dim=1)
 
@@ -79,7 +88,7 @@ class ResNestBottleneck(nn.Module):
         self.bn3 = BnAct(out_ch, act=None)
         self.downsample = None
         if downsample:
-            pool = (nn.AvgPool2d(stride, stride) if stride > 1
+            pool = (AvgPool2d(stride, stride) if stride > 1
                     else nn.Identity())
             self.downsample = nn.Sequential(pool, _conv(in_ch, out_ch, 1),
                                             BnAct(out_ch, act=None))
@@ -87,7 +96,7 @@ class ResNestBottleneck(nn.Module):
     def forward(self, x):
         h = self.conv2(self.bn1(self.conv1(x)))
         if self.stride > 1:
-            h = F.avg_pool2d(h, 3, self.stride, 1)  # avd, padding counted
+            h = avg_pool(h, 3, self.stride, 1)  # avd, padding counted
         h = self.bn3(self.conv3(h))
         identity = x if self.downsample is None else self.downsample(x)
         return F.relu(h + identity)

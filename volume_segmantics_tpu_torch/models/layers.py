@@ -8,9 +8,15 @@ The TPU re-expressions of a plain convolution there (space-to-depth stem,
 phase-decomposed upsample+conv) are not ported: a plain conv computes the
 same function.
 
-Under spatial partitioning (inside `parallel.spatial.split_rows`) `Conv2d`,
-`max_pool` and `upsample` compute this rank's band of rows, exchanging
-halos over the space group; outside it they are the plain ops.
+Under spatial partitioning (inside `parallel.spatial.split_rows`) every
+layer here that mixes rows (`Conv2d`, `SameConv2d`, `ConvTranspose2d`,
+`GroupNorm`, `AvgPool2d`, `avg_pool`, `max_pool`, `upsample`,
+`resize_align_corners`, `global_avg_pool`) computes this rank's band of
+rows, exchanging halos or sums over the space group, and BnAct and
+Dropout take the global batch and image; outside it they are the plain
+ops. A band's global height is its width (`image_size`). What follows a
+global pool (`Pooled`) runs on a value that is whole on every rank
+(`parallel.spatial.replicated`).
 """
 
 import functools
@@ -38,12 +44,25 @@ def lecun_normal_(weight: torch.Tensor, generator: torch.Generator = None,
         )
 
 
-def _global_pixels(x: torch.Tensor) -> int:
-    """Rows of the batch times the image's pixels, of this rank's (N, C,
-    h, W) part: inside `parallel.spatial.split_rows` h is a band of the
-    image's W rows (the images are square), elsewhere all of them."""
-    height = x.shape[2] if spatial.active_mesh() is None else x.shape[3]
-    return x.shape[0] * height * x.shape[3]
+def image_size(x: torch.Tensor):
+    """(H, W) of the image of which `x` (N, C, h, W) is this rank's part:
+    inside `parallel.spatial.split_rows` h is a band of the image's W rows
+    (the steps' images are square, and every layer maps a square to a
+    square), elsewhere all of them."""
+    if spatial.active_mesh() is not None:
+        return x.shape[3], x.shape[3]
+    return x.shape[2], x.shape[3]
+
+
+def _global_count(x: torch.Tensor, mesh) -> int:
+    """The values of a channel that BnAct's all-reduce over every rank of
+    `mesh` sums, of this rank's (N, C, h, W) part: the data ranks' rows
+    times the image's pixels (`image_size`); a value that is whole on
+    every rank of a space group (`parallel.spatial.replicated`) is summed
+    once a space rank, so space_size times."""
+    h, w = image_size(x)
+    copies = mesh.space_size if spatial.replicated_mesh() is not None else 1
+    return mesh.data_size * copies * x.shape[0] * h * w
 
 
 class BnAct(nn.Module):
@@ -67,7 +86,9 @@ class BnAct(nn.Module):
     differentiable all-reduce, and the count is the global batch's: the
     local rows times the data ranks (every data rank holds as many rows:
     `Mesh.rows`) times the global image (under spatial partitioning the
-    band's height is not the image's: `_global_pixels`). So every rank
+    band's height is not the image's), times the space ranks for a value
+    every space rank holds (`_global_count`: DeepLab's image pool, PAN's
+    global branches, ResNeSt's split attention). So every rank
     normalises with the global batch's statistics, as the JAX step's one
     program over the global batch does, and updates its running statistics
     alike. One process runs the same arithmetic without the all-reduce:
@@ -97,7 +118,7 @@ class BnAct(nn.Module):
             count = xf.numel() // xf.shape[1]
             if self.mesh is not None:
                 sums = self.mesh.all_reduce(sums)
-                count = self.mesh.data_size * _global_pixels(xf)
+                count = _global_count(xf, self.mesh)
             mean, mu2 = sums / count
             var = torch.clamp(mu2 - mean * mean, min=0.0)
             with torch.no_grad():
@@ -122,7 +143,9 @@ class BnAct(nn.Module):
 
 class Conv2d(nn.Conv2d):
     """nn.Conv2d (zero padding) whose rows are split over the space group
-    inside `parallel.spatial.split_rows` (`spatial.conv2d`)."""
+    inside `parallel.spatial.split_rows` (`spatial.conv2d`). Inside
+    `parallel.spatial.replicated()` its input is whole on every rank (a
+    pooled (N, C, 1, 1) value, a gathered map) and it is the plain op."""
 
     def forward(self, x):
         mesh = spatial.active_mesh()
@@ -130,6 +153,39 @@ class Conv2d(nn.Conv2d):
             return super().forward(x)
         return spatial.conv2d(x, self.weight, self.bias, self.stride,
                               self.padding, self.dilation, self.groups, mesh)
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """nn.ConvTranspose2d (zero padding, no dilation or output padding)
+    whose rows are split over the space group inside
+    `parallel.spatial.split_rows` (`spatial.conv_transpose2d`)."""
+
+    def forward(self, x):
+        mesh = spatial.active_mesh()
+        if mesh is None:
+            return super().forward(x)
+        return spatial.conv_transpose2d(x, self.weight, self.bias,
+                                        self.stride, self.padding, mesh)
+
+
+class GroupNorm(nn.GroupNorm):
+    """nn.GroupNorm whose statistics span the space group's bands inside
+    `parallel.spatial.split_rows` (`spatial.group_norm`)."""
+
+    def forward(self, x):
+        mesh = spatial.active_mesh()
+        if mesh is None:
+            return super().forward(x)
+        return spatial.group_norm(x, self.num_groups, self.weight, self.bias,
+                                  self.eps, mesh)
+
+
+class AvgPool2d(nn.AvgPool2d):
+    """nn.AvgPool2d(s, s) (no padding, floor), on a band of rows inside
+    `parallel.spatial.split_rows`."""
+
+    def forward(self, x):
+        return avg_pool(x, self.kernel_size, self.stride, self.padding)
 
 
 class ConvBnAct(nn.Sequential):
@@ -163,11 +219,16 @@ class SameConv2d(nn.Conv2d):
 
     def forward(self, x):
         pads = []
-        for n, k, s, d in zip(x.shape[2:], self.kernel_size, self.stride,
+        for n, k, s, d in zip(image_size(x), self.kernel_size, self.stride,
                               self.dilation):
             total = max((-(-n // s) - 1) * s + (k - 1) * d + 1 - n, 0)
             pads.append((total // 2, total - total // 2))
         (top, bottom), (left, right) = pads
+        mesh = spatial.active_mesh()
+        if mesh is not None:  # the bottom pad falls past the global edge
+            return spatial.conv2d(x, self.weight, self.bias, self.stride,
+                                  (top, bottom, left, right), self.dilation,
+                                  self.groups, mesh)
         if top == bottom and left == right:
             return F.conv2d(x, self.weight, self.bias, self.stride,
                             (top, left), self.dilation, self.groups)
@@ -183,8 +244,11 @@ class Dropout(nn.Module):
     the input's device; None draws from the device's default generator), so
     a seeded run repeats. Eval mode and rate 0 draw nothing. Under a data
     mesh the mask is drawn for the global batch and this rank keeps its
-    rows, so the ranks together drop what one process would. (No decoder
-    that spatial partitioning takes has a Dropout.)"""
+    rows, and under spatial partitioning (DeepLab's ASPP, FPN) for the
+    global image too, of which this rank keeps its band (a channelwise
+    mask is the same for every band). Every rank of the mesh draws the
+    same tensor from a generator seeded alike, so the generators advance
+    together and the ranks drop what one process would."""
 
     def __init__(self, rate: float, channelwise: bool = False):
         super().__init__()
@@ -197,12 +261,16 @@ class Dropout(nn.Module):
         if not self.training or self.rate == 0.0:
             return x
         keep_prob = 1.0 - self.rate
-        shape = x.shape[:2] + (1, 1) if self.channelwise else x.shape
+        space = None if self.channelwise else spatial.active_mesh()
+        shape = (x.shape[:2] + (1, 1) if self.channelwise
+                 else x.shape[:2] + image_size(x))
         n_global = shape[0] * (1 if self.mesh is None else self.mesh.data_size)
         keep = torch.rand((n_global, *shape[1:]), generator=self.generator,
                           device=x.device) < keep_prob
         if self.mesh is not None:
             keep = keep[self.mesh.rows(n_global)]
+        if space is not None:
+            keep = keep[:, :, space.band(shape[2])]
         return torch.where(keep, x / keep_prob, 0.0)
 
 
@@ -278,16 +346,30 @@ def resize_align_corners(x: torch.Tensor, out_h: int,
     the JAX package computes it: two products with interpolation matrices,
     in x's dtype (autocast: bf16 with float32 sums). Unlike
     `F.interpolate`, whose CUDA backward accumulates with atomics, its
-    backward is deterministic, so a seeded training run repeats."""
-    in_h, in_w = x.shape[2], x.shape[3]
+    backward is deterministic, so a seeded training run repeats. Inside
+    `parallel.spatial.split_rows` the sizes are global (`image_size`) and
+    the rows are resized first, on the band (`spatial.resize_rows`)."""
+    (in_h, in_w), mesh = image_size(x), spatial.active_mesh()
     y = x
     if in_h != out_h:
-        y = torch.matmul(_align_corners_matrix(out_h, in_h, x.device, y.dtype),
-                         y)
+        matrix = _align_corners_matrix(out_h, in_h, x.device, y.dtype)
+        y = (torch.matmul(matrix, y) if mesh is None
+             else spatial.resize_rows(y, matrix, mesh))
     if in_w != out_w:
         y = torch.matmul(
             y, _align_corners_matrix(out_w, in_w, x.device, y.dtype).t())
     return y.to(x.dtype)
+
+
+def avg_pool(x: torch.Tensor, window: int, stride: int,
+             padding: int = 0) -> torch.Tensor:
+    """Average pooling with the zero padding counted in every window's
+    divisor (F.avg_pool2d's default), on a band of rows inside
+    `parallel.spatial.split_rows`."""
+    mesh = spatial.active_mesh()
+    if mesh is not None:
+        return spatial.avg_pool2d(x, window, stride, padding, mesh)
+    return F.avg_pool2d(x, window, stride, padding)
 
 
 def max_pool(x: torch.Tensor, window: int = 3, stride: int = 2,
@@ -301,7 +383,13 @@ def max_pool(x: torch.Tensor, window: int = 3, stride: int = 2,
 
 
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
-    """Mean over H and W, kept as 1 x 1 (AdaptiveAvgPool2d(1))."""
+    """Mean over H and W, kept as 1 x 1 (AdaptiveAvgPool2d(1)); of the
+    whole image inside `parallel.spatial.split_rows` (`spatial.mean_hw`),
+    the same value on every rank of a space group: run what takes it
+    inside `spatial.replicated()` (`Pooled`)."""
+    mesh = spatial.active_mesh()
+    if mesh is not None:
+        return spatial.mean_hw(x, mesh)
     return x.mean(dim=(2, 3), keepdim=True)
 
 
@@ -312,6 +400,23 @@ class GlobalAvgPool(nn.Module):
 
     def forward(self, x):
         return global_avg_pool(x)
+
+
+class Pooled(nn.Sequential):
+    """GlobalAvgPool at index 0, then `modules` on its (N, C, 1, 1) value,
+    run inside `parallel.spatial.replicated()`: under spatial partitioning
+    the value is whole on every rank of a space group, so its 1x1 convs
+    run the plain op and its BnAct counts it once."""
+
+    def __init__(self, *modules: nn.Module):
+        super().__init__(GlobalAvgPool(), *modules)
+
+    def forward(self, x):
+        x = self[0](x)
+        with spatial.replicated():
+            for module in list(self)[1:]:
+                x = module(x)
+        return x
 
 
 def init_like_flax(module: nn.Module, generator: torch.Generator = None):

@@ -1,23 +1,34 @@
-"""Row-sharded convolutions, max pooling and upsampling for spatial
-partitioning (the `space` axis of `parallel/mesh.py`).
+"""Row-sharded layers for spatial partitioning (the `space` axis of
+`parallel/mesh.py`): convolutions (transposed and TF-"SAME" too), max and
+average pooling, nearest and align-corners resizing, GroupNorm, the
+global mean, and the gather of a map whole.
 
 The JAX package pins the model input's height axis to its mesh's `space`
-axis and lets GSPMD split every convolution by rows, exchanging halos. The
-port does that by hand: inside `split_rows(mesh)`, the layers of
-`models/layers.py` (`Conv2d`, `max_pool`, `upsample`) take this rank's
-band of rows of their input (`parallel.mesh.band` of its height, as GSPMD
-splits an axis) and compute their output's band. Each fetches from the
-other ranks of its space group exactly the input rows that its output band
-needs beyond its own (`fetch_rows`), pads only at the global top and
-bottom with its own value (zeros for a convolution, -inf for the max
+axis and lets GSPMD split every op by rows, exchanging halos. The port
+does that by hand: inside `split_rows(mesh)`, the layers of
+`models/layers.py` take this rank's band of rows of their input
+(`parallel.mesh.band` of its height, as GSPMD splits an axis) and compute
+their output's band. A window op fetches from the other ranks of its
+space group exactly the input rows that its output band needs beyond its
+own (`fetch_rows`), pads only at the global top and bottom with its own
+value (zeros for a convolution or an average pool, -inf for the max
 pool), and runs the plain op with no row padding on the rows it holds. A
 band of fewer rows than a halo, or of none, still gives the whole op's
-rows: every rank takes its rows from whichever ranks hold them.
+rows: every rank takes its rows from whichever ranks hold them. A
+statistic over the image (the global mean, GroupNorm's per-group sums)
+sums the band's part over the space group. What is computed from a
+global mean, and MA-Net's position attention on a map gathered whole
+(`gather_rows`), is the same on every rank of the group and runs as the
+plain ops inside `replicated()`.
 
-A tensor's global height is its width: the steps feed square images, and
-every op of the models that `check_spatial_model` lets through maps height
-and width alike. So each rank knows every rank's band of every tensor
-without asking.
+A tensor's global height is its width: the steps feed square images,
+and every op of every model the registry builds maps a square to a
+square. The convolutions, pools, x2 upsamples and transposed
+convolutions treat both axes alike; every resize is to a size computed
+from the global height and width alike (PAN's max(h // 4, 1), h // 2
+and h; the skip's size; the head's x4 and x8), so it stays square; a
+global pool gives 1 x 1. So each rank knows every rank's band of every
+tensor without asking.
 
 The exchange is a SUM all-reduce over the space group of a zeroed buffer
 that holds, for every rank, the rows it needs from the others, each
@@ -39,31 +50,15 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from volume_segmantics_tpu_torch.parallel.mesh import Mesh, band
-
-# (decoder, encoder) pairs whose every layer is row-sharded: the decoders
-# by `ModelType` name, the encoders by `encoder_name`.
-SPATIAL_DECODERS = ("U_NET", "U_NET_PLUS_PLUS")
-SPATIAL_ENCODERS = ("resnet34", "resnet50", "resnext50_32x4d")
+from volume_segmantics_tpu_torch.parallel.mesh import (
+    Mesh,
+    _AllReduceSum,
+    _Place,
+    band,
+)
 
 _ACTIVE = contextvars.ContextVar("volseg_space_mesh", default=None)
-
-
-def check_spatial_model(model_type, encoder_name: str) -> None:
-    """Raise NotImplementedError, naming the decoder (a `ModelType` or its
-    settings name) or the encoder, for a pair outside `SPATIAL_DECODERS`
-    x `SPATIAL_ENCODERS`."""
-    name = getattr(model_type, "name", str(model_type))
-    if name.upper() not in SPATIAL_DECODERS:
-        raise NotImplementedError(
-            f"spatial partitioning is not ported for the {name} decoder "
-            "(only U_Net and U_Net_Plus_Plus; ROADMAP.md, section 1 item "
-            "1).")
-    if encoder_name not in SPATIAL_ENCODERS:
-        raise NotImplementedError(
-            f"spatial partitioning is not ported for the {encoder_name} "
-            f"encoder (only {', '.join(SPATIAL_ENCODERS)}; ROADMAP.md, "
-            "section 1 item 1).")
+_WHOLE = contextvars.ContextVar("volseg_space_whole", default=False)
 
 
 @contextlib.contextmanager
@@ -79,8 +74,31 @@ def split_rows(mesh: Mesh):
 
 
 def active_mesh() -> Optional[Mesh]:
-    """The mesh of the enclosing `split_rows`, None outside one."""
-    return _ACTIVE.get()
+    """The mesh of the enclosing `split_rows`, None outside one or inside
+    `replicated`."""
+    return None if _WHOLE.get() else _ACTIVE.get()
+
+
+@contextlib.contextmanager
+def replicated():
+    """Within it, inside `split_rows`, tensors are whole and the same on
+    every rank of a space group: a global pool's (N, C, 1, 1) value, or a
+    map gathered whole (`gather_rows`). The layers run their plain ops on
+    them, and BnAct counts each data row's values once
+    (`replicated_mesh`). Entered explicitly where such a value is made:
+    a height-1 tensor can also be a band of a 1-row image (PAN's deepest
+    pool at 64x64), so its shape cannot tell."""
+    token = _WHOLE.set(True)
+    try:
+        yield
+    finally:
+        _WHOLE.reset(token)
+
+
+def replicated_mesh() -> Optional[Mesh]:
+    """The mesh of the enclosing `split_rows` inside `replicated`, else
+    None."""
+    return _ACTIVE.get() if _WHOLE.get() else None
 
 
 def _segments(height: int, parts: int, needs: Sequence[Tuple[int, int]]):
@@ -197,8 +215,8 @@ def _sliding(x, mesh, out_height, kernel, stride, padding, dilation,
         if out.start < out.stop:
             needs.append((out.start * stride - padding,
                           (out.stop - 1) * stride - padding + reach))
-        else:  # one row past the end: padding only, none of it kept
-            needs.append((height, height + reach))
+        else:  # past the end: padding only, none of it kept
+            needs.append(_empty_band_needs(height, reach))
             empty |= j == mesh.space_index
     y = op(fetch_rows(x, mesh, needs, pad_value))
     return y[:, :, :0] if empty else y
@@ -208,14 +226,61 @@ def _pair(v):
     return tuple(v) if isinstance(v, (tuple, list)) else (v, v)
 
 
+def _empty_band_needs(height: int, reach: int):
+    """What a rank with an empty output band fetches: `reach` rows of
+    padding past the end, none of whose output it keeps."""
+    return (height, height + reach)
+
+
 def conv2d(x, weight, bias, stride, padding, dilation, groups,
            mesh: Mesh) -> torch.Tensor:
-    """F.conv2d(x, ...) with zero padding, on this rank's band of rows."""
-    (sh, sw), (ph, pw), (dh, dw) = _pair(stride), _pair(padding), _pair(dilation)
+    """F.conv2d(x, ...) with zero padding, on this rank's band of rows.
+    `padding` is an int, (rows, cols), or (top, bottom, left, right) for
+    the uneven padding of TF "SAME" (taken from the global height)."""
+    (sh, sw), (dh, dw) = _pair(stride), _pair(dilation)
+    if isinstance(padding, (tuple, list)) and len(padding) == 4:
+        top, bottom, left, right = padding
+    else:
+        (top, left) = _pair(padding)
+        bottom, right = top, left
     k = weight.shape[2]
-    out_height = (x.shape[-1] + 2 * ph - dh * (k - 1) - 1) // sh + 1
-    return _sliding(x, mesh, out_height, k, sh, ph, dh, 0.0, lambda rows: (
-        F.conv2d(rows, weight, bias, (sh, sw), (0, pw), (dh, dw), groups)))
+    out_height = (x.shape[-1] + top + bottom - dh * (k - 1) - 1) // sh + 1
+
+    def op(rows):
+        if left == right:
+            return F.conv2d(rows, weight, bias, (sh, sw), (0, left),
+                            (dh, dw), groups)
+        return F.conv2d(F.pad(rows, (left, right, 0, 0)), weight, bias,
+                        (sh, sw), 0, (dh, dw), groups)
+
+    return _sliding(x, mesh, out_height, k, sh, top, dh, 0.0, op)
+
+
+def conv_transpose2d(x, weight, bias, stride, padding,
+                     mesh: Mesh) -> torch.Tensor:
+    """F.conv_transpose2d(x, ...) (no dilation or output padding) on this
+    rank's band. Output row r = i * s - p + k of input row i and kernel
+    row k, so an output band [a, b) reads input rows ceil((a + p - K + 1)
+    / s) to floor((b - 1 + p) / s) (LinkNet's (4, 2, 1): ceil((r - 2) /
+    2) to floor((r + 1) / 2) for each r). Those rows are fetched, run with
+    no row padding, and the band cropped out."""
+    (sh, sw), (ph, pw) = _pair(stride), _pair(padding)
+    k = weight.shape[2]
+    height = x.shape[-1]
+    out_height = (height - 1) * sh - 2 * ph + k
+    needs = []
+    for j in range(mesh.space_size):
+        out = band(out_height, mesh.space_size, j)
+        needs.append((-(-(out.start + ph - k + 1) // sh),
+                      (out.stop - 1 + ph) // sh + 1)
+                     if out.start < out.stop else _empty_band_needs(height, 1))
+    y = F.conv_transpose2d(fetch_rows(x, mesh, needs, 0.0), weight, bias,
+                           (sh, sw), (0, pw))
+    out = mesh.band(out_height)
+    if out.start == out.stop:
+        return y[:, :, :0]
+    first = out.start + ph - needs[mesh.space_index][0] * sh
+    return y[:, :, first:first + out.stop - out.start]
 
 
 def max_pool2d(x, kernel: int, stride: int, padding: int,
@@ -242,3 +307,91 @@ def upsample2x(x, mesh: Mesh) -> torch.Tensor:
                       mode="nearest")
     first = out.start % 2 if out.start < out.stop else 0
     return y[:, :, first:first + out.stop - out.start]
+
+
+def avg_pool2d(x, kernel: int, stride: int, padding: int,
+               mesh: Mesh) -> torch.Tensor:
+    """F.avg_pool2d(x, kernel, stride, padding) on this rank's band: the
+    zero padding counted in every window's divisor (count_include_pad),
+    and the output height floored, as the plain op's."""
+    out_height = (x.shape[-1] + 2 * padding - kernel) // stride + 1
+    return _sliding(x, mesh, out_height, kernel, stride, padding, 1, 0.0,
+                    lambda rows: F.avg_pool2d(rows, kernel, stride,
+                                              (0, padding)))
+
+
+def space_sum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """Differentiable SUM of `x` over the space group: what the bands of a
+    data row hold together."""
+    return _AllReduceSum.apply(x, mesh.space_group)
+
+
+def _wide(x: torch.Tensor) -> torch.Tensor:
+    """x in float32 at least (float64 stays)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
+def mean_hw(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The mean over H and W of the image whose band `x` is, (N, C, 1, 1)
+    and the same on every rank of the space group: the band's sum in
+    float32 at least, summed over the space group, over the global pixels."""
+    total = space_sum(_wide(x).sum(dim=(2, 3), keepdim=True), mesh)
+    return (total / (x.shape[-1] * x.shape[-1])).to(x.dtype)
+
+
+def group_norm(x, num_groups: int, weight, bias, eps: float,
+               mesh: Mesh) -> torch.Tensor:
+    """F.group_norm on this rank's band: per (sample, group) the mean,
+    then the biased variance about it (two passes, as the plain op's
+    accuracy), each from the band's float32 sums over the space group
+    only (the data ranks hold other samples), in float32 at least; cast
+    back to x's dtype."""
+    n, c = x.shape[:2]
+    count = (c // num_groups) * x.shape[-1] * x.shape[-1]
+    g = _wide(x).reshape(n, num_groups, -1)
+    mean = space_sum(g.sum(-1), mesh) / count
+    d = g - mean[..., None]
+    var = space_sum((d * d).sum(-1), mesh) / count
+    y = (d * torch.rsqrt(var + eps)[..., None]).reshape(x.shape)
+    return (y * weight[:, None, None] + bias[:, None, None]).to(x.dtype)
+
+
+def _align_corners_support(out: slice, in_len: int, out_len: int):
+    """Input rows [lo, hi) that align-corners output rows `out` read:
+    floor(r * (in - 1) / (out - 1)) and the next, one row of margin on
+    each side for the float32 rounding of the interpolation matrix (rows
+    it weighs 0 add exact zeros)."""
+    if out_len == 1 or in_len == 1:
+        return 0, min(in_len, 2)
+    scale = (in_len - 1) / (out_len - 1)
+    return (max(int(out.start * scale) - 1, 0),
+            min(int((out.stop - 1) * scale) + 3, in_len))
+
+
+def resize_rows(x: torch.Tensor, matrix: torch.Tensor,
+                mesh: Mesh) -> torch.Tensor:
+    """`matrix` (out, in) times the rows of the image whose band `x` is
+    (in = its global height), this rank's band of the out rows: the
+    align-corners matrix's rows for the band times the input rows they
+    read, fetched. Its backward stays a matrix product."""
+    out_len, in_len = matrix.shape
+    needs = []
+    for j in range(mesh.space_size):
+        out = band(out_len, mesh.space_size, j)
+        needs.append(_align_corners_support(out, in_len, out_len)
+                     if out.start < out.stop else _empty_band_needs(in_len, 1))
+    rows = fetch_rows(x, mesh, needs, 0.0)
+    out = mesh.band(out_len)
+    lo, hi = needs[mesh.space_index]
+    if out.start == out.stop:
+        return torch.matmul(matrix.new_zeros((0, hi - lo)), rows)
+    return torch.matmul(matrix[out, lo:hi], rows)
+
+
+def gather_rows(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The whole (N, C, W, W) image whose band `x` is, on every rank of
+    the space group (differentiable: each rank's band gets the space
+    group's summed gradient of its rows)."""
+    n, c, _, w = x.shape
+    region = (slice(None), slice(None), mesh.band(w))
+    return _Place.apply(x, mesh.space_group, (n, c, w, w), region)

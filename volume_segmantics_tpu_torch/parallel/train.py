@@ -27,10 +27,14 @@ as above (augmentation warps gather from anywhere in the image, so a band
 could not be augmented alone, and the JAX step keeps it batch-sharded
 too), then keeps its band of rows of the images and masks. The model runs
 on the band inside `parallel.spatial.split_rows`, each convolution and
-pool exchanging its halos, BatchNorm reducing over every rank, and the
-logits and masks are gathered over both axes into the global (N, C, H, W)
-before the one loss and metric. The images must be square, and the model
-one that `parallel.spatial.check_spatial_model` passes.
+pool exchanging its halos, BatchNorm reducing over every rank, dropout
+masks drawn for the global batch and image from the same generator on
+every rank (so the generators advance alike), and the logits and masks
+are gathered over both axes into the global (N, C, H, W) before the one
+loss and metric. The images must be square; every model maps them to
+square logits of the input's size (the head's align-corners upsample is
+row-sharded; `models.registry.check_head_resize` refuses the sizes whose
+logits it would resize again).
 """
 
 from typing import Callable, Iterable
