@@ -186,10 +186,12 @@
    Fletcher-32, integer and float scale-offset, n-bit, external raw data
    found through $HDF5_EXTFILE_PREFIX=${ORIGIN}, a virtual dataset with
    sources in the same file, a sibling file, a missing file and another
-   virtual dataset, the LZF tile, the stitched training pair), the best of
-   three reads timed (s and MB/s); (b) the 512^3 virtual dataset of 512
-   mappings over the 64^3 LZF tile read whole, timed (s and MB/s), equal
-   to the tile tiled, then read again as `LazyHDF5Volume` slabs of
+   virtual dataset, the LZF tile, the stitched training pair, szip on the
+   crop as bytes, as big-endian uint16 and as shuffled float32 and on the
+   vessels pair), the best of three reads timed (s and MB/s); (b) the
+   512^3 virtual dataset of 512 mappings over the 64^3 LZF tile read
+   whole, timed (s and MB/s), equal to the tile tiled, then read again as
+   `LazyHDF5Volume` slabs of
    `VIRTUAL_SLAB` (each slab's s); (c) `model-train-2d` with the shipped
    settings (1+1 epochs, seed 0) on `stitched.nxs`, a NeXus virtual
    dataset stitched from an LZF half and an integer scale-offset half,
@@ -199,7 +201,13 @@
    `model-predict-2d` from that checkpoint on the 256^3 virtual dataset
    over the tile in memory, slab-streamed from a lazy source (both
    thresholds below it) and from a gzip copy of the materialised volume
-   written by `utils/hdf5.write`: labels equal at every voxel.
+   written by `utils/hdf5.write`: labels equal at every voxel; (e)
+   `model-train-2d` with the shipped settings (0+1 epochs, seed 0) on the
+   vessels volume and labels as szip chunks (`vessels_szip.h5`,
+   `vessels_labels_szip.h5`): every loss and eval score finite, each
+   kernel launched once a step; then `model-predict-2d` from (c)'s
+   checkpoint on the szip volume and on its gzip copy
+   (`vessels_latest.h5`): labels equal at every voxel.
 16. Train-batch sweep (`THROUGHPUT_TRAIN_BATCH`): `SWEEP_STEPS` timed
    `build_train_step` steps on one seeded batch at batches 12, 32, 64, 128
    and 256 (bf16, unfrozen), samples/s and peak memory; the smallest batch
@@ -258,18 +266,22 @@
    checkpoint through the one-process `model-predict-2d` on the training
    volume: labels of its shape (MeanIoU recorded). (d) `SPATIAL_PAIRS`,
    the other decoders on ResNet-34 and U-Net on the EfficientNet and
-   ResNeSt encoders, at full width and 256x256, a global batch of
-   `SPATIAL_PAIR_BATCH` Z slices, augmentation on, float32, from one
-   seeded state each: `SPATIAL_PAIR_STEPS` train steps at `SPATIAL_LR` on
-   the two ranks (dropout from one seeded generator), then the eval step
+   ResNeSt encoders, at full width and 256x256, and DeepLabV3/ResNet-34 at
+   252x252 and PAN/ResNet-34 at 254x254 (their heads resize the logits
+   back to the input with half-pixel centres, row-sharded), a global batch
+   of `SPATIAL_PAIR_BATCH` Z slices, augmentation on (off at the two sides
+   that are not multiples of 16, which the port's CLAHE does not take),
+   float32, from one seeded state each: `SPATIAL_PAIR_STEPS` train steps
+   at `SPATIAL_LR` on the two ranks (dropout from one seeded generator),
+   then the eval step
    (DiceLoss, MeanIoU) on the slices, against the one process's plain
    steps and eval step from the same state: the first loss within
    `SPATIAL_PAIR_RTOL` relative, or twice the one process's distance from
    its float64 loss where that is larger, the later ones within
    `SPATIAL_PAIR_LATER_RTOL`, eval loss and score within
    `SPATIAL_PAIR_EVAL_ATOL`, both ranks' states equal after every step,
-   each kernel launched once a step on each rank; step ms of both and
-   each rank's `max_memory_allocated`.
+   each kernel launched once an augmented step on each rank; step ms of
+   both and each rank's `max_memory_allocated`.
 19. Prints a `{"kernels": [...]}` line (launches of the slice, CLI, losses,
    pretrained, architectures, encoders, formats, interchange, virtual,
    parallel and spatial phases, the last two on every rank) and, last, the
@@ -2844,6 +2856,11 @@ VIRTUAL_READS = {
     "stitched_scaleoffset.h5": ("data", "stitched_bottom"),
     "stitched.nxs": (NEXUS_DATA, "stitched"),
     "stitched_labels.h5": ("data", "stitched_labels"),
+    "crop_szip.h5": ("data", "crop"),
+    "crop_szip_u2.h5": ("data", "crop_u2"),
+    "crop_szip_float.h5": ("data", "crop_quarters"),
+    "vessels_szip.h5": ("data", "vessels"),
+    "vessels_labels_szip.h5": ("data", "labels"),
 }
 FIXTURE_READS = {**INTERCHANGE_READS, **VIRTUAL_READS}
 # Committed beside them: the 512^3 virtual dataset over the tile (read by
@@ -3323,6 +3340,64 @@ def virtual_phase(dev, out_dir: Path):
     for run, equal in res["predictions_equal"].items():
         if not equal:
             failures.append(f"{run} labels differ from the in-memory ones")
+
+    # 5. szip: model-train-2d (0 + 1 epochs) on the vessels volume and its
+    # labels as szip chunks, then model-predict-2d from the stitched run's
+    # checkpoint on the szip copy of the volume and on its gzip copy.
+    szip_dir = root / "szip"
+    (szip_dir / cfg.SETTINGS_DIR).mkdir(parents=True)
+    (szip_dir / cfg.SETTINGS_DIR / cfg.TRAIN_SETTINGS_FN).write_text(
+        settings_text(cfg.TRAIN_SETTINGS_FN, num_cyc_frozen=0,
+                      num_cyc_unfrozen=1, seed=0))
+    (szip_dir / cfg.SETTINGS_DIR / cfg.PREDICTION_SETTINGS_FN).write_text(
+        settings_text(cfg.PREDICTION_SETTINGS_FN))
+    trainers = []
+
+    class SzipTrainer(train_2d_model.VolSeg2dTrainer):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            trainers.append(self)
+
+    train_2d_model.VolSeg2dTrainer = SzipTrainer
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        train_2d_model.main(["--data", str(FIXTURE_DIR / "vessels_szip.h5"),
+                             "--labels", str(FIXTURE_DIR / "vessels_labels_szip.h5"),
+                             "--data_dir", str(szip_dir)])
+    finally:
+        train_2d_model.VolSeg2dTrainer = SzipTrainer.__bases__[0]
+    torch.cuda.synchronize()
+    (trainer,) = trainers
+    szip = {"train_main_s": time.perf_counter() - t0,
+            "launches": dict(kernels.LAUNCHES), "train_steps": trainer.train_steps,
+            "eval_scores": trainer.avg_eval_scores}
+    losses = trainer.avg_train_losses + trainer.avg_valid_losses
+    if not losses or not all(np.isfinite(losses + trainer.avg_eval_scores)):
+        failures.append(f"szip run losses {losses} eval {trainer.avg_eval_scores}")
+    for entry, count in szip["launches"].items():
+        if count != trainer.train_steps:
+            failures.append(f"{entry} launched {count} times in the szip run's "
+                            f"{trainer.train_steps} train steps")
+    del trainers, trainer
+    szip_labels = {}
+    for run, src in (("szip", FIXTURE_DIR / "vessels_szip.h5"),
+                     ("gzip", FIXTURE_DIR / "vessels_latest.h5")):
+        t0 = time.perf_counter()
+        predict_2d_model.main([str(ckpt), str(src), "--data_dir", str(szip_dir)])
+        szip[f"predict_{run}_s"] = time.perf_counter() - t0
+        szip_labels[run], _ = hdf5.read(
+            predict_2d_model.create_output_path(szip_dir, src))
+    szip["labels_equal"] = bool(np.array_equal(szip_labels["szip"],
+                                               szip_labels["gzip"]))
+    szip["labels_shape"] = list(szip_labels["szip"].shape)
+    if not szip["labels_equal"] or (szip_labels["szip"].shape
+                                    != arrays["vessels"].shape):
+        failures.append(f"the szip volume's labels {szip['labels_shape']} "
+                        "differ from the gzip copy's")
+    res["szip"] = szip
+    res["launches"] = {entry: res["launches"][entry] + szip["launches"][entry]
+                       for entry in res["launches"]}
     shutil.rmtree(root, ignore_errors=True)
     res["phase_s"] = time.perf_counter() - t_phase
     res["failures"] = failures
@@ -3367,9 +3442,10 @@ def model_from_state(struc, state, dev):
 
 
 def dp_run(state, images, masks, mesh, steps, compute_dtype, dev, lr, dp=True,
-           seed=3, side=S, digests=False, struc=STRUC):
+           seed=3, side=S, digests=False, struc=STRUC, augment=True):
     """`steps` seeded DiceLoss train steps of `struc`'s model from `state`
-    on this rank's rows of the global batch (augmentation on, to `side`):
+    on this rank's rows of the global batch (augmentation on, to `side`,
+    unless `augment` is False):
     the data-parallel step over `mesh` (its space partitions too), or with
     `dp` False the plain one. Returns the losses, each step's synchronised
     ms, the kernel launches, the first step's gradients, parameters and
@@ -3388,7 +3464,7 @@ def dp_run(state, images, masks, mesh, steps, compute_dtype, dev, lr, dp=True,
     gens = (torch.Generator(dev).manual_seed(seed),
             torch.Generator(dev).manual_seed(seed + 1))
     common = dict(num_labels=2, image_size=side, compute_dtype=compute_dtype,
-                  augment=True, generator=gens[0], dropout_generator=gens[1])
+                  augment=augment, generator=gens[0], dropout_generator=gens[1])
     loss_fn = get_loss_fn(loss_settings("DiceLoss"))
     step = (build_dp_train_step(model, loss_fn, optimizer, mesh=mesh, **common)
             if dp else build_train_step(model, loss_fn, optimizer, **common))
@@ -3455,10 +3531,11 @@ def float64_first_step(state, images, masks, dev, seed=3):
     return {n: p.grad for n, p in model.named_parameters()}, stats
 
 
-def float64_first_loss(struc, state, images, masks, dev, seed=3) -> float:
+def float64_first_loss(struc, state, images, masks, dev, seed=3,
+                       augment=True) -> float:
     """The first `dp_run` step's loss of `struc`'s model in float64: the
-    same augmentation draws (in float32) and dropout masks, BatchNorm in
-    float64."""
+    same augmentation draws (in float32), if `augment`, and dropout masks,
+    BatchNorm in float64."""
     from volume_segmantics_tpu_torch.data.losses import get_loss_fn
     from volume_segmantics_tpu_torch.models.layers import (
         BnAct,
@@ -3469,10 +3546,12 @@ def float64_first_loss(struc, state, images, masks, dev, seed=3) -> float:
 
     model = model_from_state(struc, state, dev).double().train()
     set_dropout_generator(model, torch.Generator(dev).manual_seed(seed + 1))
-    imgs, msks = augment_batch_u8(torch.Generator(dev).manual_seed(seed),
-                                  torch.from_numpy(images).to(dev),
-                                  torch.from_numpy(masks).to(dev),
-                                  images.shape[-1])
+    imgs, msks = torch.from_numpy(images).to(dev), torch.from_numpy(masks).to(dev)
+    if augment:
+        imgs, msks = augment_batch_u8(torch.Generator(dev).manual_seed(seed),
+                                      imgs, msks, images.shape[-1])
+    else:
+        imgs = imgs / 255.0
     targets = torch.nn.functional.one_hot(msks.long(), 2).permute(0, 3, 1, 2)
     forward, BnAct.forward = BnAct.forward, _bn_act_float64
     try:
@@ -3784,12 +3863,19 @@ SPATIAL_MEMORY_RATIO = 0.7  # a space rank's peak against one process's
 # LR-finder steps, so 49 steps a rank.
 SPATIAL_TRAIN_SHAPE = (12, 48, 48)
 # (d): every other decoder on ResNet-34 and U-Net on the other encoders
-# (the registry's widths), over the 1 x 2 mesh against one process.
-SPATIAL_PAIRS = (("LinkNet", "resnet34"), ("FPN", "resnet34"),
-                 ("DeepLabV3", "resnet34"), ("DeepLabV3_Plus", "resnet34"),
-                 ("PAN", "resnet34"), ("MA_Net", "resnet34"),
-                 ("U_Net", "efficientnet-b3"), ("U_Net", "efficientnet-b4"),
-                 ("U_Net", "timm-resnest50d"), ("U_Net", "timm-resnest101e"))
+# (the registry's widths), over the 1 x 2 mesh against one process, at
+# side S; then DeepLabV3 and PAN at sides their x8 and x4 heads do not
+# divide (S - 4 and S - 2: the third entry, the rows and columns cut off),
+# whose logits the head resizes back to the input with half-pixel
+# centres, on the top-left crop of the images. The port's CLAHE (K2, K3)
+# takes sides that are multiples of 16 only, so those two train without
+# augmentation.
+SPATIAL_PAIRS = (("LinkNet", "resnet34", 0), ("FPN", "resnet34", 0),
+                 ("DeepLabV3", "resnet34", 0), ("DeepLabV3_Plus", "resnet34", 0),
+                 ("PAN", "resnet34", 0), ("MA_Net", "resnet34", 0),
+                 ("U_Net", "efficientnet-b3", 0), ("U_Net", "efficientnet-b4", 0),
+                 ("U_Net", "timm-resnest50d", 0), ("U_Net", "timm-resnest101e", 0),
+                 ("DeepLabV3", "resnet34", 4), ("PAN", "resnet34", 2))
 SPATIAL_PAIR_BATCH = 4
 SPATIAL_PAIR_STEPS = 2
 SPATIAL_PAIR_RTOL = 1e-5  # first train loss, relative (as (a)), at least
@@ -3925,10 +4011,11 @@ def spatial_pairs(rank, mesh, blob, dev):
     from volume_segmantics_tpu_torch.parallel.mesh import Mesh
     from volume_segmantics_tpu_torch.parallel.train import build_dp_eval_step
 
-    images = blob["images"][:SPATIAL_PAIR_BATCH]
-    masks = blob["masks"][:SPATIAL_PAIR_BATCH]
+    def crop(side):
+        return tuple(np.ascontiguousarray(blob[k][:SPATIAL_PAIR_BATCH, :side, :side])
+                     for k in ("images", "masks"))
 
-    def evaluate(model, on):
+    def evaluate(model, on, images, masks):
         step = build_dp_eval_step(model, get_loss_fn(loss_settings("DiceLoss")),
                                   mean_iou, num_labels=2, mesh=on,
                                   compute_dtype=torch.float32)
@@ -3939,36 +4026,44 @@ def spatial_pairs(rank, mesh, blob, dev):
         return [loss.item(), score.item()]
 
     out, states = [], {}
-    for i, (model_type, encoder) in enumerate(SPATIAL_PAIRS):
+    for i, (model_type, encoder, cut) in enumerate(SPATIAL_PAIRS):
         struc = dict(STRUC, type=model_type, encoder_name=encoder)
+        side = blob["images"].shape[-1] - cut
+        augment = side % 16 == 0
         torch.manual_seed(11)
         state = create_model(struc).state_dict()
         if i % mesh.size == rank:
-            states[i] = struc, state
+            states[i] = struc, state, side, augment
+        images, masks = crop(side)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         run = dp_run(state, images, masks, mesh, SPATIAL_PAIR_STEPS,
-                     torch.float32, dev, SPATIAL_LR, side=images.shape[-1],
-                     digests=True, struc=struc)
-        res = {"type": model_type, "encoder": encoder, "losses": run["losses"],
+                     torch.float32, dev, SPATIAL_LR, side=side, digests=True,
+                     struc=struc, augment=augment)
+        res = {"type": model_type, "encoder": encoder, "side": side,
+               "augment": augment, "losses": run["losses"],
                "step_ms": run["ms"], "digests": run["digests"],
-               "launches": run["launches"], "eval": evaluate(run["model"], mesh)}
+               "launches": run["launches"],
+               "eval": evaluate(run["model"], mesh, images, masks)}
         torch.cuda.synchronize()
         res["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
         del run, state
         torch.cuda.empty_cache()
         out.append(res)
-    for i, (struc, state) in states.items():
+    for i, (struc, state, side, augment) in states.items():
+        images, masks = crop(side)
         ref = dp_run(state, images, masks, Mesh(), SPATIAL_PAIR_STEPS,
-                     torch.float32, dev, SPATIAL_LR, dp=False,
-                     side=images.shape[-1], struc=struc)
+                     torch.float32, dev, SPATIAL_LR, dp=False, side=side,
+                     struc=struc, augment=augment)
         out[i].update(one_process_losses=ref["losses"],
                       one_process_step_ms=ref["ms"],
-                      one_process_eval=evaluate(ref["model"], Mesh()))
+                      one_process_eval=evaluate(ref["model"], Mesh(), images,
+                                                masks))
         del ref
         # FPN's GroupNorm runs in float32 whatever its input.
         out[i]["first_loss64"] = None if struc["type"] == "FPN" else (
-            float64_first_loss(struc, state, images, masks, dev))
+            float64_first_loss(struc, state, images, masks, dev,
+                               augment=augment))
         torch.cuda.empty_cache()
     return out
 
@@ -4079,8 +4174,9 @@ def spatial_phase(dev, out_dir: Path, pairs_only=False):
         # The rank that ran the pair's one-process reference.
         mine = dict(mine, **{k: v for k, v in ranks[i % 2]["pairs"][i].items()
                              if k.startswith(("one_process", "first_loss64"))})
-        name = f"{mine['type']}/{mine['encoder']}"
-        pair = {"pair": name, "losses": mine["losses"],
+        name = f"{mine['type']}/{mine['encoder']}/{mine['side']}"
+        pair = {"pair": name, "augment": mine["augment"],
+                "losses": mine["losses"],
                 "one_process_losses": mine["one_process_losses"],
                 "eval": mine["eval"], "one_process_eval": mine["one_process_eval"],
                 "step_ms": [mine["step_ms"], other["step_ms"]],
@@ -4117,8 +4213,8 @@ def spatial_phase(dev, out_dir: Path, pairs_only=False):
 
     launches = {entry: 0 for _, _, entry, _, _ in KERNELS}
     for r in ranks:
-        runs = [(f"{p['type']}/{p['encoder']} steps", p["launches"],
-                 SPATIAL_PAIR_STEPS) for p in r["pairs"]]
+        runs = [(f"{p['type']}/{p['encoder']}/{p['side']} steps", p["launches"],
+                 SPATIAL_PAIR_STEPS if p["augment"] else 0) for p in r["pairs"]]
         if not pairs_only:
             runs += [("spatial steps", r["launches"], SPATIAL_STEPS),
                      ("1024 steps", r["memory"]["launches"], SPATIAL_MEMORY[2]),

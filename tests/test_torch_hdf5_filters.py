@@ -4,10 +4,17 @@ and behind shuffle and Fletcher-32, with chunks it stored compressed and
 chunks it could not shrink (left unfiltered, their mask bit set);
 scale-offset on integers (the library's minimum bits, fill values, a
 constant chunk at minbits 0, chunks at full width) and on floats with a
-decimal scale, bit for bit; n-bit on full-precision types. Each file is
-built here by h5py and read whole and by basic selections equal to h5py's
-reading, at tolerance 0; edge chunks are partial on every axis. A corrupt
-LZF stream raises ValueError."""
+decimal scale, bit for bit; n-bit on full-precision types; szip
+(libaec's decoder) on every integer and float type h5py writes with it,
+under the nearest-neighbour preprocessor and entropy coding alone, 8, 16
+and 32 pixels a block, scanlines that are not whole blocks, behind
+shuffle with Fletcher-32, and on data that takes every coding option.
+Each file is built here by h5py and read whole and by basic selections
+equal to h5py's reading, at tolerance 0 (szip also through
+`numpy_from_hdf5` and `LazyHDF5Volume`); edge chunks are partial on every
+axis. A corrupt LZF or szip stream raises ValueError. Scale-offset's
+E-scale method, which the library cannot write, is refused by h5py and by
+the port alike."""
 
 import struct
 
@@ -16,6 +23,10 @@ import numpy as np
 import pytest
 
 from volume_segmantics_tpu_torch.utils import hdf5, hdf5_filters
+from volume_segmantics_tpu_torch.utils.base_data_utils import (
+    LazyHDF5Volume,
+    numpy_from_hdf5,
+)
 
 SHAPE = (13, 20, 18)
 CHUNKS = (5, 8, 7)  # partial edge chunks on every axis
@@ -306,3 +317,164 @@ def test_the_nbit_parameter_check_refuses_what_it_cannot_read():
     with pytest.raises(ValueError, match="4-byte atom"):
         hdf5_filters.nbit_check((8, 1, 20, 1, 4, 0, 32, 0), stored)
     hdf5_filters.nbit_check((8, 1, 20, 1, 2, 0, 16, 0), stored)
+
+
+def test_scaleoffset_e_scale_is_refused_by_h5py_and_the_port(tmp_path):
+    """The library writes no E-scale (scale type 1) chunks, and reading one
+    fails in it: a D-scale float dataset whose filter parameters are
+    patched to E-scale raises OSError in h5py and NotImplementedError
+    naming the method in the port."""
+    path = tmp_path / "dscale.h5"
+    with h5py.File(path, "w") as f:
+        f.create_dataset("data", data=compressible("<f4"), chunks=CHUNKS,
+                         scaleoffset=2)
+        cd = f["data"].id.get_create_plist().get_filter(0)[2]
+    assert cd[0] == hdf5_filters.SO_FLOAT_DSCALE
+    raw = path.read_bytes()
+    at = raw.index(struct.pack("<8I", *cd[:8]))
+    escale = tmp_path / "escale.h5"
+    escale.write_bytes(raw[:at] + struct.pack("<I", hdf5_filters.SO_FLOAT_ESCALE)
+                       + raw[at + 4:])
+    with h5py.File(escale, "r") as f:
+        assert f["data"].id.get_create_plist().get_filter(0)[2][0] == 1
+        with pytest.raises(OSError, match="filter returned failure"):
+            f["data"][()]
+    with pytest.raises(NotImplementedError, match="E-scale"):
+        hdf5.read(escale)
+
+
+SZIP_TYPES = ["u1", "i1", "<u2", ">u2", "<i2", "<u4", ">i4", "<f4", ">f4",
+              "<f8", "<i8"]
+SZIP_CASES = [(dtype, coding, block) for dtype in SZIP_TYPES
+              for coding in ("nn", "ec") for block in (8, 16, 32)]
+
+
+def assert_szip_reads_equal(path, data, selections=False):
+    """h5py, `numpy_from_hdf5`, a `LazyHDF5Volume` (a slab) and, with
+    `selections`, the port's reader by basic selections read the same
+    values, bit for bit."""
+    with h5py.File(path, "r") as f:
+        ref, ref_chunks = f["data"][()], f["data"].chunks
+    np.testing.assert_array_equal(ref, data)
+    got, chunks = numpy_from_hdf5(path)
+    assert chunks == ref_chunks
+    assert got.dtype == ref.dtype.newbyteorder("=")
+    assert got.tobytes() == ref.astype(got.dtype).tobytes()
+    lazy = LazyHDF5Volume(path)
+    try:
+        assert lazy[2:7, 3:11].tobytes() == got[2:7, 3:11].tobytes()
+    finally:
+        lazy.close()
+    if selections:
+        assert_reads_equal(path, "data")
+
+
+@pytest.mark.parametrize("dtype, coding, block", SZIP_CASES,
+                         ids=[f"{t}-{c}-{b}" for t, c, b in SZIP_CASES])
+def test_szip_reads_equal_h5py(tmp_path, dtype, coding, block):
+    data = compressible(dtype)
+    path = tmp_path / "szip.h5"
+    with h5py.File(path, "w") as f:
+        f.create_dataset("data", data=data, chunks=CHUNKS, compression="szip",
+                         compression_opts=(coding, block))
+    assert 0 in chunk_masks(path, "data")  # szip kept some chunks
+    assert_szip_reads_equal(path, data)
+    with hdf5.File(path) as f:
+        (options, ppb, bpp, _), = [values for fid, _, values in f["data"]._filters
+                                   if fid == hdf5.FILTER_SZIP]
+    assert ppb == block and bpp == 8 * np.dtype(dtype).itemsize
+    assert bool(options & hdf5_filters.SZ_NN) == (coding == "nn")
+    assert bool(options & hdf5_filters.SZ_MSB) == (
+        np.dtype(dtype).str[0] == ">" and np.dtype(dtype).itemsize > 1)
+
+
+@pytest.mark.parametrize("dtype", ["u1", ">u2", "<f4", ">f8"])
+def test_szip_behind_shuffle_with_fletcher32_on_a_padded_scanline(tmp_path,
+                                                                   dtype):
+    """Chunks whose last axis (21 pixels a scanline) is not a whole number
+    of 16-pixel blocks, partial edges on every axis, after shuffle and with
+    Fletcher-32."""
+    data = compressible(dtype, shape=(9, 17, 30))
+    path = tmp_path / "szip.h5"
+    with h5py.File(path, "w") as f:
+        f.create_dataset("data", data=data, chunks=(4, 5, 21), shuffle=True,
+                         fletcher32=True, compression="szip",
+                         compression_opts=("nn", 16))
+    with hdf5.File(path) as f:
+        ids = [fid for fid, _, _ in f["data"]._filters]
+        (_, ppb, _, per_line), = [values for fid, _, values in f["data"]._filters
+                                  if fid == hdf5.FILTER_SZIP]
+    assert ids == [hdf5.FILTER_SHUFFLE, hdf5.FILTER_SZIP, hdf5.FILTER_FLETCHER32]
+    assert per_line % ppb
+    assert_szip_reads_equal(path, data, selections=True)
+
+
+def szip_options_data(kind):
+    rng = np.random.default_rng(4)
+    if kind == "labels":  # zero-block runs to the end of a segment
+        return (rng.random((8, 40, 64)) > 0.98).astype("u1")
+    if kind == "noise":  # uncompressed blocks
+        return rng.integers(0, 1 << 16, (6, 20, 64)).astype("<u2")
+    # runs and steps: split samples of every k and the second extension
+    ramp = np.arange(6 * 40 * 64).reshape(6, 40, 64)
+    return np.where(ramp % 7 == 0, ramp % 5000, ramp // 64 % 3).astype("<i2")
+
+
+@pytest.mark.parametrize("kind", ["labels", "noise", "steps"])
+@pytest.mark.parametrize("coding", ["nn", "ec"])
+def test_szip_on_data_that_takes_every_coding_option(tmp_path, kind, coding):
+    data = szip_options_data(kind)
+    path = tmp_path / "szip.h5"
+    with h5py.File(path, "w") as f:
+        f.create_dataset("data", data=data, chunks=(3, 16, 64),
+                         compression="szip", compression_opts=(coding, 8))
+    assert_szip_reads_equal(path, data, selections=True)
+
+
+@pytest.mark.parametrize("cut", [6, 100, -3])
+def test_a_truncated_szip_stream_raises_value_error(tmp_path, cut):
+    """libaec stops at the end of its input without an error, so h5py reads
+    the samples a truncated chunk lost as zeros; the port raises."""
+    data = compressible("<u2")
+    path = tmp_path / "szip.h5"
+    with h5py.File(path, "w") as f:
+        ds = f.create_dataset("data", data=data, chunks=CHUNKS,
+                              compression="szip", compression_opts=("nn", 16))
+        mask, chunk = ds.id.read_direct_chunk((0, 0, 0))
+        ds.id.write_direct_chunk((0, 0, 0), chunk[:cut], filter_mask=mask)
+    with h5py.File(path, "r") as f:
+        assert not np.array_equal(f["data"][()], data)
+    with hdf5.File(path) as f, pytest.raises(
+            ValueError, match="the chunk at .* does not decode .*szip"):
+        f["data"][()]
+
+
+def szip_bits(*fields):
+    """A stream from (value, width) fields, most significant bit first,
+    after the 4-byte little-endian decoded size (8 one-byte pixels)."""
+    text = "".join(format(value, f"0{width}b") for value, width in fields)
+    text += "0" * (-len(text) % 8)
+    return struct.pack("<I", 8) + int(text, 2).to_bytes(len(text) // 8, "big")
+
+
+def test_corrupt_szip_streams_raise_value_error():
+    """One 8-pixel block an interval under the preprocessor: a second
+    extension code past the table, a zero-block run past its interval and
+    a stream that ends inside its block."""
+    cd = (hdf5_filters.SZ_NN | 8, 8, 8, 8)
+    stored = np.dtype("u1")
+    zero_ids = [(0, 3), (1, 1), (7, 8)]  # low entropy, second extension, ref
+    with pytest.raises(ValueError, match="second extension code 91"):
+        hdf5_filters.szip_decode(szip_bits(*zero_ids, (1, 92)), cd, stored)
+    with pytest.raises(ValueError, match="zero-block run passes the end"):
+        hdf5_filters.szip_decode(szip_bits((0, 3), (0, 1), (7, 8), (1, 2)), cd,
+                                 stored)
+    with pytest.raises(ValueError, match="ends inside a block"):
+        hdf5_filters.szip_decode(szip_bits((7, 3), (1, 8)), cd, stored)
+    # the same blocks well formed: a zero block after the reference 7, and
+    # an uncompressed block
+    assert hdf5_filters.szip_decode(
+        szip_bits((0, 3), (0, 1), (7, 8), (1, 1)), cd, stored) == bytes([7] * 8)
+    assert hdf5_filters.szip_decode(
+        szip_bits((7, 3), *[(v, 8) for v in (9, 2, 4, 6, 8, 10, 12, 14)]), cd,
+        stored) == bytes([9, 10, 12, 15, 19, 24, 30, 37])

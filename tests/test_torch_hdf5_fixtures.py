@@ -4,8 +4,9 @@ machine without h5py: each reads through the port equal to h5py's reading,
 whole and by basic selections, and to the array
 `chip_smoke.fixture_arrays()` rebuilds; they cover every chunk index, the
 NeXus file's dense group and external link, LZF, scale-offset, n-bit,
-external raw storage and virtual datasets (the 512^3 one over the LZF
-tile too), and they stay small. A byte flipped in a copy of one breaks
+szip (every chunk of its files coded, none left unfiltered), external raw
+storage and virtual datasets (the 512^3 one over the LZF tile too), and
+they stay small. A byte flipped in a copy of one breaks
 the checksum of a version 2 B-tree node, a fractal heap direct block, a
 fixed array data block or an extensible array index block: ValueError."""
 
@@ -44,6 +45,24 @@ def test_the_fixture_set_is_listed_and_small():
     files = sorted(p.name for p in FIXTURES.iterdir())
     assert files == sorted([*chip_smoke.FIXTURE_READS, *chip_smoke.FIXTURE_OTHERS])
     assert sum(p.stat().st_size for p in FIXTURES.iterdir()) < 2_000_000
+
+
+SZIP_FIXTURES = sorted(n for n in chip_smoke.FIXTURE_READS if "szip" in n)
+
+
+@pytest.mark.parametrize("name", SZIP_FIXTURES)
+def test_the_szip_fixtures_hold_szip_coded_chunks(name):
+    """szip is optional in the library: a chunk it cannot shrink is stored
+    as it is, which would leave the decoder unread. Every chunk of these
+    files went through it."""
+    with h5py.File(FIXTURES / name, "r") as f:
+        dsid = f["data"].id
+        plist = dsid.get_create_plist()
+        filters = [plist.get_filter(i)[0] for i in range(plist.get_nfilters())]
+        szip_bit = 1 << filters.index(h5py.h5z.FILTER_SZIP)
+        masks = [dsid.get_chunk_info(i).filter_mask
+                 for i in range(dsid.get_num_chunks())]
+    assert masks and not any(m & szip_bit for m in masks)
 
 
 @pytest.mark.parametrize("name", sorted(chip_smoke.FIXTURE_READS))

@@ -376,11 +376,12 @@ def test_checksum_functions_match_the_library():
 
 
 def test_refused_features_raise_not_implemented_by_name(tmp_path, monkeypatch):
-    """szip, strings and reduced-precision types (as the n-bit filter packs
-    them) stay refused by name. LZF, scale-offset, full-precision n-bit,
-    external storage and virtual datasets, refused before, now read as h5py
-    reads them (tests/test_torch_hdf5_filters.py and _virtual.py test them
-    in full)."""
+    """A filter the reader does not know, strings and reduced-precision
+    types (as the n-bit filter packs them) stay refused by name. LZF,
+    scale-offset, full-precision n-bit, szip, external storage and virtual
+    datasets, refused before, now read as h5py reads them
+    (tests/test_torch_hdf5_filters.py and _virtual.py test them in
+    full)."""
     monkeypatch.chdir(tmp_path)
     path = tmp_path / "r.h5"
     vol = volume("u1")
@@ -404,13 +405,18 @@ def test_refused_features_raise_not_implemented_by_name(tmp_path, monkeypatch):
             datatype.set_precision(precision)
             h5py.h5d.create(f.id, name.encode(), datatype,
                             h5py.h5s.create_simple((16, 16)), dcpl=dcpl)
-    for name, feature in (("szip", "filter 4 \\(szip"),
+        dcpl = h5py.h5p.create(h5py.h5p.DATASET_CREATE)
+        dcpl.set_chunk((8, 8))
+        dcpl.set_filter(307, h5py.h5z.FLAG_OPTIONAL, (9,))  # bzip2
+        h5py.h5d.create(f.id, b"bzip2", h5py.h5t.STD_U8LE,
+                        h5py.h5s.create_simple((16, 16)), dcpl=dcpl)
+    for name, feature in (("bzip2", "filter 307 \\(unknown"),
                           ("nbit_reduced", "precision 5 at bit 0 \\(reduced "
                                            "precision, as the n-bit filter"),
                           ("strings", "datatype class 3")):
         with pytest.raises(NotImplementedError, match=feature):
             hdf5.read(path, name)
-    for name in ("lzf", "scaleoffset", "nbit", "external", "virtual"):
+    for name in ("lzf", "szip", "scaleoffset", "nbit", "external", "virtual"):
         with h5py.File(path, "r") as f:
             ref = f[name][()]
         np.testing.assert_array_equal(hdf5.read(path, name)[0], ref)

@@ -5,8 +5,11 @@ seven encoders (output stride 8 and 16: dilated stages) against one
 process; one train step of each on ResNet-34 (ASPP's dilations 12-36
 past every band, the image pool's BatchNorm on a value every rank holds,
 elementwise dropout drawn for the global image) against one process;
-DeepLabV3+/ResNet-34's eval step against the JAX package's own on
-`get_mesh(n_devices=2, space=2)`."""
+DeepLabV3/ResNet-34's train and eval steps at 60x60, whose x8 head
+leaves 64x64 logits that it resizes back with half-pixel centres,
+row-sharded, against one process; DeepLabV3+/ResNet-34's eval step at
+64x64, and DeepLabV3/ResNet-34's at 60x60, against the JAX package's own
+on `get_mesh(n_devices=2, space=2)`."""
 
 import numpy as np
 import pytest
@@ -17,8 +20,10 @@ import torch_spatial_families as families
 
 torch.set_num_threads(cases.THREADS)
 
-TRAIN = [("DEEPLABV3", "resnet34"), ("DEEPLABV3_PLUS", "resnet34")]
-EVAL = families.built_pairs("DEEPLABV3", "DEEPLABV3_PLUS")
+TRAIN = [("DEEPLABV3", "resnet34"), ("DEEPLABV3_PLUS", "resnet34"),
+         ("DEEPLABV3", "resnet34", 60)]
+EVAL = (families.built_pairs("DEEPLABV3", "DEEPLABV3_PLUS")
+        + [("DEEPLABV3", "resnet34", 60)])
 
 
 @pytest.fixture(scope="module")
@@ -27,13 +32,13 @@ def ranks(tmp_path_factory):
 
 
 @pytest.mark.parametrize("i", range(len(TRAIN)),
-                         ids=[f"{d}-{e}" for d, e in TRAIN])
+                         ids=[families.pair_id(p) for p in TRAIN])
 def test_spatial_train_step_matches_one_process(ranks, i):
     families.assert_train_matches(ranks, i)
 
 
 @pytest.mark.parametrize("i", range(len(EVAL)),
-                         ids=[f"{d}-{e}" for d, e in EVAL])
+                         ids=[families.pair_id(p) for p in EVAL])
 def test_spatial_eval_step_matches_one_process(ranks, i):
     families.assert_eval_matches(ranks, i)
 
@@ -41,4 +46,10 @@ def test_spatial_eval_step_matches_one_process(ranks, i):
 def test_deeplabv3_plus_spatial_eval_step_matches_jax_spatial_eval_step(
         tmp_path):
     ours, ref = families.jax_eval("DEEPLABV3_PLUS", tmp_path)
+    np.testing.assert_allclose(ours, ref, rtol=0, atol=families.JAX_TOL)
+
+
+def test_deeplabv3_head_resize_spatial_eval_step_matches_jax_spatial_eval_step(
+        tmp_path):
+    ours, ref = families.jax_eval("DEEPLABV3", tmp_path, side=60)
     np.testing.assert_allclose(ours, ref, rtol=0, atol=families.JAX_TOL)

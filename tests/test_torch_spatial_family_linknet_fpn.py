@@ -3,8 +3,10 @@ ranks on the CPU (`torch_spatial_families.py` holds the checks and
 tolerances): the eval step of every pair with each of the seven encoders
 against one process; one train step of LinkNet/ResNet-34 and of
 FPN/ResNet-34 (channelwise dropout, GroupNorm over the space group)
-against one process; FPN/ResNet-34's eval step against the JAX package's
-own on `get_mesh(n_devices=2, space=2)`."""
+against one process, and FPN/ResNet-34's train and eval steps at 62x62,
+whose x4 head leaves 64x64 logits that it resizes back with half-pixel
+centres, row-sharded; FPN/ResNet-34's eval step against the JAX
+package's own on `get_mesh(n_devices=2, space=2)`."""
 
 import numpy as np
 import pytest
@@ -15,8 +17,9 @@ import torch_spatial_families as families
 
 torch.set_num_threads(cases.THREADS)
 
-TRAIN = [("LINKNET", "resnet34"), ("FPN", "resnet34")]
-EVAL = families.built_pairs("LINKNET", "FPN")
+TRAIN = [("LINKNET", "resnet34"), ("FPN", "resnet34"),
+         ("FPN", "resnet34", 62)]
+EVAL = families.built_pairs("LINKNET", "FPN") + [("FPN", "resnet34", 62)]
 
 
 @pytest.fixture(scope="module")
@@ -25,13 +28,13 @@ def ranks(tmp_path_factory):
 
 
 @pytest.mark.parametrize("i", range(len(TRAIN)),
-                         ids=[f"{d}-{e}" for d, e in TRAIN])
+                         ids=[families.pair_id(p) for p in TRAIN])
 def test_spatial_train_step_matches_one_process(ranks, i):
     families.assert_train_matches(ranks, i)
 
 
 @pytest.mark.parametrize("i", range(len(EVAL)),
-                         ids=[f"{d}-{e}" for d, e in EVAL])
+                         ids=[families.pair_id(p) for p in EVAL])
 def test_spatial_eval_step_matches_one_process(ranks, i):
     families.assert_eval_matches(ranks, i)
 

@@ -7,7 +7,10 @@ whole float64 input (numpy seed), in training mode:
   (depthwise; kernel 3 and 5, stride 1 and 2, dilation 2), FPN's
   GroupNorm, the global mean, ResNeSt's average pools (padding counted;
   2 x 2 with a floor), the align-corners resize at x4, x8 and PAN's odd
-  ratios (up to 2H + 1, down to H // 2, from one row), PAN's 2 x 2 pool
+  ratios (up to 2H + 1, down to H // 2, from one row), the head's
+  half-pixel resize (`layers.resize_to`: antialiased shrinking by a few
+  rows, as the head takes ceil(side / up) * up back to the side, and by
+  over 3, and growing to 2H + 1) against `F.interpolate`, PAN's 2 x 2 pool
   (its input kept where the global side is below 2), DeepLab's
   dilation-36 3x3 on a 16-row map, and elementwise and channelwise
   Dropout under one seeded generator, on bands even (16 rows over 2
@@ -25,19 +28,28 @@ whole float64 input (numpy seed), in training mode:
   process's (BnAct computes in float32), on 1 x 2, 1 x 3 and 2 x 2
   meshes (where the value is summed once a space rank and must be
   counted once);
-- the input rows `_align_corners_support` gives cover every column that
-  the interpolation matrix weighs, for every band of every size up to 40.
+- the input rows `matrix_support` gives cover every column that the
+  align-corners and half-pixel matrices weigh, with at most one row of
+  margin, for every band of every size up to 40;
+- the half-pixel matrix (`layers._half_pixel_matrix`) against
+  `F.interpolate(antialias=True)` of an identity in float64, and against
+  the JAX package's matrix (`jax.image.resize` of an identity, as its
+  `resize_to` builds it) within 1e-5 in float32, shrinking and growing.
 """
 
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 import torch_parallel_cases as cases
 import torch_spatial_cases as spatial_cases
-from volume_segmantics_tpu_torch.models.layers import _align_corners_matrix
+from volume_segmantics_tpu_torch.models.layers import (
+    _align_corners_matrix,
+    _half_pixel_matrix,
+)
 from volume_segmantics_tpu_torch.parallel.mesh import band, spawn_ranks
-from volume_segmantics_tpu_torch.parallel.spatial import _align_corners_support
+from volume_segmantics_tpu_torch.parallel.spatial import matrix_support
 
 torch.set_num_threads(cases.THREADS)
 
@@ -61,6 +73,9 @@ OPS = {
     "resize_x8": ("resize", lambda h: 8 * h),
     "resize_odd_up": ("resize", lambda h: 2 * h + 1),
     "resize_down": ("resize", lambda h: max(h // 2, 2)),
+    "half_resize_head": ("half_resize", lambda h: max(h - max(h // 8, 1), 1)),
+    "half_resize_down": ("half_resize", lambda h: max(h // 3, 1)),
+    "half_resize_up": ("half_resize", lambda h: 2 * h + 1),
     "pool2": ("pool2", None),
     "dropout": ("dropout", (0.5, False)),
     "dropout_channelwise": ("dropout", (0.2, True)),
@@ -87,7 +102,7 @@ def all_cases():
 def make_case(op, layout, rng, seed):
     space, data, height = layout
     kind, args = ("conv", (3, 36)) if op == "aspp_rate36" else OPS[op]
-    if kind == "resize":
+    if kind in ("resize", "half_resize"):
         args = args(height)
     n = POOLED_N if kind == "pooled" else N
     x = torch.from_numpy(rng.standard_normal((n * data, C, height, height)))
@@ -178,19 +193,67 @@ def test_layouts_leave_bands_short_of_their_halo_or_empty():
     assert [band(1, 2, j) for j in range(2)] == [slice(0, 1), slice(1, 1)]
 
 
+def assert_support_covers(matrix, parts):
+    out_len, in_len = matrix.shape
+    needs = matrix_support(matrix, parts)
+    for j in range(parts):
+        out = band(out_len, parts, j)
+        if out.start == out.stop:
+            assert needs[j] == (in_len, in_len + 1)
+            continue
+        lo, hi = needs[j]
+        used = torch.nonzero(matrix[out].abs().sum(0)).flatten()
+        first, last = used.min().item(), used.max().item()
+        assert lo <= first and last < hi, (in_len, out_len, j, lo, hi, used)
+        assert first - lo <= 1 and hi - 1 - last <= 1, (lo, hi, used)
+
+
 @pytest.mark.parametrize("parts", [2, 3, 4])
 def test_align_corners_support_covers_the_weighed_rows(parts):
     for in_len in range(1, 41):
         for out_len in range(1, 41):
             if out_len == 1 and in_len > 1:
                 continue  # the matrix is undefined there (0 / 0)
-            w = _align_corners_matrix(out_len, in_len, torch.device("cpu"),
-                                      torch.float32)
-            for j in range(parts):
-                out = band(out_len, parts, j)
-                if out.start == out.stop:
-                    continue
-                lo, hi = _align_corners_support(out, in_len, out_len)
-                used = torch.nonzero(w[out].abs().sum(0)).flatten()
-                assert lo <= used.min().item() and used.max().item() < hi, (
-                    in_len, out_len, j, lo, hi, used)
+            assert_support_covers(_align_corners_matrix(
+                out_len, in_len, torch.device("cpu"), torch.float32), parts)
+
+
+@pytest.mark.parametrize("parts", [2, 3, 4])
+def test_half_pixel_support_covers_the_weighed_rows(parts):
+    for in_len in range(1, 41):
+        for out_len in range(1, 41):
+            assert_support_covers(_half_pixel_matrix(
+                out_len, in_len, torch.device("cpu"), torch.float32), parts)
+
+
+# JAX computes its kernel's taps in float32: up to 4.0e-6 from the float64
+# weights at 64 -> 60.
+JAX_MATRIX_TOL = 1e-5
+# (out, in): the head's shrinks (DeepLabV3 at 60 and 68, FPN and PAN at 62
+# and 66), a shrink by over 3, to one row, and growth.
+HALF_PIXEL_SIZES = [(60, 64), (68, 72), (62, 64), (66, 68), (5, 16), (1, 7),
+                    (33, 16), (16, 15), (7, 1)]
+
+
+@pytest.mark.parametrize("out_len,in_len", HALF_PIXEL_SIZES)
+def test_half_pixel_matrix_is_interpolate_and_jax_resize(out_len, in_len):
+    import jax
+    import jax.numpy as jnp
+
+    ours = _half_pixel_matrix(out_len, in_len, torch.device("cpu"),
+                              torch.float64)
+    eye = torch.eye(in_len, dtype=torch.float64)[None, None]
+    ref = F.interpolate(eye, size=(out_len, in_len), mode="bilinear",
+                        align_corners=False, antialias=True)[0, 0]
+    np.testing.assert_allclose(ours.numpy(), ref.numpy(), rtol=0, atol=1e-14)
+    if out_len > in_len:  # growing, the antialias changes nothing
+        plain = F.interpolate(eye, size=(out_len, in_len), mode="bilinear",
+                              align_corners=False)[0, 0]
+        np.testing.assert_allclose(ours.numpy(), plain.numpy(), rtol=0,
+                                   atol=1e-14)
+    jax_matrix = jax.image.resize(jnp.eye(in_len, dtype=jnp.float32),
+                                  (out_len, in_len), method="bilinear")
+    np.testing.assert_allclose(
+        _half_pixel_matrix(out_len, in_len, torch.device("cpu"),
+                           torch.float32).numpy(),
+        np.asarray(jax_matrix), rtol=0, atol=JAX_MATRIX_TOL)

@@ -3,8 +3,8 @@ trainer: a count that does not divide the device count raises the JAX
 package's ValueError; on the CPU the port has one device. A count that
 divides it and is above 1 splits image height, for every (decoder,
 encoder) pair that the registry builds (PAN on a ResNeSt it refuses
-itself, as the JAX registry does); an image side whose logits the
-segmentation head would resize to the input is refused by name."""
+itself, as the JAX registry does), at any image side, including those
+whose logits the segmentation head resizes to the input."""
 
 import jax
 import numpy as np
@@ -114,8 +114,10 @@ def test_an_image_size_whose_logits_the_head_resizes_is_refused_by_name(
         settings, monkeypatch, model_type, image_size):
     """A side that is not a multiple of the head's upsampling (x8 for
     DeepLabV3, x4 for FPN and PAN) leaves logits the head resizes to the
-    input with half-pixel centres, which is not row-sharded; a multiple
-    of it passes, and so does any side without partitions."""
+    input with half-pixel centres; that resize is row-sharded, so the
+    side passes with partitions as without, and so does a multiple of
+    it. A partition count that does not divide the GPUs is still
+    refused."""
     import torch
 
     from volume_segmantics_tpu_torch.model.operations.vol_seg_2d_trainer import (
@@ -128,8 +130,9 @@ def test_an_image_size_whose_logits_the_head_resizes_is_refused_by_name(
     settings.spatial_partitions = 1
     assert check_spatial_partitions(settings, torch.device("cuda")) == 1
     settings.spatial_partitions = 2
-    with pytest.raises(NotImplementedError,
-                       match="spatial partitioning .* half-pixel resize"):
-        check_spatial_partitions(settings, torch.device("cuda"))
+    assert check_spatial_partitions(settings, torch.device("cuda")) == 2
     settings.image_size = image_size - image_size % 8
     assert check_spatial_partitions(settings, torch.device("cuda")) == 2
+    settings.spatial_partitions = 3
+    with pytest.raises(ValueError):
+        check_spatial_partitions(settings, torch.device("cuda"))

@@ -7,7 +7,9 @@ files and what each holds, `chip_smoke.FIXTURE_OTHERS` the rest.
 
     python tests/torch_hdf5_fixtures.py
 
-The committed files were written with h5py 3.14.0 on HDF5 1.14.6.
+The committed files were written with h5py 3.14.0 on HDF5 1.14.6 (szip
+through its libaec). Rewriting the older files changes their bytes (their
+object headers hold times): write only the new ones.
 """
 
 import itertools
@@ -172,6 +174,29 @@ def write_virtual_fixtures(folder: Path) -> None:
                          scaleoffset=0, compression="gzip")
 
 
+def write_szip_fixtures(folder: Path) -> None:
+    """szip (libaec) chunks under the nearest-neighbour preprocessor: the
+    crop as bytes, as big-endian uint16 on a scanline that is not whole
+    blocks, and in float32 quarters after shuffle with Fletcher-32; the
+    vessels volume, and its labels under entropy coding alone (which the
+    crop's values do not shrink under), a pair that `model-train-2d` and
+    `model-predict-2d` read."""
+    arrays = chip_smoke.fixture_arrays()
+    for name, array, chunks, dtype, options, extra in (
+            ("crop_szip.h5", "crop", (3, 24, 24), "u1", ("nn", 8), {}),
+            ("crop_szip_u2.h5", "crop_u2", (6, 12, 20), ">u2", ("nn", 16), {}),
+            ("crop_szip_float.h5", "crop_quarters", (5, 10, 10), "<f4",
+             ("nn", 32), dict(shuffle=True, fletcher32=True)),
+            ("vessels_szip.h5", "vessels", (8, 48, 48), "u1", ("nn", 16), {}),
+            ("vessels_labels_szip.h5", "labels", (8, 48, 48), "u1", ("ec", 8),
+             {})):
+        with h5py.File(folder / name, "w") as f:
+            f.create_dataset("data", data=arrays[array].astype(dtype),
+                             chunks=chunks, compression="szip",
+                             compression_opts=options, **extra)
+
+
 if __name__ == "__main__":
     write_fixtures(Path(chip_smoke.FIXTURE_DIR))
     write_virtual_fixtures(Path(chip_smoke.FIXTURE_DIR))
+    write_szip_fixtures(Path(chip_smoke.FIXTURE_DIR))

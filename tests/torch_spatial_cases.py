@@ -5,6 +5,7 @@ its results with `torch.save`."""
 
 from pathlib import Path
 
+import numpy as np
 import torch
 
 import torch_parallel_cases as cases
@@ -216,6 +217,9 @@ def op_layer(case: dict):
     if kind == "resize":
         out = case["args"]
         return (lambda x: layers.resize_align_corners(x, out, out)), None
+    if kind == "half_resize":
+        out = case["args"]
+        return (lambda x: layers.resize_to(x, out, out)), None
     if kind == "avg_pool":
         k, s, p = case["args"]
         return (lambda x: layers.avg_pool(x, k, s, p)), None
@@ -287,7 +291,7 @@ def seeded_model(struc: dict, seed: int = 11):
 def float64_first_loss(case: dict, images, masks) -> float:
     """The first train step's loss of `case` on the global batch in
     float64 (`torch_parallel_cases.float64_first_step`'s forward: the same
-    augmentation draws and dropout masks; BatchNorm in float64)."""
+    augmentation draws, if any, and dropout masks; BatchNorm in float64)."""
     from volume_segmantics_tpu_torch.models.registry import create_model
     from volume_segmantics_tpu_torch.ops.augment import augment_batch_u8
     from volume_segmantics_tpu_torch.parallel.train import normalise
@@ -297,9 +301,12 @@ def float64_first_loss(case: dict, images, masks) -> float:
     model = model.double().train()
     layers.set_dropout_generator(
         model, torch.Generator().manual_seed(case["seed"] + 1))
-    imgs, msks = augment_batch_u8(torch.Generator().manual_seed(case["seed"]),
-                                  torch.from_numpy(images),
-                                  torch.from_numpy(masks), images.shape[-1])
+    if case["augment"]:
+        imgs, msks = augment_batch_u8(
+            torch.Generator().manual_seed(case["seed"]),
+            torch.from_numpy(images), torch.from_numpy(masks), images.shape[-1])
+    else:
+        imgs, msks = torch.from_numpy(images) / 255.0, torch.from_numpy(masks)
     targets = torch.nn.functional.one_hot(msks.long(), case["struc"]["classes"])
     forward, layers.BnAct.forward = layers.BnAct.forward, cases._bn_act_float64
     try:
@@ -313,8 +320,11 @@ def float64_first_loss(case: dict, images, masks) -> float:
 
 def family_rank(rank: int, in_path: str, out_dir: str) -> None:
     """Over a 1 x 2 mesh, from each pair's seeded weights
-    (`seeded_model`): for each of the blob's `train` pairs one train step
-    (`torch_parallel_cases.train_run`: DiceLoss, augmentation on, a seeded
+    (`seeded_model`), each pair on the top-left side x side crop of the
+    blob's images (its entries are (struc, side)): for each of the blob's
+    `train` pairs one train step
+    (`torch_parallel_cases.train_run`: DiceLoss, augmentation on where
+    the side is a multiple of 16, a seeded
     dropout generator, lr `lr`), rank 0 adding the one-process step, the
     comparison (`against_one_process`, without a float64 step) and the
     first step's float64 loss (`float64_first_loss`; none for FPN, whose
@@ -330,33 +340,41 @@ def family_rank(rank: int, in_path: str, out_dir: str) -> None:
     mesh = get_mesh(device="cpu", space=2)
     images, masks = blob["images"], blob["masks"]
 
-    def evaluate(model, on):
+    def crop(side):
+        return (np.ascontiguousarray(images[:, :side, :side]),
+                np.ascontiguousarray(masks[:, :side, :side]))
+
+    def evaluate(model, on, side):
         step = build_dp_eval_step(model, cases.loss_fn("DiceLoss"), mean_iou,
                                   num_labels=2, mesh=on,
                                   compute_dtype=torch.float32)
-        rows = on.rows(images.shape[0])
-        loss, score = step(torch.from_numpy(images[rows]),
-                           torch.from_numpy(masks[rows]), images.shape[0])
+        rows, (imgs, msks) = on.rows(images.shape[0]), crop(side)
+        loss, score = step(torch.from_numpy(imgs[rows]),
+                           torch.from_numpy(msks[rows]), images.shape[0])
         return loss.item(), score.item()
 
     out = {"train": [], "eval": []}
-    for struc in blob["train"]:
+    for struc, side in blob["train"]:
+        # The port's CLAHE (K2, K3 and their plain versions) takes sides
+        # that are multiples of 16 only, where the JAX package's XLA clahe
+        # takes any: other sides train without augmentation.
         case = dict(struc=struc, state=seeded_model(struc).state_dict(),
                     loss="DiceLoss",
-                    frozen=False, augment=True, lr=blob["lr"], steps=1,
-                    seed=11)
-        run = cases.train_run(case, images, masks, mesh)
+                    frozen=False, augment=side % 16 == 0, lr=blob["lr"],
+                    steps=1, seed=11)
+        imgs, msks = crop(side)
+        run = cases.train_run(case, imgs, msks, mesh)
         res = {"losses": run["losses"], "digest": cases.digest(run["final"])}
         if rank == 0:
-            ref = cases.train_run(case, images, masks, Mesh())
+            ref = cases.train_run(case, imgs, msks, Mesh())
             res.update(cases.against_one_process(run, ref, None), loss64=(
                 None if struc["type"] == "FPN"
-                else float64_first_loss(case, images, masks)))
+                else float64_first_loss(case, imgs, msks)))
         out["train"].append(res)
-    for struc in blob["eval"]:
+    for struc, side in blob["eval"]:
         model = seeded_model(struc)
-        res = {"eval": evaluate(model, mesh)}
+        res = {"eval": evaluate(model, mesh, side)}
         if rank == 0:
-            res["ref_eval"] = evaluate(model, Mesh())
+            res["ref_eval"] = evaluate(model, Mesh(), side)
         out["eval"].append(res)
     torch.save(out, Path(out_dir, f"rank{rank}.pt"))

@@ -5,11 +5,16 @@
 package's own spatial eval step for a pair.
 
 The checks, against the port's one-process steps from the same seeded
-weights on the global batch (64x64, float32, global batch 2):
+weights on the global batch (64x64, float32, global batch 2; a pair
+given as (decoder, encoder, side) runs on the top-left side x side crop,
+a side the head's upsampling does not divide making its half-pixel
+resize of the logits back to the input run row-sharded):
 - the eval step (DiceLoss, MeanIoU; running statistics, so the forward is
   the whole op's up to summation order): loss and score within 1e-6 on
   both ranks alike;
-- one train step with augmentation on and a seeded dropout generator:
+- one train step with augmentation on (off at a side that is not a
+  multiple of 16, which the port's CLAHE does not take) and a seeded
+  dropout generator:
   the loss within 1e-5 relative or twice the one-process float32 loss's
   distance from the float64 loss of the same step, whichever is larger
   (BatchNorm over few values amplifies float32 rounding: on 2 samples
@@ -24,7 +29,8 @@ weights on the global batch (64x64, float32, global batch 2):
   (50d) and 0.6% (101e) of the elements.
 
 Against JAX (`jax_eval`): the eval step with a padded tail (4 samples, 3
-valid) on `get_mesh(n_devices=2, space=2)` from the JAX model's weights,
+valid, 64x64 or a given side) on `get_mesh(n_devices=2, space=2)` from
+the JAX model's weights,
 loss and MeanIoU within 1e-5, as `test_torch_spatial_step.py` holds
 U-Net/ResNet-34."""
 
@@ -59,6 +65,10 @@ def built_pairs(*decoders):
             if t.name in decoders and not (t.name == "PAN" and "resnest" in e)]
 
 
+def pair_id(pair) -> str:
+    return "-".join(str(p) for p in pair)
+
+
 def batch(n=GLOBAL, seed=8):
     rng = np.random.default_rng(seed)
     images = rng.integers(0, 256, (n, S, S), dtype=np.uint8)
@@ -66,12 +76,17 @@ def batch(n=GLOBAL, seed=8):
 
 
 def run_family(tmp, train_pairs, eval_pairs, n=GLOBAL):
-    """Both ranks' results of `family_rank` for the pairs, on a global
-    batch of `n`."""
+    """Both ranks' results of `family_rank` for the pairs ((decoder,
+    encoder) at side `S`, or (decoder, encoder, side)), on a global batch
+    of `n`."""
     images, masks = batch(n)
+
+    def entries(pairs):
+        return [(struc(*p[:2]), p[2] if len(p) > 2 else S) for p in pairs]
+
     torch.save({"images": images, "masks": masks, "lr": LR,
-                "train": [struc(*p) for p in train_pairs],
-                "eval": [struc(*p) for p in eval_pairs]}, tmp / "in.pt")
+                "train": entries(train_pairs), "eval": entries(eval_pairs)},
+               tmp / "in.pt")
     spawn_ranks(spatial_cases.family_rank, 2,
                 args=(str(tmp / "in.pt"), str(tmp)), timeout=FAMILY_TIMEOUT_S)
     return [torch.load(tmp / f"rank{r}.pt", weights_only=False)
@@ -97,10 +112,10 @@ def assert_train_matches(ranks, i, covered=COVERED):
     assert got["n_clear"] > covered * got["n_trainable"], got
 
 
-def jax_eval(model_type: str, tmp):
+def jax_eval(model_type: str, tmp, side: int = S):
     """The JAX package's spatial eval step of `model_type` on ResNet-34 on
     two CPU devices against the port's over two ranks, from the JAX
-    model's weights: (port, JAX) (loss, score)."""
+    model's weights, on side x side images: (port, JAX) (loss, score)."""
     import jax
     import jax.numpy as jnp
 
@@ -124,7 +139,7 @@ def jax_eval(model_type: str, tmp):
         0, dict(pair, type=JaxModelType[model_type]),
         rng=jax.random.PRNGKey(0), dtype=jnp.float32)
     rng = np.random.default_rng(5)
-    images = rng.integers(0, 256, (4, S, S), dtype=np.uint8)
+    images = rng.integers(0, 256, (4, side, side), dtype=np.uint8)
     masks = (images > 128).astype(np.uint8)
     ref = build_dp_eval_step(
         bundle.module,

@@ -65,7 +65,6 @@ from volume_segmantics_tpu_torch.models.checkpoint import (
     checkpoint_from_bytes,
     save_checkpoint,
 )
-from volume_segmantics_tpu_torch.models.registry import check_head_resize
 from volume_segmantics_tpu_torch.models.torch_export import flax_param_paths
 from volume_segmantics_tpu_torch.parallel.mesh import (
     check_space,
@@ -105,21 +104,14 @@ def check_spatial_partitions(settings: SimpleNamespace,
     that does not divide the device count (the ranks of the process group;
     without one, the GPUs, or 1 on the CPU) raises the JAX package's
     ValueError (its `parallel/mesh.py:get_mesh`). Above 1 every (decoder,
-    encoder) pair that `create_model` builds splits its rows; an image
-    side whose logits the segmentation head would resize to the input,
-    which is not row-sharded, raises NotImplementedError naming it
-    (`models.registry.check_head_resize`), before any step."""
+    encoder) pair that `create_model` builds splits its rows, at any
+    `image_size`."""
     space = int(getattr(settings, "spatial_partitions", 1) or 1)
     if dist.is_initialized():
         count = dist.get_world_size()
     else:
         count = torch.cuda.device_count() if device.type == "cuda" else 1
     check_space(space, count)
-    if space > 1:
-        check_head_resize(
-            utils.create_enum_from_setting(settings.model["type"],
-                                           utils.ModelType),
-            int(settings.image_size))
     return space
 
 

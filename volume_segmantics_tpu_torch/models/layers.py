@@ -10,7 +10,7 @@ same function.
 
 Under spatial partitioning (inside `parallel.spatial.split_rows`) every
 layer here that mixes rows (`Conv2d`, `SameConv2d`, `ConvTranspose2d`,
-`GroupNorm`, `AvgPool2d`, `avg_pool`, `max_pool`, `upsample`,
+`GroupNorm`, `AvgPool2d`, `avg_pool`, `max_pool`, `upsample`, `resize_to`,
 `resize_align_corners`, `global_avg_pool`) computes this rank's band of
 rows, exchanging halos or sums over the space group, and BnAct and
 Dropout take the global batch and image; outside it they are the plain
@@ -309,12 +309,36 @@ def resize_to(x: torch.Tensor, out_h: int, out_w: int,
               align_corners: bool = False) -> torch.Tensor:
     """Bilinear resize of an NCHW tensor to (out_h, out_w). Half-pixel
     centres (`jax.image.resize`, antialiased when shrinking as it is) or,
-    with `align_corners`, torch's align_corners=True mapping."""
+    with `align_corners`, torch's align_corners=True mapping. Inside
+    `parallel.spatial.split_rows` the half-pixel resize is two products
+    with `_half_pixel_matrix`, the rows on the band."""
     if align_corners:
         return resize_align_corners(x, out_h, out_w)
+    if spatial.active_mesh() is not None:
+        return _resize_by_matrices(x, out_h, out_w, _half_pixel_matrix)
     shrink = out_h < x.shape[2] or out_w < x.shape[3]
     return F.interpolate(x, size=(out_h, out_w), mode="bilinear",
                          align_corners=False, antialias=shrink)
+
+
+@functools.lru_cache(maxsize=128)
+def _half_pixel_matrix(out_len: int, in_len: int, device: torch.device,
+                       dtype: torch.dtype) -> torch.Tensor:
+    """(out_len, in_len) weights of the half-pixel bilinear resize, with
+    `F.interpolate(mode="bilinear", antialias=True)`'s weights: output
+    row i centred on input position c = (i + 0.5) * in / out weighs input
+    row j by the triangle max(0, 1 - |j + 0.5 - c| / s), s = max(in / out,
+    1) (stretched when shrinking: the antialias), over the sum of its
+    row's weights. Growing, that is the plain half-pixel bilinear mapping
+    with the source clamped to the edge rows. Computed in float64 and
+    cast to `dtype`; cached and built like `_align_corners_matrix`."""
+    with torch.inference_mode(False), torch.no_grad():
+        scale = in_len / out_len
+        centre = (torch.arange(out_len, dtype=torch.float64) + 0.5) * scale
+        taps = torch.arange(in_len, dtype=torch.float64) + 0.5
+        w = torch.clamp(1.0 - (taps[None, :] - centre[:, None]).abs()
+                        / max(scale, 1.0), min=0.0)
+        return (w / w.sum(1, keepdim=True)).to(device=device, dtype=dtype)
 
 
 @functools.lru_cache(maxsize=128)
@@ -343,21 +367,29 @@ def _align_corners_matrix(out_len: int, in_len: int, device: torch.device,
 def resize_align_corners(x: torch.Tensor, out_h: int,
                          out_w: int) -> torch.Tensor:
     """Bilinear resize with torch's align_corners=True mapping, NCHW, as
-    the JAX package computes it: two products with interpolation matrices,
-    in x's dtype (autocast: bf16 with float32 sums). Unlike
-    `F.interpolate`, whose CUDA backward accumulates with atomics, its
-    backward is deterministic, so a seeded training run repeats. Inside
-    `parallel.spatial.split_rows` the sizes are global (`image_size`) and
-    the rows are resized first, on the band (`spatial.resize_rows`)."""
+    the JAX package computes it: two products with interpolation matrices
+    (`_resize_by_matrices`). Unlike `F.interpolate`, whose CUDA backward
+    accumulates with atomics, its backward is deterministic, so a seeded
+    training run repeats."""
+    return _resize_by_matrices(x, out_h, out_w, _align_corners_matrix)
+
+
+def _resize_by_matrices(x: torch.Tensor, out_h: int, out_w: int,
+                        matrix) -> torch.Tensor:
+    """x resized by two products with the (out, in) matrices that
+    `matrix(out, in, device, dtype)` gives, in x's dtype (autocast: bf16
+    with float32 sums). Inside `parallel.spatial.split_rows` the sizes are
+    global (`image_size`) and the rows are resized first, on the band
+    (`spatial.resize_rows`), while the band's global height is still its
+    width."""
     (in_h, in_w), mesh = image_size(x), spatial.active_mesh()
     y = x
     if in_h != out_h:
-        matrix = _align_corners_matrix(out_h, in_h, x.device, y.dtype)
-        y = (torch.matmul(matrix, y) if mesh is None
-             else spatial.resize_rows(y, matrix, mesh))
+        rows = matrix(out_h, in_h, x.device, y.dtype)
+        y = (torch.matmul(rows, y) if mesh is None
+             else spatial.resize_rows(y, rows, mesh))
     if in_w != out_w:
-        y = torch.matmul(
-            y, _align_corners_matrix(out_w, in_w, x.device, y.dtype).t())
+        y = torch.matmul(y, matrix(out_w, in_w, x.device, y.dtype).t())
     return y.to(x.dtype)
 
 

@@ -34,7 +34,6 @@ from volume_segmantics_tpu_torch.models.layers import (
     init_like_flax,
     resize_to,
 )
-from volume_segmantics_tpu_torch.parallel import spatial
 from volume_segmantics_tpu_torch.utils.base_data_utils import (
     ModelType,
     create_enum_from_setting,
@@ -70,9 +69,7 @@ class SegmentationModel(nn.Module):
     logits at another size than the input, a half-pixel resize to it.
     Input and output NCHW; logits are float32. Inside
     `parallel.spatial.split_rows` the sizes are the global image's and
-    the align-corners upsample is row-sharded; the half-pixel resize is
-    not, and raises NotImplementedError (an image side that is a multiple
-    of `head_upsampling` needs none: `check_head_resize`)."""
+    both resizes are row-sharded (`layers.resize_to`)."""
 
     def __init__(self, encoder: nn.Module, decoder: nn.Module, classes: int,
                  head_kernel: int = 3, head_upsampling: int = 1):
@@ -93,11 +90,6 @@ class SegmentationModel(nn.Module):
             logits = resize_to(logits, h * self.head_upsampling,
                                w * self.head_upsampling, align_corners=True)
         if image_size(logits) != (in_h, in_w):
-            if spatial.active_mesh() is not None:
-                raise NotImplementedError(
-                    "spatial partitioning of the segmentation head's "
-                    f"half-pixel resize of {image_size(logits)} logits to "
-                    f"the {(in_h, in_w)} input")
             logits = resize_to(logits, in_h, in_w)
         return logits.float()
 
@@ -115,20 +107,6 @@ ARCHITECTURES = {
     ModelType.LINKNET: (LinknetDecoder, 1, 1, 32),
     ModelType.PAN: (PANDecoder, 3, 4, 16),
 }
-
-
-def check_head_resize(model_type: ModelType, image_size: int) -> None:
-    """Raise NotImplementedError where spatial partitioning would meet the
-    segmentation head's half-pixel resize: an image side that is not a
-    multiple of the head's upsampling (every stride-2 layer rounds up, so
-    the logits come out at ceil(side / up) * up)."""
-    up = ARCHITECTURES[model_type][2]
-    if image_size % up:
-        raise NotImplementedError(
-            f"spatial partitioning of {model_type.name} at image_size "
-            f"{image_size}: its segmentation head's half-pixel resize of "
-            f"the x{up} logits to the input is not row-sharded (a multiple "
-            f"of {up} needs none).")
 
 
 def create_model(model_struc_dict: dict,

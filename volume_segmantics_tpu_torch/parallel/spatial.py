@@ -1,7 +1,7 @@
 """Row-sharded layers for spatial partitioning (the `space` axis of
 `parallel/mesh.py`): convolutions (transposed and TF-"SAME" too), max and
-average pooling, nearest and align-corners resizing, GroupNorm, the
-global mean, and the gather of a map whole.
+average pooling, nearest, align-corners and half-pixel resizing,
+GroupNorm, the global mean, and the gather of a map whole.
 
 The JAX package pins the model input's height axis to its mesh's `space`
 axis and lets GSPMD split every op by rows, exchanging halos. The port
@@ -26,9 +26,10 @@ and every op of every model the registry builds maps a square to a
 square. The convolutions, pools, x2 upsamples and transposed
 convolutions treat both axes alike; every resize is to a size computed
 from the global height and width alike (PAN's max(h // 4, 1), h // 2
-and h; the skip's size; the head's x4 and x8), so it stays square; a
-global pool gives 1 x 1. So each rank knows every rank's band of every
-tensor without asking.
+and h; the skip's size; the head's x4 and x8, and its half-pixel resize
+of logits that come out larger than the input back to the input's
+side), so it stays square; a global pool gives 1 x 1. So each rank
+knows every rank's band of every tensor without asking.
 
 The exchange is a SUM all-reduce over the space group of a zeroed buffer
 that holds, for every rank, the rows it needs from the others, each
@@ -356,30 +357,37 @@ def group_norm(x, num_groups: int, weight, bias, eps: float,
     return (y * weight[:, None, None] + bias[:, None, None]).to(x.dtype)
 
 
-def _align_corners_support(out: slice, in_len: int, out_len: int):
-    """Input rows [lo, hi) that align-corners output rows `out` read:
-    floor(r * (in - 1) / (out - 1)) and the next, one row of margin on
-    each side for the float32 rounding of the interpolation matrix (rows
-    it weighs 0 add exact zeros)."""
-    if out_len == 1 or in_len == 1:
-        return 0, min(in_len, 2)
-    scale = (in_len - 1) / (out_len - 1)
-    return (max(int(out.start * scale) - 1, 0),
-            min(int((out.stop - 1) * scale) + 3, in_len))
+def matrix_support(matrix: torch.Tensor, parts: int):
+    """For each of `parts` bands of the rows of `matrix` (out, in), the
+    input rows [lo, hi) that the band's rows weigh (its nonzero columns),
+    with one row of margin on each side as the halo ops keep (the margin's
+    rows are weighed 0 and add exact zeros); an empty band fetches one
+    row of padding (`_empty_band_needs`). Read from the matrix on the
+    host, so any resize's matrix serves: the align-corners mapping reads
+    two input rows an output row, the antialiased half-pixel shrink by
+    in / out up to 2 * in / out + 1."""
+    out_len, in_len = matrix.shape
+    weighed = (matrix.detach() != 0).cpu()
+    needs = []
+    for j in range(parts):
+        out = band(out_len, parts, j)
+        if out.start == out.stop:
+            needs.append(_empty_band_needs(in_len, 1))
+            continue
+        cols = torch.nonzero(weighed[out].any(0)).flatten()
+        needs.append((max(int(cols[0]) - 1, 0),
+                      min(int(cols[-1]) + 2, in_len)))
+    return needs
 
 
 def resize_rows(x: torch.Tensor, matrix: torch.Tensor,
                 mesh: Mesh) -> torch.Tensor:
     """`matrix` (out, in) times the rows of the image whose band `x` is
     (in = its global height), this rank's band of the out rows: the
-    align-corners matrix's rows for the band times the input rows they
-    read, fetched. Its backward stays a matrix product."""
+    matrix's rows for the band times the input rows they weigh
+    (`matrix_support`), fetched. Its backward stays a matrix product."""
     out_len, in_len = matrix.shape
-    needs = []
-    for j in range(mesh.space_size):
-        out = band(out_len, mesh.space_size, j)
-        needs.append(_align_corners_support(out, in_len, out_len)
-                     if out.start < out.stop else _empty_band_needs(in_len, 1))
+    needs = matrix_support(matrix, mesh.space_size)
     rows = fetch_rows(x, mesh, needs, 0.0)
     out = mesh.band(out_len)
     lo, hi = needs[mesh.space_index]

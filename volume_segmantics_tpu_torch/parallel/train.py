@@ -32,9 +32,8 @@ masks drawn for the global batch and image from the same generator on
 every rank (so the generators advance alike), and the logits and masks
 are gathered over both axes into the global (N, C, H, W) before the one
 loss and metric. The images must be square; every model maps them to
-square logits of the input's size (the head's align-corners upsample is
-row-sharded; `models.registry.check_head_resize` refuses the sizes whose
-logits it would resize again).
+square logits of the input's size (the head's align-corners upsample and
+its half-pixel resize back to the input are both row-sharded).
 """
 
 from typing import Callable, Iterable

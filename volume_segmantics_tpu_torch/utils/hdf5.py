@@ -28,9 +28,10 @@ it:
   chunks never written (these take the fill value);
 - the filters deflate, shuffle, Fletcher-32, LZF (h5py's filter 32000),
   scale-offset (integers, and floats with a decimal scale, bit for bit as
-  the library decodes them) and n-bit (full-precision types, which it
-  leaves as they are) in `hdf5_filters`; a chunk's filter mask skips the
-  filters its writer skipped, such as LZF on a chunk it cannot shrink;
+  the library decodes them), n-bit (full-precision types, which it
+  leaves as they are) and szip (as libaec decodes it) in `hdf5_filters`;
+  a chunk's filter mask skips the filters its writer skipped, such as LZF
+  or szip on a chunk it cannot shrink;
 - external raw storage: the data in segments of raw files, a relative
   name under $HDF5_EXTFILE_PREFIX (``${ORIGIN}`` is the file's directory)
   or else in the working directory, as the library finds them; a missing
@@ -57,7 +58,7 @@ inflates only those that meet the selection, a virtual one reads only the
 mappings that meet it, so a volume larger than host memory is read a slab
 at a time. Every chunk a read inflates, through any depth of virtual
 datasets, is a job of one thread pool. Every other feature raises
-NotImplementedError naming it: the szip filter, reduced-precision types
+NotImplementedError naming it: other filters, reduced-precision types
 (as the n-bit filter packs them), scale-offset's E-scale method, point
 selections, unlimited and printf-style (%b) mappings of virtual datasets,
 shared object header messages, other datatypes, offsets that are not 8
@@ -830,11 +831,10 @@ class Dataset:
             p += 4 * n_values
             if version == 1 and n_values % 2:
                 p += 4
-            if fid not in FILTER_NAMES or fid == FILTER_SZIP:
-                name = FILTER_NAMES.get(fid, "unknown")
-                raise unsupported(f"filter {fid} ({name}; deflate, shuffle, "
-                                  "Fletcher-32, LZF, scale-offset and n-bit are "
-                                  "read)")
+            if fid not in FILTER_NAMES:
+                raise unsupported(f"filter {fid} (unknown; deflate, shuffle, "
+                                  "Fletcher-32, LZF, scale-offset, n-bit and "
+                                  "szip are read)")
             if fid == FILTER_NBIT:
                 try:
                     hdf5_filters.nbit_check(values, self._stored)
@@ -1446,6 +1446,8 @@ class Dataset:
                         raw = zlib.decompress(raw)
                     elif fid == FILTER_LZF:
                         raw = hdf5_filters.lzf_decode(raw)
+                    elif fid == FILTER_SZIP:
+                        raw = hdf5_filters.szip_decode(raw, values, self._stored)
                     else:
                         raw = hdf5_filters.scaleoffset_decode(raw, values,
                                                               self._stored)

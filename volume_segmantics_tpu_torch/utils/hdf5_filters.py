@@ -1,5 +1,6 @@
 """Decoders of the HDF5 filters beyond zlib's that h5py writes: LZF (h5py's
-filter 32000), scale-offset (6) and n-bit (5), in Python and numpy.
+filter 32000), scale-offset (6), n-bit (5) and szip (4), in Python and
+numpy.
 
 Each takes a chunk's bytes as the filter before it left them and the
 filter's client data (`cd`, the values the library's `set_local` stored in
@@ -8,6 +9,7 @@ when the chunk was written. A corrupt chunk raises ValueError; a setting
 not decoded here raises NotImplementedError naming it.
 """
 
+import bisect
 import struct
 
 import numpy as np
@@ -66,6 +68,239 @@ def lzf_decode(data) -> bytes:
             period = out[start:]
             out += (period * -(-length // len(period)))[:length]
     return bytes(out)
+
+
+# szip client data (H5Zszip.c, libaec's szlib.h): the options mask,
+# pixels per block, bits per pixel and pixels per scanline; of the options
+# only the sample order and the nearest-neighbour preprocessor change how
+# libaec decodes.
+SZ_MSB, SZ_NN = 16, 32
+SZ_ZERO_RUN_SEGMENT = 64  # blocks a zero-block run may reach to (ROS)
+SZ_ROS = 5  # the zero-block count that means "to the end of the segment"
+SZ_SE_CODES = 91  # second extension codes: pairs summing to 0..12
+
+
+def _se_pairs() -> np.ndarray:
+    """The (first, second) residual pair of each second-extension code m =
+    b (b + 1) / 2 + second, b = first + second."""
+    pairs = [(b - d, d) for b in range(13) for d in range(b + 1)]
+    return np.array(pairs[:SZ_SE_CODES], np.int64)
+
+
+def szip_decode(data, cd, stored: np.dtype) -> bytes:
+    """An szip chunk decoded as HDF5 does through libaec's szip interface
+    (H5Z__filter_szip, SZ_BufftoBuffDecompress): the bytes of `stored` it
+    was given, from a 4-byte little-endian count of them and the CCSDS
+    121.0 adaptive entropy coded samples.
+
+    Pixels of 32 and 64 bits were coded as bytes, byte 0 of every pixel
+    first, then byte 1, and so on; others as samples of their width, in
+    big-endian order under the MSB option and little-endian otherwise.
+    The samples fall in scanlines of `pixels per scanline`, each padded up
+    to whole blocks of `pixels per block`, and a scanline's blocks make one
+    reference sample interval (RSI); the intervals follow one another
+    without padding. Each block starts with an option ID (3 bits for
+    samples of up to 8 bits, 4 up to 16): 0 and one more bit select a run
+    of zero blocks (its count as a fundamental sequence, 5 meaning "to the
+    end of the 64-block segment or the interval") or the second extension
+    (pairs of residuals, one fundamental sequence each); all ones an
+    uncompressed block; any other ID a split-sample block with k = ID - 1:
+    every sample's high bits as a fundamental sequence (n zeros then a
+    one), then every sample's k low bits. Under the nearest-neighbour
+    option an interval's first sample is its reference, sent raw after the
+    ID (and the zero-block bit), and the rest are mapped differences from
+    the sample before (`_unmap_residuals`). A short or corrupt stream
+    raises ValueError."""
+    if len(cd) < 4:
+        raise ValueError(f"szip: a parameter list of {len(cd)} values")
+    options, block, bits_per_pixel, per_line = (int(v) for v in cd[:4])
+    if bits_per_pixel != 8 * stored.itemsize:
+        raise ValueError(f"szip: parameters for {bits_per_pixel}-bit pixels, "
+                         f"data of {stored}")
+    interleaved = bits_per_pixel in (32, 64)
+    bits = 8 if interleaved else bits_per_pixel
+    if block < 2 or block % 2 or per_line < 1:
+        raise ValueError(f"szip: {block} pixels a block, {per_line} a scanline")
+    if len(data) < 4:
+        raise ValueError("szip: the chunk is shorter than its size field")
+    out_len = int.from_bytes(bytes(data[:4]), "little")
+    width = 1 if interleaved else bits // 8
+    if out_len % width or (interleaved and out_len % (bits_per_pixel // 8)):
+        raise ValueError(f"szip: {out_len} bytes of {bits_per_pixel}-bit pixels")
+    n_out = out_len // width
+    line_blocks = -(-per_line // block)
+    interval = line_blocks * block
+    padded = per_line % block != 0
+    total = (-(-n_out // per_line) * interval) if padded else n_out
+    samples = _szip_samples(bytes(data[4:]), total, block, bits, line_blocks,
+                            bool(options & SZ_NN))
+    if options & SZ_NN:
+        samples = _unmap_residuals(samples, interval, bits)
+    samples = samples[:total]
+    if padded:
+        lines = samples.reshape(-1, interval)[:, :per_line]
+        samples = lines.reshape(-1)[:n_out]
+    order = ">" if options & SZ_MSB else "<"
+    raw = samples.astype(f"{order}u{width}").tobytes()
+    if interleaved:
+        size = bits_per_pixel // 8
+        raw = np.frombuffer(raw, np.uint8).reshape(size, -1).T.tobytes()
+    return raw
+
+
+def _szip_samples(stream: bytes, total: int, block: int, bits: int,
+                  line_blocks: int, preprocessed: bool) -> np.ndarray:
+    """The first `total` coded samples of `stream` (padded up to whole
+    blocks) as int64: mapped residuals, each interval's reference sample
+    first under the preprocessor. Blocks are walked one at a time to find
+    where each ends; the samples of split-sample and uncompressed blocks
+    are then gathered for all of them at once."""
+    id_len = 3 if bits <= 8 else 4
+    uncompressed = (1 << id_len) - 1
+    n_bits = 8 * len(stream)
+    padded_stream = stream + bytes(8)
+    stream_bits = np.unpackbits(np.frombuffer(stream, np.uint8))
+    ones = np.flatnonzero(stream_bits)
+    ones_list = ones.tolist()
+    n_ones = len(ones_list)
+    n_blocks = -(-total // block)
+    out = np.zeros(n_blocks * block, np.int64)
+    se = _se_pairs()
+    split = []  # (block index, first sequence bit, ones index, k)
+    raw_blocks = []  # (block index, first bit) of uncompressed blocks
+    short = "szip: the stream ends inside a block"
+    from_bytes, bisect_left = int.from_bytes, bisect.bisect_left
+
+    def read(p, n):
+        if p + n > n_bits:
+            raise ValueError(short)
+        word = from_bytes(padded_stream[p >> 3:(p >> 3) + 5], "big")
+        return (word >> (40 - (p & 7) - n)) & ((1 << n) - 1)
+
+    def sequence(p):
+        """(value, next bit) of the fundamental sequence at bit p."""
+        i = bisect_left(ones_list, p)
+        if i == n_ones:
+            raise ValueError(short)
+        return ones_list[i] - p, ones_list[i] + 1
+
+    p, b = 0, 0
+    while b < n_blocks:
+        in_interval = b % line_blocks
+        ref = preprocessed and in_interval == 0
+        option = read(p, id_len)
+        p += id_len
+        first = b * block
+        if option == 0:
+            second_extension = read(p, 1)
+            p += 1
+            if ref:
+                out[first] = read(p, bits)
+                p += bits
+            if not second_extension:
+                count, p = sequence(p)
+                count += 1
+                if count == SZ_ROS:
+                    count = min(line_blocks - in_interval,
+                                SZ_ZERO_RUN_SEGMENT - in_interval
+                                % SZ_ZERO_RUN_SEGMENT)
+                elif count > SZ_ROS:
+                    count -= 1
+                if in_interval + count > line_blocks:
+                    raise ValueError("szip: a zero-block run passes the end "
+                                     "of its interval")
+                b += count
+                continue
+            i = first + ref
+            for _ in range(block // 2):
+                m, p = sequence(p)
+                if m >= SZ_SE_CODES:
+                    raise ValueError(f"szip: second extension code {m}")
+                if (i - first) % 2 == 0:
+                    out[i] = se[m, 0]
+                    i += 1
+                out[i] = se[m, 1]
+                i += 1
+        elif option == uncompressed:
+            raw_blocks.append((b, p))
+            p += block * bits
+            if p > n_bits:
+                raise ValueError(short)
+        else:
+            k = option - 1
+            if ref:
+                out[first] = read(p, bits)
+                p += bits
+            n = block - ref
+            i = bisect_left(ones_list, p)
+            if i + n > n_ones:
+                raise ValueError(short)
+            split.append((b, p, i, k))
+            p = ones_list[i + n - 1] + 1 + n * k
+            if p > n_bits:
+                raise ValueError(short)
+        b += 1
+
+    def binary(first_bits, n, k):
+        """The n k-bit numbers from each of `first_bits`, (len, n)."""
+        got = stream_bits[first_bits[:, None] + np.arange(n * k)]
+        weights = np.int64(1) << np.arange(k - 1, -1, -1, dtype=np.int64)
+        return got.reshape(-1, n, k).astype(np.int64) @ weights
+
+    split = np.array(split, np.int64).reshape(-1, 4)
+    starts_interval = (split[:, 0] % line_blocks == 0) & preprocessed
+    for k in np.unique(split[:, 3]).tolist():
+        for ref in (0, 1):
+            where = split[(split[:, 3] == k) & (starts_interval == ref)]
+            if not len(where):
+                continue
+            n = block - ref
+            ends = ones[where[:, 2:3] + np.arange(n)]
+            starts = np.concatenate([where[:, 1:2] - 1, ends[:, :-1]], axis=1)
+            values = (ends - starts - 1) << k
+            if k:
+                values += binary(ends[:, -1] + 1, n, k)
+            out[(where[:, :1] * block + ref + np.arange(n)).ravel()] = (
+                values.ravel())
+    if raw_blocks:
+        where = np.array(raw_blocks, np.int64)
+        out[(where[:, :1] * block + np.arange(block)).ravel()] = binary(
+            where[:, 1], block, bits).ravel()
+    return out
+
+
+def _unmap_residuals(samples: np.ndarray, interval: int, bits: int):
+    """The nearest-neighbour preprocessor undone on each interval of
+    `interval` samples: after the reference x, each mapped difference d
+    gives x + d / 2 (d even) or x - (d + 1) / 2 (d odd) where ceil(d / 2)
+    is at most theta = min(x, 2^bits - 1 - x), and otherwise d itself if
+    x is below 2^(bits - 1) or 2^bits - 1 - d if not (libaec's unsigned
+    flush). Intervals whose every difference is in range take a
+    cumulative sum; the others are walked a sample at a time."""
+    top = (1 << bits) - 1
+    half = 1 << (bits - 1)
+    rows = -(-len(samples) // interval)
+    grid = np.zeros(rows * interval, np.int64)
+    grid[:len(samples)] = samples
+    grid = grid.reshape(rows, interval)
+    d = grid[:, 1:]
+    delta = np.where(d & 1, -((d + 1) >> 1), d >> 1)
+    x = grid[:, :1] + np.cumsum(delta, axis=1)
+    before = np.concatenate([grid[:, :1], x[:, :-1]], axis=1)
+    inside = ((d + 1) >> 1) <= np.minimum(before, top - before)
+    out = np.concatenate([grid[:, :1], x], axis=1)
+    for r in np.flatnonzero(~inside.all(axis=1)).tolist():
+        row = grid[r].tolist()
+        value = row[0]
+        for j in range(1, interval):
+            m = row[j]
+            if (m + 1) >> 1 <= (value if value < half else top - value):
+                value += -((m + 1) >> 1) if m & 1 else m >> 1
+            else:
+                value = m if value < half else top - m
+            row[j] = value
+        out[r] = row
+    return out.reshape(-1)
 
 
 def _signed(value: int) -> int:
