@@ -15,8 +15,11 @@
    of view, so whole tiles fall in one bin. Fails on any excess over the
    stated tolerance. K1's plain version is also held against
    `F.grid_sample` (reflection padding, align_corners=True: reflect-101)
-   on float32 copies of its inputs, images within 1e-3.
-   Each kernel and plain version is then timed over runs of >= 64 calls
+   on float32 copies of its inputs, images within 1e-3. Then K1-K3 again
+   on the top-left crops of the batch at `KERNEL_SIDES` (252, 255 and 23:
+   sides the 8x8 CLAHE grid does not divide), at the same tolerances.
+   Each kernel and plain version is then timed, at `TIMED_SIDES` (256
+   and 252), over runs of >= 64 calls
    (`time_ms`): CUDA events around a run that cycles through k >= 8
    copies of the inputs, k * bytes >= twice the 50 MB L2, so every call
    reads its inputs from HBM as the bound counts them; a GPU spin ahead of
@@ -90,7 +93,8 @@
    write, `main`), the batch it settled on, peak device memory, peak host
    RSS, the workdir's peak bytes, free disk before, during and after, and
    the chunks inflated; deletes its files.
-10. Pretrained phase: the slice model's encoder, its first convolution
+10. Pretrained phase (run after the sides phase, beside the parallel and
+   spatial phases): the slice model's encoder, its first convolution
    widened to 3 channels (the kernel, then zeros), as
    `$VOLSEG_TPU_WEIGHTS_DIR/resnet34.vstpu`; `model-train-2d` on the CLI
    phase's `ROUND_TRIP_SHAPE` HDF5 pair with the shipped settings plus
@@ -154,15 +158,24 @@
    argmax against JAX is `tests/test_torch_figures.py`'s), and each kernel
    launched once a step;
    (b) `model-predict-2d` on the 256^3 vessels volume as LZW TIFF: labels
-   equal to the CLI phase's from HDF5; then the 512^3 volume written and
-   read back as uint8 uncompressed, Deflate and LZW TIFF, uint16 Deflate
-   TIFF and gzip HDF5, equal to what was written, each read timed (s and
-   MB/s of the decoded array); (c) the library's PNG-directory path: the
+   equal to the CLI phase's from HDF5, and that file read back equal, its
+   read timed; then the 512^3 volume written and read back as uint8
+   uncompressed and Deflate TIFF, uint16 Deflate TIFF and gzip HDF5, equal
+   to what was written, each read timed (s and MB/s of the decoded array;
+   LZW at 256^3: a 512^3 one took 56 s on a slow host); (c) the library's
+   PNG-directory path: the
    slicer writes the pair as PNG slices (timed, and the PNG read of every
    file), `VolSeg2dTrainer(image_dir, label_dir, ...)` and a trainer on
    the CLI's in-memory slices take `FORMATS_STEPS` seeded steps each:
    equal arrays and losses bit for bit, each kernel launched once a step;
    `clean_up_slices` leaves no file.
+13a. Sides phase (run after the virtual phase, beside the parallel and
+   spatial phases), in `<out-dir>/sides`: `model-train-2d` with the shipped
+   settings but `type: DeepLabV3` (whose x8 head resizes the logits back)
+   at `image_size: 100` (a side the CLAHE grid does not divide), 0+1
+   epochs, seed 0, on a `SIDES_TRAIN_SHAPE` vessels pair: fails unless it
+   trains that model at that side, every loss and eval score is finite and
+   each kernel launched once a step.
 14. Interchange phase, in `<out-dir>/interchange`, from the HDF5 fixtures
    h5py wrote (`tests/data/torch_hdf5/`, by `tests/torch_hdf5_fixtures.py`):
    every fixture reads equal to its array rebuilt here (`fixture_arrays`);
@@ -188,7 +201,9 @@
    sources in the same file, a sibling file, a missing file and another
    virtual dataset, the LZF tile, the stitched training pair, szip on the
    crop as bytes, as big-endian uint16 and as shuffled float32 and on the
-   vessels pair), the best of three reads timed (s and MB/s); (b) the
+   vessels pair, committed datatypes, 12-bit uint16 unfiltered and under
+   n-bit, 11-bit int16 under n-bit, a virtual int8 dataset over uint8),
+   the best of three reads timed (s and MB/s); (b) the
    512^3 virtual dataset of 512 mappings over the 64^3 LZF tile read
    whole, timed (s and MB/s), equal to the tile tiled, then read again as
    `LazyHDF5Volume` slabs of
@@ -201,7 +216,13 @@
    `model-predict-2d` from that checkpoint on the 256^3 virtual dataset
    over the tile in memory, slab-streamed from a lazy source (both
    thresholds below it) and from a gzip copy of the materialised volume
-   written by `utils/hdf5.write`: labels equal at every voxel; (e)
+   written by `utils/hdf5.write`: labels equal at every voxel; then the
+   same 256^3 volume as four Z blocks of `BLOCK_DEPTH` slices, each a file
+   of the port's writer, under the committed %b virtual dataset
+   `BLOCKS_VDS`: read whole equal to it (the best of three, s and MB/s),
+   and `model-predict-2d` on it: labels equal to the gzip copy's; the
+   committed unlimited virtual dataset `GROWING_VDS` read equal to its
+   source, then to the source rewritten larger (its extent follows); (e)
    `model-train-2d` with the shipped settings (0+1 epochs, seed 0) on the
    vessels volume and labels as szip chunks (`vessels_szip.h5`,
    `vessels_labels_szip.h5`): every loss and eval score finite, each
@@ -212,7 +233,8 @@
    `build_train_step` steps on one seeded batch at batches 12, 32, 64, 128
    and 256 (bf16, unfrozen), samples/s and peak memory; the smallest batch
    within 5% of the best samples/s is printed beside the configured one.
-17. Parallel phase (run before the sweep, from the slice phase's
+17. Parallel phase (run before the sweep, beside the spatial phase and the
+   interchange, virtual and sides phases, from the slice phase's
    checkpoint), every rank a child process (`parallel.mesh.spawn_ranks`),
    so that no process group is left in this one; inputs in
    `<out-dir>/parallel`: (1) one NCCL rank at world size 1:
@@ -242,9 +264,9 @@
    did not run them. (6) The predictor with `devices=["cuda:0", "cuda:0"]`
    at MEDIUM, float32, on the 256^3 volume against one device under the
    near-tie rule.
-18. Spatial phase (run beside the interchange, virtual and parallel
-   phases, so their times include its load), two gloo ranks sharing
-   cuda:0 in child processes on a 1 data x 2 space mesh (image height
+18. Spatial phase (run beside the interchange, virtual, sides, pretrained
+   and parallel phases, so their times include its load), two gloo ranks
+   sharing cuda:0 in child processes on a 1 data x 2 space mesh (image height
    split over the ranks, `parallel/spatial.py`), inputs in
    `<out-dir>/spatial`: (a) U-Net/ResNet-34 at 256x256, a global batch of
    12 Z slices of a vessels volume, augmentation on, float32, TF32 off,
@@ -268,10 +290,10 @@
    the other decoders on ResNet-34 and U-Net on the EfficientNet and
    ResNeSt encoders, at full width and 256x256, and DeepLabV3/ResNet-34 at
    252x252 and PAN/ResNet-34 at 254x254 (their heads resize the logits
-   back to the input with half-pixel centres, row-sharded), a global batch
-   of `SPATIAL_PAIR_BATCH` Z slices, augmentation on (off at the two sides
-   that are not multiples of 16, which the port's CLAHE does not take),
-   float32, from one seeded state each: `SPATIAL_PAIR_STEPS` train steps
+   back to the input with half-pixel centres, row-sharded; K2 and K3 at
+   sides the CLAHE grid does not divide), a global batch of
+   `SPATIAL_PAIR_BATCH` Z slices, augmentation on, float32, from one
+   seeded state each: `SPATIAL_PAIR_STEPS` train steps
    at `SPATIAL_LR` on the two ranks (dropout from one seeded generator),
    then the eval step
    (DiceLoss, MeanIoU) on the slices, against the one process's plain
@@ -280,12 +302,12 @@
    its float64 loss where that is larger, the later ones within
    `SPATIAL_PAIR_LATER_RTOL`, eval loss and score within
    `SPATIAL_PAIR_EVAL_ATOL`, both ranks' states equal after every step,
-   each kernel launched once an augmented step on each rank; step ms of
+   each kernel launched once a step on each rank; step ms of
    both and each rank's `max_memory_allocated`.
 19. Prints a `{"kernels": [...]}` line (launches of the slice, CLI, losses,
-   pretrained, architectures, encoders, formats, interchange, virtual,
-   parallel and spatial phases, the last two on every rank) and, last, the
-   device line.
+   pretrained, architectures, encoders, formats, sides, interchange,
+   virtual, parallel and spatial phases, the last two on every rank; times
+   and errors at S=256) and, last, the device line.
 
 Exits non-zero on any failure, without a GPU, and outside a checkout of the
 repository (the package is imported from beside this file).
@@ -344,6 +366,13 @@ LIBRARY_NOTES = {
 }
 LIBRARY_NOTES["K2_saturated"] = LIBRARY_NOTES["K2"]
 GRID_SAMPLE_RTOL = 1e-3  # image values in [0, 1]; another border rule is off by ~0.1-1
+# Sides the kernel phase also holds K1-K3 at (crops of the S batch), which
+# the 8x8 CLAHE grid does not divide: S % 8 != 0 with S % 4 == 0 (K3's
+# 16-byte path), odd (the scalar paths), and below 64, where a tile row's
+# columns past 8 * tw reach past the next row's first tile. The run timer
+# times K1-K3 at `TIMED_SIDES`.
+KERNEL_SIDES = (252, 255, 23)
+TIMED_SIDES = (S, 252)
 
 
 def nvidia_smi_line() -> str:
@@ -482,15 +511,15 @@ def training_settings() -> SimpleNamespace:
     )
 
 
-def adversarial_coords(rng, dev):
+def adversarial_coords(rng, dev, side=S):
     """Out of range by more than one reflect period, half-integer, and
     exact .5 fractions (mask pick is wy > 0.5, not round-half-even)."""
-    c = np.empty((N, 2, S, S), np.float32)
-    period = 2 * (S - 1)
-    c[0:4] = rng.uniform(-2.5 * period, 2.5 * period, (4, 2, S, S))
-    c[4:8] = rng.integers(-3 * S, 4 * S, (4, 2, S, S)) + 0.5
-    c[8:12, 0] = rng.integers(0, S, (4, S, S)) + 0.5
-    c[8:12, 1] = rng.uniform(-5.0, S + 4.0, (4, S, S))
+    c = np.empty((N, 2, side, side), np.float32)
+    period = 2 * (side - 1)
+    c[0:4] = rng.uniform(-2.5 * period, 2.5 * period, (4, 2, side, side))
+    c[4:8] = rng.integers(-3 * side, 4 * side, (4, 2, side, side)) + 0.5
+    c[8:12, 0] = rng.integers(0, side, (4, side, side)) + 0.5
+    c[8:12, 1] = rng.uniform(-5.0, side + 4.0, (4, side, side))
     return torch.from_numpy(c).to(dev)
 
 
@@ -513,12 +542,13 @@ def kernel_inputs(images_u8, masks_u8, dev):
     from volume_segmantics_tpu_torch.ops import augment as aug
     from volume_segmantics_tpu_torch.ops import warp as wp
 
+    side = images_u8.shape[-1]
     gen = torch.Generator(dev).manual_seed(1)
-    geo = aug.draw_geometric_params(gen, N, S, dev)
+    geo = aug.draw_geometric_params(gen, N, side, dev)
     inten = aug.draw_intensity_params(gen, N, dev)
     coord_sets = {
-        "augment": aug.geometric_coords(geo, S).contiguous(),
-        "adversarial": adversarial_coords(np.random.default_rng(2), dev),
+        "augment": aug.geometric_coords(geo, side).contiguous(),
+        "adversarial": adversarial_coords(np.random.default_rng(2), dev, side),
     }
     imgs = torch.clamp(
         wp.warp_batch_u8(images_u8, masks_u8, coord_sets["augment"])[0], 0, 1)
@@ -528,7 +558,7 @@ def kernel_inputs(images_u8, masks_u8, dev):
     return SimpleNamespace(
         coord_sets=coord_sets, imgs=imgs, saturated=field_of_view_cut(imgs),
         clips=inten["clip"].float().contiguous(), apply=apply, n_on=n_on,
-        k2_bytes=n_on * S * S * 4 + N * 8 + n_on * 64 * 256,
+        k2_bytes=n_on * side * side * 4 + N * 8 + n_on * 64 * 256,
     )
 
 
@@ -542,13 +572,15 @@ def copy_same_bytes_ms(nbytes, dev):
     return time_ms(torch.clone, rotating_sets((blob,), nbytes))[0]
 
 
-def kernel_phase(images_u8, masks_u8, bw, dev):
-    """Each kernel against its plain version; returns per-kernel results."""
+def kernel_checks(images_u8, masks_u8, dev):
+    """Each kernel against its plain version on the `kernel_inputs` of a
+    (N, side, side) batch: ({name: result}, {name: (kernel, plain, args,
+    C entry)}, the inputs). At side S, K2 also on the batch cut to its
+    field of view (`K2_saturated`)."""
     from volume_segmantics_tpu_torch.ops import clahe as cl
-    from volume_segmantics_tpu_torch.ops import kernels
     from volume_segmantics_tpu_torch.ops import warp as wp
 
-    kernels.reset_launch_counts()
+    side = images_u8.shape[-1]
     inp = kernel_inputs(images_u8, masks_u8, dev)
     entry = {k: e for k, _, e, _, _ in KERNELS}
     results, timed = {}, {}
@@ -563,14 +595,16 @@ def kernel_phase(images_u8, masks_u8, bw, dev):
     results["K1"] = dict(
         max_abs_err=img_err, mask_mismatches=msk_bad, tolerance=2e-7,
         ok=img_err <= 2e-7 and msk_bad == 0,
-        bytes=N * S * S * (1 + 1 + 8 + 4 + 1),
+        bytes=N * side * side * (1 + 1 + 8 + 4 + 1),
     )
     timed["K1"] = (wp.warp_batch_u8, wp.warp_pair_u8,
                    (images_u8, masks_u8, inp.coord_sets["augment"]), entry["K1"])
 
     imgs, clips, apply = inp.imgs, inp.clips, inp.apply
     on = apply.bool()
-    for name, batch in (("K2", imgs), ("K2_saturated", inp.saturated)):
+    batches = (("K2", imgs),) + ((("K2_saturated", inp.saturated),)
+                                 if side == S else ())
+    for name, batch in batches:
         got = cl.clahe_luts(batch, clips, apply)
         ref = cl.clahe_luts_plain(batch, clips)
         torch.cuda.synchronize()
@@ -591,31 +625,49 @@ def kernel_phase(images_u8, masks_u8, bw, dev):
     results["K3"] = dict(
         max_abs_err=blend_err, skipped_bit_exact=skipped_equal, tolerance=1e-6,
         ok=blend_err <= 1e-6 and skipped_equal,
-        bytes=N * S * S * 4 * 2 + N * 4 + inp.n_on * 64 * 256,
+        bytes=N * side * side * 4 * 2 + N * 4 + inp.n_on * 64 * 256,
     )
     timed["K3"] = (cl.clahe_blend, cl.clahe_blend_plain, (imgs, apply, ref_luts),
                    entry["K3"])
+    return results, timed, inp
 
-    for name, r in results.items():
-        kernel_fn, plain_fn, args, kernel_entry = timed[name]
-        sets = rotating_sets(args, r["bytes"])
-        r["kernel_ms"], r["kernel_device_only"] = time_ms(kernel_fn, sets)
-        r["plain_ms"], r["plain_device_only"] = time_ms(plain_fn, sets)
-        r["timed_sets"] = len(sets)
-        r["timed_calls"] = math.ceil(MIN_LAUNCHES / len(sets)) * len(sets)
-        del sets
-        r["copy_same_bytes_ms"] = copy_same_bytes_ms(r["bytes"], dev)
-        r["bound_ms"] = r["bytes"] / bw * 1e3
-        r["launches"] = kernels.LAUNCHES[kernel_entry]  # comparisons and timing only
-        if name == "K1":
-            r.update(grid_sample_yardstick(images_u8, masks_u8, inp.coord_sets,
-                                           dev))
-            if not r["grid_sample_ok"]:
-                r["ok"] = False
-        print(json.dumps({"phase": "kernel", "kernel": name, **r,
-                          "library_ms": None,
-                          "library_note": LIBRARY_NOTES[name]}),
-              flush=True)
+
+def kernel_phase(images_u8, masks_u8, bw, dev):
+    """Each kernel against its plain version at side S and at
+    `KERNEL_SIDES` (the top-left crops of the batch), timed at
+    `TIMED_SIDES`; returns per-kernel results, those of another side than
+    S under "<name>@<side>"."""
+    from volume_segmantics_tpu_torch.ops import kernels
+
+    kernels.reset_launch_counts()
+    results = {}
+    for side in (S,) + KERNEL_SIDES:
+        crop = [t[:, :side, :side].contiguous() for t in (images_u8, masks_u8)]
+        checked, timed, inp = kernel_checks(*crop, dev)
+        for name, r in checked.items():
+            r["side"] = side
+            if side in TIMED_SIDES:
+                kernel_fn, plain_fn, args, kernel_entry = timed[name]
+                sets = rotating_sets(args, r["bytes"])
+                r["kernel_ms"], r["kernel_device_only"] = time_ms(kernel_fn, sets)
+                r["plain_ms"], r["plain_device_only"] = time_ms(plain_fn, sets)
+                r["timed_sets"] = len(sets)
+                r["timed_calls"] = math.ceil(MIN_LAUNCHES / len(sets)) * len(sets)
+                del sets
+                r["copy_same_bytes_ms"] = copy_same_bytes_ms(r["bytes"], dev)
+            r["bound_ms"] = r["bytes"] / bw * 1e3
+            # comparisons and timing only
+            r["launches"] = kernels.LAUNCHES[timed[name][3]]
+            if name == "K1" and side == S:
+                r.update(grid_sample_yardstick(*crop, inp.coord_sets, dev))
+                if not r["grid_sample_ok"]:
+                    r["ok"] = False
+            key = name if side == S else f"{name}@{side}"
+            print(json.dumps({"phase": "kernel", "kernel": key, **r,
+                              "library_ms": None,
+                              "library_note": LIBRARY_NOTES[name]}),
+                  flush=True)
+            results[key] = r
     return results
 
 
@@ -1396,13 +1448,24 @@ def formats_phase(dev, out_dir: Path, cli_res):
     if not res["tiff_labels_equal_hdf5"]:
         failures.append("model-predict-2d labels from TIFF differ from HDF5")
     del tiff_labels, hdf5_labels
+    # LZW decodes in numpy at a few MB/s: its read is timed on this 256^3
+    # file (a 512^3 one took 56 s to write and read on a slow host).
+    t0 = time.perf_counter()
+    back = tiff.read(root / "vessels_256.tif")
+    read_s = time.perf_counter() - t0
+    res["lzw_256_read"] = {"read_s": read_s,
+                           "read_mb_per_s": vol.nbytes / 1e6 / read_s,
+                           "equal": bool(np.array_equal(back, vol))}
+    if not res["lzw_256_read"]["equal"]:
+        failures.append("the 256^3 LZW TIFF read back differs")
+    del back
 
-    # The 512^3 volume (the 256^3 one tiled 2x2x2) read from each format.
+    # The 512^3 volume (the 256^3 one tiled 2x2x2) read from each other
+    # format.
     raw = np.tile(vol, (2, 2, 2))
     raw16 = raw.astype(np.uint16) * 257
     files = (("tiff_u8_raw", "u8_raw.tif", raw, dict()),
              ("tiff_u8_deflate", "u8_deflate.tif", raw, dict(compression="deflate")),
-             ("tiff_u8_lzw", "u8_lzw.tif", raw, dict(compression="lzw")),
              ("tiff_u16_deflate", "u16_deflate.tif", raw16, dict(compression="deflate")),
              ("hdf5_u8_gzip", "u8_gzip.h5", raw, None))
     res["reads_512"] = {}
@@ -1491,6 +1554,82 @@ def formats_phase(dev, out_dir: Path, cli_res):
         failures.append(f"clean_up_slices left {left}")
     res.update(launches=launches, train_steps=steps,
                seconds=time.perf_counter() - t_phase, failures=failures)
+    print(json.dumps(res), flush=True)
+    return res
+
+
+SIDES_TYPE = "DeepLabV3"  # its x8 head resizes the logits back at side 100
+SIDES_IMAGE_SIZE = 100  # not a multiple of 8: the CLAHE grid leaves 4 over
+SIDES_TRAIN_SHAPE = (16, 100, 112)
+
+
+def sides_phase(dev, out_dir: Path):
+    """`model-train-2d` at an image side the CLAHE grid does not divide
+    (see the module doc)."""
+    import volume_segmantics_tpu_torch.utils.config as cfg
+    from volume_segmantics_tpu_torch.ops import kernels
+    from volume_segmantics_tpu_torch.scripts import train_2d_model
+    from volume_segmantics_tpu_torch.utils import hdf5
+
+    t_phase = time.perf_counter()
+    failures, res = [], {"phase": "sides", "type": SIDES_TYPE,
+                         "image_size": SIDES_IMAGE_SIZE}
+    root = out_dir / "sides"
+    shutil.rmtree(root, ignore_errors=True)
+    settings_dir = root / cfg.SETTINGS_DIR
+    settings_dir.mkdir(parents=True)
+    data, labels = make_vessel_volume(SIDES_TRAIN_SHAPE, seed=4)
+    hdf5.write(root / "train_data.h5", data, chunks=True)
+    hdf5.write(root / "train_labels.h5", labels, chunks=True)
+    text = settings_text(cfg.TRAIN_SETTINGS_FN, num_cyc_frozen=0,
+                         num_cyc_unfrozen=1, seed=0,
+                         image_size=SIDES_IMAGE_SIZE)
+    text = text.replace('type: "U_Net"', f'type: "{SIDES_TYPE}"').replace(
+        'encoder_weights: "imagenet"', "encoder_weights: null")
+    (settings_dir / cfg.TRAIN_SETTINGS_FN).write_text(text)
+
+    trainers = []
+
+    class RecordedTrainer(train_2d_model.VolSeg2dTrainer):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            trainers.append(self)
+
+    train_2d_model.VolSeg2dTrainer = RecordedTrainer
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        train_2d_model.main(["--data", str(root / "train_data.h5"),
+                             "--labels", str(root / "train_labels.h5"),
+                             "--data_dir", str(root)])
+    finally:
+        train_2d_model.VolSeg2dTrainer = RecordedTrainer.__bases__[0]
+    torch.cuda.synchronize()
+    res["train_main_s"] = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    (trainer,) = trainers
+    ckpt = train_2d_model._model_output_path(trainer.settings, root)
+    with open(root / f"{ckpt.stem}_train_stats.csv", newline="") as f:
+        rows = list(csv.DictReader(f))
+    losses = [float(r[k]) for r in rows for k in ("Train Loss", "Valid Loss")]
+    res.update(checkpoint=ckpt.name, model_type=trainer.settings.model["type"],
+               trained_side=trainer.settings.image_size,
+               slices=len(trainer.training_loader.images),
+               train_steps=trainer.train_steps, losses=losses,
+               eval_scores=[float(r["Eval Score"]) for r in rows],
+               launches=launches)
+    if (res["model_type"], res["trained_side"]) != (SIDES_TYPE, SIDES_IMAGE_SIZE):
+        failures.append(f"trained {res['model_type']} at {res['trained_side']}")
+    if len(rows) != 1 or not all(np.isfinite(losses + res["eval_scores"])):
+        failures.append(f"train-stats CSV: {len(rows)} epochs, losses {losses}")
+    for name, count in launches.items():
+        if count != trainer.train_steps:
+            failures.append(f"{name} launched {count} times in "
+                            f"{trainer.train_steps} train steps at side "
+                            f"{SIDES_IMAGE_SIZE}")
+    shutil.rmtree(root, ignore_errors=True)
+    res["phase_s"] = time.perf_counter() - t_phase
+    res["failures"] = failures
     print(json.dumps(res), flush=True)
     return res
 
@@ -2861,11 +3000,25 @@ VIRTUAL_READS = {
     "crop_szip_float.h5": ("data", "crop_quarters"),
     "vessels_szip.h5": ("data", "vessels"),
     "vessels_labels_szip.h5": ("data", "labels"),
+    "crop_committed.h5": ("data", "crop_u2"),
+    "crop_committed_latest.h5": ("data", "crop_u2"),
+    "crop_reduced.h5": ("data", "crop_u2"),
+    "crop_nbit_12.h5": ("data", "crop_u2"),
+    "crop_nbit_signed.h5": ("data", "crop_signed"),
+    "crop_saturated.h5": ("data", "crop_saturated"),
 }
 FIXTURE_READS = {**INTERCHANGE_READS, **VIRTUAL_READS}
+# Virtual datasets committed without their sources, which the virtual
+# phase and the tests write beside a copy with the port's writer: a
+# printf-style (%b) mapping of Z blocks of BLOCK_DEPTH slices, one file a
+# block (`write_block_sources`), and an unlimited mapping whose extent
+# follows its one source's.
+BLOCKS_VDS, BLOCK_SOURCE, BLOCK_DEPTH = "vessels_blocks.h5", "vessels_block_%b.h5", 64
+GROWING_VDS, GROWING_SOURCE = "growing_virtual.h5", "growing_source.h5"
 # Committed beside them: the 512^3 virtual dataset over the tile (read by
-# the virtual phase's step 2) and the external raw data file.
-FIXTURE_OTHERS = ("tile_512.h5", "crop_external.raw")
+# the virtual phase's step 2), the external raw data file and the two
+# virtual datasets above.
+FIXTURE_OTHERS = ("tile_512.h5", "crop_external.raw", BLOCKS_VDS, GROWING_VDS)
 TILE_SIDE, TILE_COPIES = 64, (4, 8)  # the tile, its copies a side in the two VDS
 VIRTUAL_FILL = 7  # the fill value of crop_virtual.h5
 INTERCHANGE_ENCODERS = {"resnet34": "torchvision", "efficientnet-b3": "lukemelas"}
@@ -2886,7 +3039,8 @@ def fixture_arrays() -> dict:
     stores those exactly), the four quadrants of crop_virtual.h5; the
     vessels volume and labels with the slices' corners outside the field of
     view zeroed ("stitched", as uint16, and its halves as stored), and a
-    64^3 vessels tile cut so, alone and tiled 4 x 4 x 4."""
+    64^3 vessels tile cut so, alone and tiled 4 x 4 x 4; the crop less 128
+    as int16 ("crop_signed"), and saturated to int8."""
     vol, labels = make_vessel_volume(FIXTURE_SHAPE, seed=1)
     crop = np.ascontiguousarray(vol[:12, :24, :24])
     crop_u2 = crop.astype(np.uint16) * 3 + 1000
@@ -2896,6 +3050,7 @@ def fixture_arrays() -> dict:
     quadrants[:, 24:, 24:] = crop
     inside = field_of_view(FIXTURE_SHAPE[1])
     stitched = (vol * inside).astype(np.uint16)
+    signed = crop.astype(np.int16) - 128
     tile = make_vessel_volume((TILE_SIDE,) * 3, seed=4)[0] * field_of_view(TILE_SIDE)
     half = FIXTURE_SHAPE[0] // 2
     return {"vessels": vol, "labels": labels, "crop": crop, "crop_u2": crop_u2,
@@ -2904,7 +3059,19 @@ def fixture_arrays() -> dict:
             "stitched_top": stitched[:half].astype(np.uint8),
             "stitched_bottom": stitched[half:],
             "stitched_labels": labels * inside.astype(np.uint8),
-            "tile": tile, "tile_256": np.tile(tile, (TILE_COPIES[0],) * 3)}
+            "tile": tile, "tile_256": np.tile(tile, (TILE_COPIES[0],) * 3),
+            "crop_signed": signed,
+            "crop_saturated": np.minimum(crop, 127).astype(np.int8)}
+
+
+def write_block_sources(folder: Path, vol: np.ndarray) -> None:
+    """`vol`'s Z blocks of BLOCK_DEPTH slices as the sources of BLOCKS_VDS
+    in `folder`, with the port's writer."""
+    from volume_segmantics_tpu_torch.utils import hdf5
+
+    for b in range(len(vol) // BLOCK_DEPTH):
+        hdf5.write(folder / BLOCK_SOURCE.replace("%b", str(b)),
+                   vol[b * BLOCK_DEPTH:(b + 1) * BLOCK_DEPTH])
 
 
 def seeded_encoder_file(encoder_name: str, path: Path, seed=5) -> dict:
@@ -3341,6 +3508,57 @@ def virtual_phase(dev, out_dir: Path):
         if not equal:
             failures.append(f"{run} labels differ from the in-memory ones")
 
+    # 4b. The %b virtual dataset over the same 256^3 volume as four Z
+    # blocks, one file each from the port's writer: read whole (the best
+    # of three, MB/s), then model-predict-2d: labels equal to the gzip
+    # copy's. The unlimited virtual dataset: equal to its source, then to
+    # the source rewritten larger.
+    blocks_dir = root / "blocks"
+    (blocks_dir / cfg.SETTINGS_DIR).mkdir(parents=True)
+    (blocks_dir / cfg.SETTINGS_DIR / cfg.PREDICTION_SETTINGS_FN).write_text(
+        settings_text(cfg.PREDICTION_SETTINGS_FN))
+    shutil.copy(FIXTURE_DIR / BLOCKS_VDS, blocks_dir)
+    shutil.copy(FIXTURE_DIR / GROWING_VDS, blocks_dir)
+    volume = arrays["tile_256"]
+    t0 = time.perf_counter()
+    write_block_sources(blocks_dir, volume)
+    blocks = {"write_s": time.perf_counter() - t0, "times_s": []}
+    for _ in range(3):
+        t0 = time.perf_counter()
+        with hdf5.File(blocks_dir / BLOCKS_VDS) as f:
+            ds = f["data"]
+            whole = ds[()]
+            mappings = len(ds._mappings)
+        blocks["times_s"].append(time.perf_counter() - t0)
+    blocks.update(s=min(blocks["times_s"]),
+                  mb_per_s=whole.nbytes / min(blocks["times_s"]) / 1e6,
+                  shape=list(whole.shape), mappings=mappings,
+                  equal=bool(np.array_equal(whole, volume)))
+    del whole
+    t0 = time.perf_counter()
+    predict_2d_model.main([str(ckpt), str(blocks_dir / BLOCKS_VDS),
+                           "--data_dir", str(blocks_dir)])
+    blocks["predict_s"] = time.perf_counter() - t0
+    block_labels, _ = hdf5.read(predict_2d_model.create_output_path(
+        blocks_dir, Path(BLOCKS_VDS)))
+    blocks["labels_equal_gzip"] = bool(np.array_equal(block_labels,
+                                                      labels["materialised"]))
+    if not (blocks["equal"] and blocks["labels_equal_gzip"]):
+        failures.append(f"the %b virtual dataset: read equal {blocks['equal']}, "
+                        f"labels equal {blocks['labels_equal_gzip']}")
+    growing = []
+    crop = arrays["crop_u2"]
+    for source in (crop, np.concatenate([crop, crop[:8] + 1])):
+        hdf5.write(blocks_dir / GROWING_SOURCE, source)
+        got = hdf5.read(blocks_dir / GROWING_VDS)[0]
+        growing.append({"shape": list(got.shape),
+                        "equal": bool(np.array_equal(got, source))})
+        if not growing[-1]["equal"]:
+            failures.append(f"the unlimited virtual dataset over a source of "
+                            f"{source.shape}: {growing[-1]}")
+    res["blocks"], res["growing"] = blocks, growing
+    del labels, block_labels
+
     # 5. szip: model-train-2d (0 + 1 epochs) on the vessels volume and its
     # labels as szip chunks, then model-predict-2d from the stitched run's
     # checkpoint on the szip copy of the volume and on its gzip copy.
@@ -3442,10 +3660,9 @@ def model_from_state(struc, state, dev):
 
 
 def dp_run(state, images, masks, mesh, steps, compute_dtype, dev, lr, dp=True,
-           seed=3, side=S, digests=False, struc=STRUC, augment=True):
+           seed=3, side=S, digests=False, struc=STRUC):
     """`steps` seeded DiceLoss train steps of `struc`'s model from `state`
-    on this rank's rows of the global batch (augmentation on, to `side`,
-    unless `augment` is False):
+    on this rank's rows of the global batch (augmentation on, to `side`):
     the data-parallel step over `mesh` (its space partitions too), or with
     `dp` False the plain one. Returns the losses, each step's synchronised
     ms, the kernel launches, the first step's gradients, parameters and
@@ -3464,7 +3681,7 @@ def dp_run(state, images, masks, mesh, steps, compute_dtype, dev, lr, dp=True,
     gens = (torch.Generator(dev).manual_seed(seed),
             torch.Generator(dev).manual_seed(seed + 1))
     common = dict(num_labels=2, image_size=side, compute_dtype=compute_dtype,
-                  augment=augment, generator=gens[0], dropout_generator=gens[1])
+                  augment=True, generator=gens[0], dropout_generator=gens[1])
     loss_fn = get_loss_fn(loss_settings("DiceLoss"))
     step = (build_dp_train_step(model, loss_fn, optimizer, mesh=mesh, **common)
             if dp else build_train_step(model, loss_fn, optimizer, **common))
@@ -3531,11 +3748,10 @@ def float64_first_step(state, images, masks, dev, seed=3):
     return {n: p.grad for n, p in model.named_parameters()}, stats
 
 
-def float64_first_loss(struc, state, images, masks, dev, seed=3,
-                       augment=True) -> float:
+def float64_first_loss(struc, state, images, masks, dev, seed=3) -> float:
     """The first `dp_run` step's loss of `struc`'s model in float64: the
-    same augmentation draws (in float32), if `augment`, and dropout masks,
-    BatchNorm in float64."""
+    same augmentation draws (in float32) and dropout masks, BatchNorm in
+    float64."""
     from volume_segmantics_tpu_torch.data.losses import get_loss_fn
     from volume_segmantics_tpu_torch.models.layers import (
         BnAct,
@@ -3547,11 +3763,8 @@ def float64_first_loss(struc, state, images, masks, dev, seed=3,
     model = model_from_state(struc, state, dev).double().train()
     set_dropout_generator(model, torch.Generator(dev).manual_seed(seed + 1))
     imgs, msks = torch.from_numpy(images).to(dev), torch.from_numpy(masks).to(dev)
-    if augment:
-        imgs, msks = augment_batch_u8(torch.Generator(dev).manual_seed(seed),
-                                      imgs, msks, images.shape[-1])
-    else:
-        imgs = imgs / 255.0
+    imgs, msks = augment_batch_u8(torch.Generator(dev).manual_seed(seed),
+                                  imgs, msks, images.shape[-1])
     targets = torch.nn.functional.one_hot(msks.long(), 2).permute(0, 3, 1, 2)
     forward, BnAct.forward = BnAct.forward, _bn_act_float64
     try:
@@ -3628,11 +3841,15 @@ def parallel_pair_rank(rank, work, ckpt, backend):
     from volume_segmantics_tpu_torch.model.operations.vol_seg_2d_predictor import (
         VolSeg2dPredictor,
     )
+    from volume_segmantics_tpu_torch.models.pretrained import WEIGHTS_DIR_ENV
     from volume_segmantics_tpu_torch.ops import kernels
     from volume_segmantics_tpu_torch.parallel import multihost_predict as mh
     from volume_segmantics_tpu_torch.parallel.mesh import Mesh, get_mesh
     from volume_segmantics_tpu_torch.scripts import train_2d_model
 
+    # (4) starts from a random encoder, whatever cache a phase running
+    # beside this one points the parent at when the ranks start.
+    os.environ.pop(WEIGHTS_DIR_ENV, None)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", rank if backend == "nccl" else 0)
@@ -3867,9 +4084,7 @@ SPATIAL_TRAIN_SHAPE = (12, 48, 48)
 # side S; then DeepLabV3 and PAN at sides their x8 and x4 heads do not
 # divide (S - 4 and S - 2: the third entry, the rows and columns cut off),
 # whose logits the head resizes back to the input with half-pixel
-# centres, on the top-left crop of the images. The port's CLAHE (K2, K3)
-# takes sides that are multiples of 16 only, so those two train without
-# augmentation.
+# centres, on the top-left crop of the images.
 SPATIAL_PAIRS = (("LinkNet", "resnet34", 0), ("FPN", "resnet34", 0),
                  ("DeepLabV3", "resnet34", 0), ("DeepLabV3_Plus", "resnet34", 0),
                  ("PAN", "resnet34", 0), ("MA_Net", "resnet34", 0),
@@ -4029,19 +4244,18 @@ def spatial_pairs(rank, mesh, blob, dev):
     for i, (model_type, encoder, cut) in enumerate(SPATIAL_PAIRS):
         struc = dict(STRUC, type=model_type, encoder_name=encoder)
         side = blob["images"].shape[-1] - cut
-        augment = side % 16 == 0
         torch.manual_seed(11)
         state = create_model(struc).state_dict()
         if i % mesh.size == rank:
-            states[i] = struc, state, side, augment
+            states[i] = struc, state, side
         images, masks = crop(side)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         run = dp_run(state, images, masks, mesh, SPATIAL_PAIR_STEPS,
                      torch.float32, dev, SPATIAL_LR, side=side, digests=True,
-                     struc=struc, augment=augment)
+                     struc=struc)
         res = {"type": model_type, "encoder": encoder, "side": side,
-               "augment": augment, "losses": run["losses"],
+               "losses": run["losses"],
                "step_ms": run["ms"], "digests": run["digests"],
                "launches": run["launches"],
                "eval": evaluate(run["model"], mesh, images, masks)}
@@ -4050,11 +4264,11 @@ def spatial_pairs(rank, mesh, blob, dev):
         del run, state
         torch.cuda.empty_cache()
         out.append(res)
-    for i, (struc, state, side, augment) in states.items():
+    for i, (struc, state, side) in states.items():
         images, masks = crop(side)
         ref = dp_run(state, images, masks, Mesh(), SPATIAL_PAIR_STEPS,
                      torch.float32, dev, SPATIAL_LR, dp=False, side=side,
-                     struc=struc, augment=augment)
+                     struc=struc)
         out[i].update(one_process_losses=ref["losses"],
                       one_process_step_ms=ref["ms"],
                       one_process_eval=evaluate(ref["model"], Mesh(), images,
@@ -4062,8 +4276,7 @@ def spatial_pairs(rank, mesh, blob, dev):
         del ref
         # FPN's GroupNorm runs in float32 whatever its input.
         out[i]["first_loss64"] = None if struc["type"] == "FPN" else (
-            float64_first_loss(struc, state, images, masks, dev,
-                               augment=augment))
+            float64_first_loss(struc, state, images, masks, dev))
         torch.cuda.empty_cache()
     return out
 
@@ -4175,8 +4388,7 @@ def spatial_phase(dev, out_dir: Path, pairs_only=False):
         mine = dict(mine, **{k: v for k, v in ranks[i % 2]["pairs"][i].items()
                              if k.startswith(("one_process", "first_loss64"))})
         name = f"{mine['type']}/{mine['encoder']}/{mine['side']}"
-        pair = {"pair": name, "augment": mine["augment"],
-                "losses": mine["losses"],
+        pair = {"pair": name, "losses": mine["losses"],
                 "one_process_losses": mine["one_process_losses"],
                 "eval": mine["eval"], "one_process_eval": mine["one_process_eval"],
                 "step_ms": [mine["step_ms"], other["step_ms"]],
@@ -4214,7 +4426,7 @@ def spatial_phase(dev, out_dir: Path, pairs_only=False):
     launches = {entry: 0 for _, _, entry, _, _ in KERNELS}
     for r in ranks:
         runs = [(f"{p['type']}/{p['encoder']}/{p['side']} steps", p["launches"],
-                 SPATIAL_PAIR_STEPS if p["augment"] else 0) for p in r["pairs"]]
+                 SPATIAL_PAIR_STEPS) for p in r["pairs"]]
         if not pairs_only:
             runs += [("spatial steps", r["launches"], SPATIAL_STEPS),
                      ("1024 steps", r["memory"]["launches"], SPATIAL_MEMORY[2]),
@@ -4292,22 +4504,26 @@ def main() -> int:
         losses = losses_phase(images, masks, dev)
         ckpt = checkpoint_phase(model_out, dev, out_dir)
         large = large_phase(model_out, dev, out_dir)
-        pretrained = pretrained_phase(model_out, dev, out_dir, cli)
         archs = architectures_phase(images, masks, dev, out_dir)
         encoders = encoders_phase(images, masks, dev, out_dir)
         formats = formats_phase(dev, out_dir, cli)
-        # The spatial phase's ranks step beside the interchange, virtual
-        # and parallel phases (the card and the host idle through most of
-        # each), in child processes that count their own launches.
-        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        # The spatial and parallel phases' ranks step beside each other and
+        # beside the interchange, virtual, sides and pretrained phases (the
+        # card and the host idle through most of each), in child processes
+        # that count their own launches and ignore the encoder caches these
+        # phases point this process at.
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
             spatial_run = pool.submit(spatial_phase, dev, out_dir)
+            parallel_run = pool.submit(parallel_phase, model_out, out_dir)
             interchange = interchange_phase(dev, out_dir)
             virtual = virtual_phase(dev, out_dir)
-            parallel = parallel_phase(model_out, out_dir)
+            sides = sides_phase(dev, out_dir)
+            pretrained = pretrained_phase(model_out, dev, out_dir, cli)
+            parallel = parallel_run.result()
             spatial = spatial_run.result()
     sweep = train_batch_sweep(images, masks, dev)
     counted = (summary, cli, losses, pretrained, archs, encoders, formats,
-               interchange, virtual, parallel, spatial)
+               sides, interchange, virtual, parallel, spatial)
     kernels_line = {"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": sum(phase["launches"][entry] for phase in counted),
@@ -4318,8 +4534,8 @@ def main() -> int:
     ]}
     failed = [k for k in kres if not kres[k]["ok"]] + [
         f for phase in (summary, predicted, cli, losses, ckpt, large, pretrained,
-                        archs, encoders, formats, interchange, virtual, parallel,
-                        spatial, sweep)
+                        archs, encoders, formats, sides, interchange, virtual,
+                        parallel, spatial, sweep)
         for f in phase["failures"]]
     if failed:
         print(json.dumps({"failed": failed}), file=sys.stderr)

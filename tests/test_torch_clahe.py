@@ -194,5 +194,11 @@ def test_wrappers_take_plain_versions_on_cpu():
 
 
 def test_rejects_unsupported_geometry():
-    with pytest.raises(ValueError):
-        clahe(torch.zeros(1, 40, 40), torch.ones(1), torch.ones(1))
+    """Any square side from 8 on is taken (40 since the tiles may leave
+    rows and columns over); a batch that is not square, or a side under
+    the 8x8 grid's one pixel a tile, is refused."""
+    assert clahe(torch.zeros(1, 40, 40), torch.ones(1), torch.ones(1)).shape == (
+        1, 40, 40)
+    for shape in ((1, 40, 48), (1, 7, 7)):
+        with pytest.raises(ValueError):
+            clahe(torch.zeros(shape), torch.ones(1), torch.ones(1))

@@ -4,7 +4,8 @@ and behind shuffle and Fletcher-32, with chunks it stored compressed and
 chunks it could not shrink (left unfiltered, their mask bit set);
 scale-offset on integers (the library's minimum bits, fill values, a
 constant chunk at minbits 0, chunks at full width) and on floats with a
-decimal scale, bit for bit; n-bit on full-precision types; szip
+decimal scale, bit for bit; n-bit on full-precision types and on
+integers of reduced precision at bit offsets; szip
 (libaec's decoder) on every integer and float type h5py writes with it,
 under the nearest-neighbour preprocessor and entropy coding alone, 8, 16
 and 32 pixels a block, scanlines that are not whole blocks, behind
@@ -307,16 +308,74 @@ def test_nbit_on_full_precision_types_reads_equal_h5py(tmp_path, dtype):
                         int(np.dtype(dtype).str[0] == ">" and size > 1), 8 * size, 0)
 
 
+# (base type, precision, bit offset, deflate after n-bit)
+NBIT_REDUCED = [("STD_U8LE", 3, 0, False), ("STD_I8LE", 6, 2, True),
+                ("STD_U16LE", 12, 0, False), ("STD_U16BE", 12, 4, True),
+                ("STD_I16LE", 11, 3, False), ("STD_I16BE", 9, 7, False),
+                ("STD_U32LE", 25, 7, True), ("STD_I32LE", 31, 1, False),
+                ("STD_U64BE", 50, 14, False)]
+
+
+@pytest.mark.parametrize("base, precision, offset, deflate", NBIT_REDUCED,
+                         ids=[f"{b}-{p}-{o}{'-deflate' if d else ''}"
+                              for b, p, o, d in NBIT_REDUCED])
+def test_nbit_on_reduced_precision_integers_reads_equal_h5py(tmp_path, base,
+                                                             precision, offset,
+                                                             deflate):
+    """The n-bit filter packs each value's `precision` bits, most
+    significant first, one after another; the port unpacks them to the
+    bit offset and converts as the library does (sign-extended), on
+    partial edge chunks, with a fill value in the chunks never written,
+    through `numpy_from_hdf5` and `LazyHDF5Volume` too."""
+    datatype = h5py.h5t.__dict__[base].copy()
+    datatype.set_precision(precision)
+    datatype.set_offset(offset)
+    signed = datatype.get_sign() == h5py.h5t.SGN_2
+    lo, hi = ((-(1 << (precision - 1)), (1 << (precision - 1)) - 1) if signed
+              else (0, (1 << precision) - 1))
+    numpy_type = f"{'i' if signed else 'u'}{datatype.get_size()}"
+    data = np.random.default_rng(precision).integers(
+        lo, hi, SHAPE, endpoint=True).astype(numpy_type)
+    data[:, :4] = hi  # every bit of the precision set
+    path = tmp_path / "nbit.h5"
+    with h5py.File(path, "w") as f:
+        dcpl = h5py.h5p.create(h5py.h5p.DATASET_CREATE)
+        dcpl.set_chunk(CHUNKS)
+        dcpl.set_filter(h5py.h5z.FILTER_NBIT)
+        if deflate:
+            dcpl.set_deflate(1)
+        dcpl.set_fill_value(np.array([lo], numpy_type))
+        h5py.h5d.create(f.id, b"data", datatype, h5py.h5s.create_simple(SHAPE),
+                        dcpl=dcpl)
+        f["data"][:10] = data[:10]  # chunks from 10 on are never written
+    expected = data.copy()
+    expected[10:] = lo
+    np.testing.assert_array_equal(assert_reads_equal(path, "data"), expected)
+    assert_szip_reads_equal(path, expected)  # numpy_from_hdf5, LazyHDF5Volume
+    with hdf5.File(path) as f:
+        ds = f["data"]
+        (nbit,) = [values for fid, _, values in ds._filters
+                   if fid == hdf5.FILTER_NBIT]
+        assert nbit[1] == 0 and nbit[6:] == (precision, offset)
+        assert ds._bits == (offset, precision)
+
+
 def test_the_nbit_parameter_check_refuses_what_it_cannot_read():
+    """Reduced precision is read (`test_reduced_precision_integers_read_
+    equal_h5py`); the parameters must describe the dataset's own type, and
+    atoms of other classes stay refused."""
     stored = np.dtype("<u2")
-    with pytest.raises(NotImplementedError, match="reduced-precision types "
-                                                  "\\(12 bits at bit 0"):
-        hdf5_filters.nbit_check((8, 0, 20, 1, 2, 0, 12, 0), stored)
+    with pytest.raises(ValueError, match="12 bits at bit 0, data of full "
+                                         "precision"):
+        hdf5_filters.nbit_check((8, 0, 20, 1, 2, 0, 12, 0), stored, None)
+    with pytest.raises(ValueError, match="12 bits at bit 0, data of \\(2, 12\\)"):
+        hdf5_filters.nbit_check((8, 0, 20, 1, 2, 0, 12, 0), stored, (2, 12))
     with pytest.raises(NotImplementedError, match="datatype class code 3"):
-        hdf5_filters.nbit_check((8, 0, 20, 3, 2, 0, 16, 0), stored)
+        hdf5_filters.nbit_check((8, 0, 20, 3, 2, 0, 16, 0), stored, None)
     with pytest.raises(ValueError, match="4-byte atom"):
-        hdf5_filters.nbit_check((8, 1, 20, 1, 4, 0, 32, 0), stored)
-    hdf5_filters.nbit_check((8, 1, 20, 1, 2, 0, 16, 0), stored)
+        hdf5_filters.nbit_check((8, 1, 20, 1, 4, 0, 32, 0), stored, None)
+    hdf5_filters.nbit_check((8, 1, 20, 1, 2, 0, 16, 0), stored, None)
+    hdf5_filters.nbit_check((8, 0, 20, 1, 2, 0, 12, 0), stored, (0, 12))
 
 
 def test_scaleoffset_e_scale_is_refused_by_h5py_and_the_port(tmp_path):

@@ -5,10 +5,15 @@ whole and by basic selections, and to the array
 `chip_smoke.fixture_arrays()` rebuilds; they cover every chunk index, the
 NeXus file's dense group and external link, LZF, scale-offset, n-bit,
 szip (every chunk of its files coded, none left unfiltered), external raw
-storage and virtual datasets (the 512^3 one over the LZF tile too), and
-they stay small. A byte flipped in a copy of one breaks
+storage and virtual datasets (the 512^3 one over the LZF tile too),
+committed datatypes, reduced-precision integers (unfiltered and under
+n-bit) and a virtual dataset of a narrower type, and they stay small. The
+%b and unlimited virtual datasets, committed without their sources, read
+sources the port's writer makes beside a copy.  A byte flipped in a copy of one breaks
 the checksum of a version 2 B-tree node, a fractal heap direct block, a
 fixed array data block or an extensible array index block: ValueError."""
+
+import shutil
 
 import h5py
 import numpy as np
@@ -104,6 +109,55 @@ def test_the_512_virtual_dataset_tiles_the_lzf_tile(arrays):
             np.testing.assert_array_equal(got, ref)
             np.testing.assert_array_equal(got, tiled[sel])
         assert ds.opened_sources == 1
+
+
+def assert_reads_everywhere(path, expected, slab=np.s_[40:90]):
+    """h5py, the port's reader (whole, shape and a slab), its
+    `get_numpy_from_path` against the JAX package's and a
+    `LazyHDF5Volume` slab all read `expected`."""
+    with h5py.File(path, "r") as f:
+        ref = f["data"][()]
+    np.testing.assert_array_equal(ref, expected)
+    with hdf5.File(path) as f:
+        ds = f["data"]
+        assert ds.shape == expected.shape
+        np.testing.assert_array_equal(ds[slab], expected[slab])
+    ours, chunks = utils.get_numpy_from_path(path)
+    theirs, jax_chunks = jax_utils.get_numpy_from_path(path)
+    np.testing.assert_array_equal(ours, theirs)
+    assert ours.dtype == theirs.dtype == expected.dtype
+    assert chunks == jax_chunks is None
+    lazy = utils.LazyHDF5Volume(path)
+    try:
+        np.testing.assert_array_equal(lazy[slab], expected[slab])
+    finally:
+        lazy.close()
+
+
+def test_the_block_fixture_reads_its_sources_written_by_the_port(tmp_path):
+    """The %b virtual dataset reads one block a source file, as many as
+    are found: three written by the port's writer, then a fourth."""
+    shutil.copy(FIXTURES / chip_smoke.BLOCKS_VDS, tmp_path)
+    path = tmp_path / chip_smoke.BLOCKS_VDS
+    rng = np.random.default_rng(2)
+    vol = rng.integers(0, 4, (4 * chip_smoke.BLOCK_DEPTH, 256, 256), np.uint8)
+    chip_smoke.write_block_sources(tmp_path, vol[:3 * chip_smoke.BLOCK_DEPTH])
+    assert_reads_everywhere(path, vol[:3 * chip_smoke.BLOCK_DEPTH])
+    chip_smoke.write_block_sources(tmp_path, vol)
+    assert_reads_everywhere(path, vol, np.s_[150:230, 3])
+
+
+def test_the_growing_fixture_follows_its_source(tmp_path, arrays):
+    """The unlimited mapping's extent is its source's when the file is
+    opened: 12 slices, then 20 once the port rewrites the source larger."""
+    shutil.copy(FIXTURES / chip_smoke.GROWING_VDS, tmp_path)
+    path = tmp_path / chip_smoke.GROWING_VDS
+    crop = arrays["crop_u2"]
+    hdf5.write(tmp_path / chip_smoke.GROWING_SOURCE, crop)
+    assert_reads_everywhere(path, crop, np.s_[3:9, 5])
+    grown = np.concatenate([crop, crop[:8] + 1])
+    hdf5.write(tmp_path / chip_smoke.GROWING_SOURCE, grown)
+    assert_reads_everywhere(path, grown, np.s_[10:17])
 
 
 FLIPS = {  # structure -> (fixture, signature, offset of the flipped byte)

@@ -10,6 +10,7 @@ checksums raise where h5py raises; what stays unsupported raises
 NotImplementedError naming it."""
 
 import itertools
+import struct
 
 import h5py
 import numpy as np
@@ -376,12 +377,17 @@ def test_checksum_functions_match_the_library():
 
 
 def test_refused_features_raise_not_implemented_by_name(tmp_path, monkeypatch):
-    """A filter the reader does not know, strings and reduced-precision
-    types (as the n-bit filter packs them) stay refused by name. LZF,
-    scale-offset, full-precision n-bit, szip, external storage and virtual
-    datasets, refused before, now read as h5py reads them
-    (tests/test_torch_hdf5_filters.py and _virtual.py test them in
-    full)."""
+    """A filter the reader does not know and strings stay refused by name,
+    and so do shared messages kept in the file's shared message index
+    (SOHM), unfiltered partial edge chunks (chunk option flag 1) and dense
+    attribute storage; h5py writes the last alone, and the first two are
+    patched into a file it writes (a committed datatype's shared message
+    made an index entry, a layout message's flags), its header checksum
+    made again. LZF, scale-offset, n-bit (at full and reduced precision),
+    szip, external storage and virtual datasets, refused before, now read
+    as h5py reads them (tests/test_torch_hdf5_filters.py and _virtual.py
+    test them in full, and committed datatypes and reduced precision
+    below)."""
     monkeypatch.chdir(tmp_path)
     path = tmp_path / "r.h5"
     vol = volume("u1")
@@ -410,13 +416,185 @@ def test_refused_features_raise_not_implemented_by_name(tmp_path, monkeypatch):
         dcpl.set_filter(307, h5py.h5z.FLAG_OPTIONAL, (9,))  # bzip2
         h5py.h5d.create(f.id, b"bzip2", h5py.h5t.STD_U8LE,
                         h5py.h5s.create_simple((16, 16)), dcpl=dcpl)
-    for name, feature in (("bzip2", "filter 307 \\(unknown"),
-                          ("nbit_reduced", "precision 5 at bit 0 \\(reduced "
-                                           "precision, as the n-bit filter"),
-                          ("strings", "datatype class 3")):
+    latest = tmp_path / "latest.h5"
+    with h5py.File(latest, "w", libver="latest") as f:
+        f["t"] = np.dtype("<u2")
+        f.create_dataset("sohm", data=np.arange(6, dtype="<u2"), dtype=f["t"])
+        f.create_dataset("partial_edge", data=np.arange(400, dtype="u1").reshape(
+            20, 20), chunks=(16, 16))
+        dense = f.create_dataset("dense", data=np.arange(4))
+        for i in range(12):  # more than the 8 an object header holds
+            dense.attrs[f"a{i}"] = i
+    with hdf5.File(latest) as f:
+        sohm = f._messages(f._resolve("sohm", [16])[1])[hdf5.MSG_DATATYPE][0][1]
+        edge = f._messages(f._resolve("partial_edge", [16])[1])[hdf5.MSG_LAYOUT][0][1]
+        base = f._base
+    # Version 3 of the shared message encoding, kind 1: a heap ID in the
+    # index where h5py wrote version 2, kind 2 (another object's header).
+    patch_object_header(latest, "sohm", base + sohm, bytes([3, 1]))
+    patch_object_header(latest, "partial_edge", base + edge + 2, bytes([1]))
+    for file, name, feature in (
+            (path, "bzip2", "filter 307 \\(unknown"),
+            (path, "strings", "datatype class 3"),
+            (latest, "sohm", "shared message index \\(SOHM\\)"),
+            (latest, "partial_edge", "unfiltered partial edge chunks")):
         with pytest.raises(NotImplementedError, match=feature):
-            hdf5.read(path, name)
-    for name in ("lzf", "szip", "scaleoffset", "nbit", "external", "virtual"):
+            hdf5.read(file, name)
+    with hdf5.File(latest) as f, pytest.raises(NotImplementedError,
+                                               match="dense attribute storage"):
+        f["dense"].attrs
+    for name in ("lzf", "szip", "scaleoffset", "nbit", "nbit_reduced", "external",
+                 "virtual"):
         with h5py.File(path, "r") as f:
             ref = f[name][()]
         np.testing.assert_array_equal(hdf5.read(path, name)[0], ref)
+
+
+def patch_object_header(path, name, offset, new: bytes):
+    """`new` written at `offset` of the file, inside the version 2 object
+    header of `name`, whose lookup3 checksum is then made again."""
+    with hdf5.File(path) as f:
+        addr = f._resolve(name, [16])[1]
+        flags = f._buf[addr + 5]
+        p = addr + 6 + (16 if flags & 0x20 else 0) + (4 if flags & 0x10 else 0)
+        width = 1 << (flags & 0x3)
+        start, end = f._base + addr, f._base + p + width + f._uint(p, width)
+    raw = bytearray(path.read_bytes())
+    assert start < offset < end
+    raw[offset:offset + len(new)] = new
+    struct.pack_into("<I", raw, end, hdf5.lookup3(bytes(raw[start:end])))
+    path.write_bytes(bytes(raw))
+
+
+# ----------------------------------------------------------------------
+# Committed datatypes and reduced-precision integers
+# ----------------------------------------------------------------------
+
+
+def assert_reads_equal_everywhere(path, name="data", selections=()):
+    """`assert_reads_equal`, the basic `selections` equal to h5py's, and
+    the port's `get_numpy_from_path` equal to the JAX package's."""
+    got = assert_reads_equal(path, name)
+    with h5py.File(path, "r") as f:
+        refs = [f[name][sel] for sel in selections]
+    with hdf5.File(path) as f:
+        for sel, ref in zip(selections, refs):
+            np.testing.assert_array_equal(f[name][sel], ref)
+    ours, chunks = utils.get_numpy_from_path(path, name)
+    theirs, jax_chunks = jax_utils.get_numpy_from_path(path, name)
+    np.testing.assert_array_equal(ours, theirs)
+    assert ours.dtype == theirs.dtype.newbyteorder("=") and chunks == jax_chunks
+    return got
+
+
+@pytest.mark.parametrize("dtype", ["u1", "<i2", ">u2", "<i4", ">u4", "<i8", "<f4",
+                                   ">f8"])
+@pytest.mark.parametrize("libver", ["earliest", "latest"])
+def test_committed_datatypes_read_equal_h5py_and_jax(tmp_path, libver, dtype):
+    """A dataset and an attribute typed by a committed (named) datatype:
+    their datatype messages are shared messages (encoding version 2 at
+    either libver) pointing at the type's own object header."""
+    path = tmp_path / "committed.h5"
+    data = volume(dtype)
+    with h5py.File(path, "w", libver=libver) as f:
+        f["types/voxel"] = np.dtype(dtype)
+        chunked = f.create_dataset("data", data=data, dtype=f["types/voxel"],
+                                   chunks=CHUNKS, compression="gzip")
+        chunked.attrs.create("scale", data[0, 0, :3], dtype=f["types/voxel"])
+        f.create_dataset("contiguous", data=data, dtype=f["types/voxel"])
+    with hdf5.File(path) as f:
+        flags = f._messages(f._resolve("data", [16])[1])[hdf5.MSG_DATATYPE][0][0]
+        attrs = f["data"].attrs
+    assert flags & 0x2  # shared
+    with h5py.File(path, "r") as f:
+        ref_attrs = dict(f["data"].attrs)
+    np.testing.assert_array_equal(attrs["scale"], ref_attrs["scale"])
+    assert attrs["scale"].dtype == ref_attrs["scale"].dtype.newbyteorder("=")
+    for name in ("data", "contiguous"):
+        got = assert_reads_equal_everywhere(path, name, SELECTIONS)
+        np.testing.assert_array_equal(got, data)
+
+
+# (base type, precision, bit offset): the library refuses a type that leaves
+# a whole byte unused.
+REDUCED = [("STD_U8LE", 5, 2), ("STD_I8LE", 7, 1), ("STD_U16LE", 12, 0),
+           ("STD_U16BE", 12, 3), ("STD_I16LE", 11, 5), ("STD_I16BE", 10, 6),
+           ("STD_U32LE", 27, 2), ("STD_I32BE", 30, 2), ("STD_I64LE", 61, 3)]
+
+
+def reduced_type(base, precision, offset):
+    datatype = getattr(h5py.h5t, base).copy()
+    datatype.set_precision(precision)
+    datatype.set_offset(offset)
+    return datatype
+
+
+def reduced_values(datatype, shape=SHAPE, seed=0):
+    """Values that fit `datatype`'s precision, in its full-width numpy
+    type."""
+    precision, size = datatype.get_precision(), datatype.get_size()
+    signed = datatype.get_sign() == h5py.h5t.SGN_2
+    lo, hi = ((-(1 << (precision - 1)), (1 << (precision - 1)) - 1) if signed
+              else (0, (1 << precision) - 1))
+    values = np.random.default_rng(seed).integers(lo, hi, shape, endpoint=True)
+    return values.astype(f"{'i' if signed else 'u'}{size}")
+
+
+@pytest.mark.parametrize("chunked", [False, True], ids=["contiguous", "chunked"])
+@pytest.mark.parametrize("base, precision, offset", REDUCED,
+                         ids=[f"{b}-{p}-{o}" for b, p, o in REDUCED])
+def test_reduced_precision_integers_read_equal_h5py_and_jax(tmp_path, base,
+                                                            precision, offset,
+                                                            chunked):
+    """Integers of `precision` bits from bit `offset`, unfiltered (the
+    n-bit filter's packing is tests/test_torch_hdf5_filters.py's): the
+    library converts each to the full-width type, sign-extended."""
+    datatype = reduced_type(base, precision, offset)
+    data = reduced_values(datatype)
+    path = tmp_path / "reduced.h5"
+    with h5py.File(path, "w") as f:
+        dcpl = h5py.h5p.create(h5py.h5p.DATASET_CREATE)
+        if chunked:
+            dcpl.set_chunk(CHUNKS)
+            dcpl.set_fill_value(data[:1, :1, :1].ravel())
+        ds = h5py.h5d.create(f.id, b"data", datatype,
+                             h5py.h5s.create_simple(SHAPE), dcpl=dcpl)
+        region = np.s_[:, :32] if chunked else np.s_[...]  # whole chunks
+        f["data"][region] = data[region]
+    got = assert_reads_equal_everywhere(path, "data", SELECTIONS)
+    expected = data.copy()
+    if chunked:  # chunks never written take the (converted) fill value
+        expected[:, 32:] = data[0, 0, 0]
+    np.testing.assert_array_equal(got, expected)
+    with hdf5.File(path) as f:
+        assert f["data"]._bits == (offset, precision)
+
+
+def test_padding_bits_of_reduced_precision_types_are_dropped(tmp_path):
+    """h5py reads a reduced-precision integer as the library converts it:
+    the bits outside the precision (here set, in full-width data whose
+    type is then patched to 9 bits at bit 3, and signed 12 at bit 2) are
+    dropped, and the sign bit extended."""
+    path = tmp_path / "padded.h5"
+    rng = np.random.default_rng(4)
+    unsigned = rng.integers(0, 1 << 16, (6, 7), dtype=np.uint16)
+    signed = rng.integers(-(1 << 15), 1 << 15, (6, 7), dtype=np.int16)
+    with h5py.File(path, "w") as f:
+        f["unsigned"] = unsigned
+        f["signed"] = signed
+    raw = bytearray(path.read_bytes())
+    with hdf5.File(path) as f:
+        for name, (offset, precision) in (("unsigned", (3, 9)), ("signed", (2, 12))):
+            d = f._messages(f._resolve(name, [16])[1])[hdf5.MSG_DATATYPE][0][1]
+            struct.pack_into("<HH", raw, f._base + d + 8, offset, precision)
+    path.write_bytes(bytes(raw))
+    with h5py.File(path, "r") as f:
+        ref = {name: f[name][()] for name in ("unsigned", "signed")}
+    np.testing.assert_array_equal(ref["unsigned"], (unsigned >> 3) & 0x1FF)
+    twelve = (signed.view(np.uint16) >> 2) & 0xFFF
+    np.testing.assert_array_equal(ref["signed"], np.where(
+        twelve & 0x800, twelve.astype(np.int32) - 0x1000, twelve))
+    for name in ("unsigned", "signed"):
+        got = hdf5.read(path, name)[0]
+        assert got.dtype == ref[name].dtype
+        np.testing.assert_array_equal(got, ref[name])

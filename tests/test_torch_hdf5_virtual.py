@@ -350,8 +350,10 @@ def test_sources_found_under_the_vds_prefix(tmp_path, monkeypatch):
 
 
 def test_refused_mappings_raise_not_implemented_by_name(tmp_path):
-    """Point selections, unlimited mappings and printf-style (%b) source
-    names; a literal "%%" in a name is read as "%"."""
+    """Point selections stay refused by name. Unlimited mappings and
+    printf-style (%b) source names, refused before, now read as h5py
+    reads them, their shape too (the sources of %b are missing: no
+    block); a literal "%%" in a name is read as "%"."""
     data = volume((4,), seed=1)
     with h5py.File(tmp_path / "100%.h5", "w") as f:
         f.create_dataset("data", data=data)
@@ -402,15 +404,268 @@ def test_refused_mappings_raise_not_implemented_by_name(tmp_path):
     blob = bytes(raw[blob_at:blob_at + size - 4])
     struct.pack_into("<I", raw, blob_at + size - 4, hdf5.lookup3(blob))
     path.write_bytes(bytes(raw))
-    for name, feature in (("points", "point selections"),
-                          ("printf", "printf-style \\(%b\\) source names"),
-                          ("unlimited", "unlimited virtual dataset mappings")):
-        with hdf5.File(path) as f, pytest.raises(NotImplementedError, match=feature):
-            f[name]
+    with hdf5.File(path) as f, pytest.raises(NotImplementedError,
+                                             match="point selections"):
+        f["points"]
+    for name in ("printf", "unlimited", "percent"):
+        assert_reads_equal(path, name, [()] if name == "printf" else
+                           [(), np.s_[1:3]])
     with h5py.File(path, "r") as f:
-        ref = f["percent"][()]
-    np.testing.assert_array_equal(hdf5.read(path, "percent")[0], ref)
-    np.testing.assert_array_equal(ref[2:6], data)
+        ref = {name: f[name][()] for name in ("printf", "unlimited", "percent")}
+    assert ref["printf"].shape == (0,)
+    np.testing.assert_array_equal(ref["unlimited"], data)
+    np.testing.assert_array_equal(ref["percent"][2:6], data)
+
+
+# ----------------------------------------------------------------------
+# Unlimited and printf-style (%b) mappings, and sources of other types
+# ----------------------------------------------------------------------
+
+
+SMALL_SELECTIONS = [(), np.s_[1], np.s_[1:3, 1:, 2:], np.s_[-1, 0]]
+
+
+def assert_reads_everywhere(path, name="data", selections=SMALL_SELECTIONS):
+    """`assert_reads_equal`, and the port's `get_numpy_from_path` and a
+    `LazyHDF5Volume` slab equal to the JAX package's, h5py's shape too."""
+    got = assert_reads_equal(path, name, selections)
+    with h5py.File(path, "r") as f:
+        assert hdf5.File(path)[name].shape == f[name].shape == got.shape
+        slab = f[name][1:3]
+    ours, chunks = utils.get_numpy_from_path(path, name)
+    theirs, jax_chunks = jax_utils.get_numpy_from_path(path, name)
+    np.testing.assert_array_equal(ours, theirs)
+    assert ours.dtype == theirs.dtype.newbyteorder("=") and chunks == jax_chunks
+    lazy = utils.LazyHDF5Volume(path, hdf5_path=name)
+    try:
+        assert lazy.shape == got.shape
+        np.testing.assert_array_equal(lazy[1:3], slab)
+    finally:
+        lazy.close()
+    return got
+
+
+def create_virtual(path, name, shape, maxshape, dtype, mappings, fill=0):
+    """A virtual dataset through h5py's low level: `mappings` are
+    (virtual space, source file, source dataset, source space)."""
+    with h5py.File(path, "a", libver="latest") as f:
+        dcpl = h5py.h5p.create(h5py.h5p.DATASET_CREATE)
+        dcpl.set_fill_value(np.array([fill], dtype))
+        for vspace, source_file, source_name, sspace in mappings:
+            dcpl.set_virtual(vspace, source_file.encode(), source_name.encode(),
+                             sspace)
+        h5py.h5d.create(f.id, name.encode(), h5py.h5t.py_create(np.dtype(dtype)),
+                        h5py.h5s.create_simple(shape, maxshape), dcpl=dcpl).close()
+
+
+def hyperslab(shape, maxshape, start, count, stride=None, block=None):
+    space = h5py.h5s.create_simple(shape, maxshape)
+    space.select_hyperslab(start, count, stride, block)
+    return space
+
+
+UNLIMITED = h5py.h5s.UNLIMITED
+
+
+def test_an_unlimited_mapping_follows_its_source_as_it_grows(tmp_path):
+    """`layout[0:UNLIMITED] = source[0:UNLIMITED]`: the virtual dataset's
+    extent is its source's, as h5py decides it when it opens the dataset
+    (the last available view), not the one stored when it was written."""
+    grown = volume((7, 12, 10), seed=3)
+    with h5py.File(tmp_path / "src.h5", "w", libver="latest") as f:
+        f.create_dataset("data", data=grown[:3], maxshape=(None, 12, 10),
+                         chunks=(2, 6, 5))
+    src = h5py.VirtualSource("src.h5", "data", shape=(3, 12, 10),
+                             maxshape=(None, 12, 10))
+    layout = h5py.VirtualLayout(shape=(3, 12, 10), maxshape=(None, 12, 10),
+                                dtype="<u2")
+    layout[0:UNLIMITED] = src[0:UNLIMITED]
+    path = tmp_path / "vds.h5"
+    with h5py.File(path, "w", libver="latest") as f:
+        f.create_virtual_dataset("data", layout, fillvalue=9)
+    np.testing.assert_array_equal(assert_reads_everywhere(path), grown[:3])
+    with h5py.File(tmp_path / "src.h5", "a") as f:
+        f["data"].resize((7, 12, 10))
+        f["data"][3:] = grown[3:]
+    np.testing.assert_array_equal(assert_reads_everywhere(path), grown)
+    with hdf5.File(path) as f:
+        assert f["data"].maxshape == (None, 12, 10)
+
+
+def test_unlimited_mappings_of_strided_blocks_and_other_axes(tmp_path):
+    """Unlimited counts of strided blocks and unlimited blocks, a source
+    unlimited in another axis than its virtual selection, a last block cut
+    short, a missing source (no slices) and a limited mapping past the
+    unlimited ones, which the extent keeps (the fill value between)."""
+    rng = np.random.default_rng(5)
+    a = rng.integers(0, 1000, (5, 4, 3)).astype("<i4")  # 5 slices along 0
+    b = rng.integers(0, 1000, (4, 3, 7)).astype("<i4")  # 7 slices along 2
+    for name, arr in (("a.h5", a), ("b.h5", b)):
+        with h5py.File(tmp_path / name, "w") as f:
+            f.create_dataset("data", data=arr)
+    vshape, vmax = (2, 4, 3), (UNLIMITED, 4, 3)
+    path = tmp_path / "vds.h5"
+    create_virtual(path, "strided", vshape, vmax, "<i4", [
+        # blocks of 2 every 3: 5 slices end in a block cut to 1 (extent 7)
+        (hyperslab(vshape, vmax, (0, 0, 0), (UNLIMITED, 1, 1), (3, 1, 1),
+                   (2, 4, 3)), "a.h5", "data",
+         hyperslab((5, 4, 3), None, (0, 0, 0), (1, 1, 1), None,
+                   (UNLIMITED, 4, 3)))], fill=-1)
+    create_virtual(path, "blocks", (12, 4, 3), vmax, "<i4", [
+        # one unlimited block from 1 <- b's slices along axis 2, in blocks
+        # of 3 every 4 (3 + 3 = 6 of its 7)
+        (hyperslab(vshape, vmax, (1, 0, 0), (1, 1, 1), None, (UNLIMITED, 4, 3)),
+         "b.h5", "data",
+         hyperslab((4, 3, 7), None, (0, 0, 0), (1, 1, UNLIMITED), (1, 1, 4),
+                   (4, 3, 3))),
+        (hyperslab(vshape, vmax, (0, 0, 0), (UNLIMITED, 1, 1), (2, 1, 1),
+                   (1, 4, 3)), "missing.h5", "data",
+         hyperslab((5, 4, 3), None, (0, 0, 0), (1, 1, 1), None,
+                   (UNLIMITED, 4, 3))),
+        (hyperslab((12, 4, 3), vmax, (10, 0, 0), (1, 1, 1), None, (2, 4, 3)),
+         "a.h5", "data", hyperslab((5, 4, 3), None, (0, 0, 0), (1, 1, 1), None,
+                                   (2, 4, 3)))], fill=-2)
+    strided = assert_reads_everywhere(path, "strided", [(), np.s_[2:6]])
+    assert strided.shape == (7, 4, 3)
+    np.testing.assert_array_equal(strided[[0, 1, 3, 4, 6]], a)
+    np.testing.assert_array_equal(strided[[2, 5]], -1)
+    blocks = assert_reads_everywhere(path, "blocks", [(), np.s_[3:11]])
+    assert blocks.shape == (12, 4, 3)
+    np.testing.assert_array_equal(blocks[10:12], a[:2])
+    np.testing.assert_array_equal(blocks[7:10], -2)
+
+
+def write_blocks(folder, blocks, pattern="src_%b.h5", dataset="data"):
+    """Each array of `blocks` (None: no file) as block b's source."""
+    for b, arr in enumerate(blocks):
+        if arr is not None:
+            with h5py.File(folder / pattern.replace("%b", str(b)), "a") as f:
+                f.create_dataset(dataset.replace("%b", str(b)), data=arr)
+
+
+def printf_mapping(vshape, block, source_file, source_name, stride=None):
+    vmax = (UNLIMITED,) + tuple(vshape[1:])
+    stride = stride or block[0]
+    return (hyperslab(vshape, vmax, (0,) * len(vshape),
+                      (UNLIMITED,) + (1,) * (len(vshape) - 1),
+                      (stride,) + (1,) * (len(vshape) - 1), block),
+            source_file, source_name, h5py.h5s.create_simple(block))
+
+
+def test_printf_mappings_read_each_block_from_its_own_source(tmp_path):
+    """A %b in the source file's name or in the dataset's: block b of the
+    unlimited virtual selection comes from the source named with b, for
+    as many blocks as are found."""
+    blocks = [volume((2, 5, 6), seed=b) for b in range(3)]
+    write_blocks(tmp_path, blocks)
+    path = tmp_path / "vds.h5"
+    with h5py.File(path, "w") as f:
+        for b, arr in enumerate(blocks):
+            f.create_dataset(f"block_{b}", data=arr, chunks=(1, 5, 3))
+    create_virtual(path, "files", (0, 5, 6), (UNLIMITED, 5, 6), "<u2",
+                   [printf_mapping((0, 5, 6), (2, 5, 6), "src_%b.h5", "data")])
+    create_virtual(path, "names", (0, 5, 6), (UNLIMITED, 5, 6), "<u2",
+                   [printf_mapping((0, 5, 6), (2, 5, 6), ".", "block_%b",
+                                   stride=3)], fill=5)
+    files = assert_reads_everywhere(path, "files", [(), np.s_[1:4], np.s_[5, 2]])
+    np.testing.assert_array_equal(files, np.concatenate(blocks))
+    names = assert_reads_everywhere(path, "names", [(), np.s_[2:7]])
+    assert names.shape == (8, 5, 6)
+    np.testing.assert_array_equal(names[[0, 1, 3, 4, 6, 7]], np.concatenate(blocks))
+    np.testing.assert_array_equal(names[[2, 5]], 5)
+
+
+def test_a_printf_mapping_stops_at_its_first_missing_block(tmp_path):
+    """Blocks 0, 1 and 3 exist, block 2 does not: with the library's
+    default printf gap of 0 the search stops at block 2, so the extent
+    ends after block 1. Where a limited mapping reaches further, the
+    blocks from 2 on keep the fill value, block 3's file although it
+    exists."""
+    blocks = [np.full((2, 3), b + 1, "<i2") for b in range(4)]
+    blocks[2] = None
+    write_blocks(tmp_path, blocks)
+    with h5py.File(tmp_path / "tail.h5", "w") as f:
+        f["data"] = np.full((2, 3), 77, "<i2")
+    path = tmp_path / "vds.h5"
+    mapping = printf_mapping((10, 3), (2, 3), "src_%b.h5", "data")
+    create_virtual(path, "alone", (0, 3), (UNLIMITED, 3), "<i2", [mapping],
+                   fill=-5)
+    tail = (hyperslab((10, 3), (UNLIMITED, 3), (8, 0), (1, 1), None, (2, 3)),
+            "tail.h5", "data", h5py.h5s.create_simple((2, 3)))
+    create_virtual(path, "beside", (10, 3), (UNLIMITED, 3), "<i2",
+                   [printf_mapping((10, 3), (2, 3), "src_%b.h5", "data"), tail],
+                   fill=-5)
+    alone = assert_reads_equal(path, "alone", [(), np.s_[1:3]])
+    np.testing.assert_array_equal(alone[:, 0], [1, 1, 2, 2])
+    beside = assert_reads_equal(path, "beside", [(), np.s_[5:9], np.s_[6]])
+    np.testing.assert_array_equal(beside[:, 0], [1, 1, 2, 2, -5, -5, -5, -5, 77, 77])
+
+
+CONVERSIONS = [("<i2", "u1"), ("<u2", "i1"), ("<i8", "<u4"), ("<u8", "<i2"),
+               ("<i8", "<f4"), ("<u8", "<f8"), ("<f8", "<f4")]
+
+
+@pytest.mark.parametrize("source, target", CONVERSIONS,
+                         ids=[f"{s}-{t}" for s, t in CONVERSIONS])
+def test_sources_of_another_type_convert_as_h5py_converts_them(tmp_path, source,
+                                                               target):
+    """A source whose type does not widen to the virtual dataset's:
+    integers saturate at the target's range; to floating point values round
+    to nearest, and a float past the target's largest finite value, which
+    numpy would round to it, is infinite, as the library converts."""
+    rng = np.random.default_rng(0)
+    info = (np.iinfo if np.dtype(source).kind in "iu" else np.finfo)(source)
+    edges = [info.min, info.max, 0, 1, -1 if info.min < 0 else 2]
+    if np.dtype(source).kind == "f":
+        top = float(np.finfo(target).max)
+        edges += [top, top * (1 + 1e-9), -top * (1 + 1e-9)]
+    values = np.concatenate([edges, rng.uniform(-3e5, 3e5, 60 - len(edges))])
+    with np.errstate(all="ignore"):
+        data = values.astype(source).reshape(5, 3, 4)
+    with h5py.File(tmp_path / "src.h5", "w") as f:
+        f.create_dataset("data", data=data)
+    layout = h5py.VirtualLayout(shape=(5, 3, 4), dtype=target)
+    layout[:] = h5py.VirtualSource("src.h5", "data", shape=(5, 3, 4))
+    path = tmp_path / "vds.h5"
+    with h5py.File(path, "w") as f:
+        f.create_virtual_dataset("data", layout)
+    got = assert_reads_everywhere(path)
+    if np.dtype(target).kind in "iu":
+        t = np.iinfo(target)
+        np.testing.assert_array_equal(
+            got, np.clip(data.astype(object), t.min, t.max).astype(target))
+    elif np.dtype(source).kind == "f":
+        assert np.isposinf(got.ravel()[6]) and np.isneginf(got.ravel()[7])
+
+
+def test_floating_point_sources_under_an_integer_dataset_are_refused(tmp_path):
+    """The library's float to integer conversion of NaN and of values past
+    the range follows the platform's C conversion (NaN reads as the most
+    negative value in an int32 here), and its conversion to float16 is not
+    IEEE rounding (65520.0 reads as 65504, an int32 of 70000 as NaN): both
+    refused by name."""
+    with h5py.File(tmp_path / "src.h5", "w") as f:
+        f["floats"] = np.array([1.5, np.nan, 65520.0], "<f4")
+        f["ints"] = np.array([1, 70000, -3], "<i4")
+    path = tmp_path / "vds.h5"
+    with h5py.File(path, "w") as f:
+        for name, source, target in (("to_int", "floats", "<i4"),
+                                     ("to_half", "floats", "<f2"),
+                                     ("int_to_half", "ints", "<f2")):
+            layout = h5py.VirtualLayout(shape=(3,), dtype=target)
+            layout[:] = h5py.VirtualSource("src.h5", source, shape=(3,))
+            f.create_virtual_dataset(name, layout)
+    with h5py.File(path, "r") as f:
+        np.testing.assert_array_equal(f["to_int"][()], [1, np.iinfo("i4").min,
+                                                        65520])
+        np.testing.assert_array_equal(f["to_half"][()], [1.5, np.nan, 65504.0])
+        assert np.isnan(f["int_to_half"][1])
+    for name, types in (("to_int", "float32 under a dataset of type int32"),
+                        ("to_half", "float32 under a dataset of type float16"),
+                        ("int_to_half", "int32 under a dataset of type float16")):
+        with hdf5.File(path) as f, pytest.raises(
+                NotImplementedError, match=f"sources of type {types}"):
+            f[name][()]
 
 
 def test_a_corrupt_mapping_list_fails_its_checksum(tmp_path):

@@ -145,6 +145,41 @@ def test_clahe_blend_misaligned_and_scalar_rows(cuda):
         assert (out - ref).abs().max().item() <= 1e-6
 
 
+# Sides that the 8x8 grid does not divide (F6): the columns past 8 * tw
+# count in the next tile row's first tiles, the rows past 8 * th in no
+# tile; below 64 a tile row's spill reaches past its first tile (23, 17).
+# 252 and 260 take K3's 16-byte path, the odd sides its scalar one, 258
+# K2's scalar loads with 32-pixel tiles; 8 and 9 are the smallest sides.
+CLAHE_SIDES = [8, 9, 17, 23, 40, 57, 60, 62, 63, 100, 250, 252, 255, 258, 260]
+
+
+@pytest.mark.parametrize("s", CLAHE_SIDES)
+def test_clahe_kernels_match_plain_at_any_side(cuda, s):
+    rng = np.random.default_rng(s)
+    _check_clahe(*_clahe_inputs(rng, cuda, s, [1, 0, 1, 1]))
+    imgs, clips, apply = _clahe_inputs(rng, cuda, s, [1, 1, 0])
+    _check_clahe(_misaligned(imgs), clips, apply)
+
+
+@pytest.mark.parametrize("s", [23, 60, 63, 100, 252, 255])
+def test_warp_kernel_at_clahe_sides(cuda, s):
+    _check_warp(*_warp_inputs(np.random.default_rng(s), cuda, 4, s, s))
+
+
+@pytest.mark.parametrize("s", [23, 60, 100, 252])
+def test_augment_batch_at_any_side_runs_each_kernel_once(cuda, s):
+    rng = np.random.default_rng(1)
+    imgs = torch.from_numpy(rng.integers(0, 256, (6, s, s), dtype=np.uint8)).to(cuda)
+    msks = torch.from_numpy(rng.integers(0, 2, (6, s, s), dtype=np.uint8)).to(cuda)
+    kernels.reset_launch_counts()
+    out, out_m = augment.augment_batch_u8(
+        torch.Generator(cuda).manual_seed(0), imgs, msks, s)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == {name: 1 for name in kernels.SIGNATURES}
+    assert out.shape == (6, s, s) and out_m.dtype == torch.uint8
+    assert torch.isfinite(out).all() and 0 <= out.min() and out.max() <= 1
+
+
 def _residual_zero_image(rng, s, limit):
     """An (s, s) image whose 8x8 grid's tiles each clip to 256 counts in
     all: one bin of area - (k - 1) * limit pixels and k - 1 bins of `limit`
@@ -216,6 +251,7 @@ def test_wrappers_reject_bad_inputs(cuda):
         warp_batch_u8(imgs, imgs, coords)
     with pytest.raises(ValueError):
         warp_batch_u8(imgs, imgs, coords.float().transpose(2, 3))
-    with pytest.raises(ValueError):
-        clahe_batch_fused(torch.zeros(1, 40, 40, device=cuda),
-                          torch.ones(1, device=cuda), torch.ones(1, device=cuda))
+    for shape in ((1, 40, 48), (1, 7, 7)):  # not square; a tile under a pixel
+        with pytest.raises(ValueError):
+            clahe_batch_fused(torch.zeros(shape, device=cuda),
+                              torch.ones(1, device=cuda), torch.ones(1, device=cuda))

@@ -196,7 +196,77 @@ def write_szip_fixtures(folder: Path) -> None:
                              compression_opts=options, **extra)
 
 
+def write_type_fixtures(folder: Path) -> None:
+    """Types h5py writes beyond the plain ones: the crop as uint16 under a
+    committed (named) datatype, at libver earliest and latest; as 12-bit
+    uint16 from bit 2, unfiltered, and from bit 0 under the n-bit filter;
+    less 128 as 11-bit int16 from bit 3 under n-bit and gzip; and a
+    virtual int8 dataset over the uint8 crop (its values saturate at
+    127)."""
+    arrays = chip_smoke.fixture_arrays()
+    for name, libver in (("crop_committed.h5", "earliest"),
+                         ("crop_committed_latest.h5", "latest")):
+        with h5py.File(folder / name, "w", libver=libver) as f:
+            f["voxel"] = np.dtype("<u2")
+            f.create_dataset("data", data=arrays["crop_u2"], dtype=f["voxel"],
+                             chunks=(6, 12, 12), compression="gzip")
+    for name, array, base, precision, offset, chunks, nbit in (
+            ("crop_reduced.h5", "crop_u2", h5py.h5t.STD_U16LE, 12, 2, None,
+             False),
+            ("crop_nbit_12.h5", "crop_u2", h5py.h5t.STD_U16LE, 12, 0,
+             (6, 12, 12), True),
+            ("crop_nbit_signed.h5", "crop_signed", h5py.h5t.STD_I16LE, 11, 3,
+             (5, 10, 10), True)):
+        datatype = base.copy()
+        datatype.set_precision(precision)
+        datatype.set_offset(offset)
+        dcpl = h5py.h5p.create(h5py.h5p.DATASET_CREATE)
+        if chunks:
+            dcpl.set_chunk(chunks)
+        if nbit:
+            dcpl.set_filter(h5py.h5z.FILTER_NBIT)
+            if array == "crop_signed":
+                dcpl.set_deflate(4)
+        with h5py.File(folder / name, "w") as f:
+            ds = h5py.h5d.create(f.id, b"data", datatype,
+                                 h5py.h5s.create_simple(arrays[array].shape),
+                                 dcpl=dcpl)
+            ds.write(h5py.h5s.ALL, h5py.h5s.ALL, arrays[array])
+    crop = arrays["crop"]
+    layout = h5py.VirtualLayout(shape=crop.shape, dtype="i1")
+    layout[...] = h5py.VirtualSource("crop_nbit.h5", "data", shape=crop.shape)
+    with h5py.File(folder / "crop_saturated.h5", "w") as f:
+        f.create_virtual_dataset("data", layout)
+
+
+def write_sourceless_fixtures(folder: Path) -> None:
+    """The two virtual datasets committed without their sources: a %b
+    mapping of Z blocks of (BLOCK_DEPTH, 256, 256) uint8, each block's
+    source file named with its number, stored with no block; and an
+    unlimited mapping of a (z, 24, 24) uint16 source, stored at z = 12."""
+    side = 256
+    block = (chip_smoke.BLOCK_DEPTH, side, side)
+    with h5py.File(folder / chip_smoke.BLOCKS_VDS, "w", libver="latest") as f:
+        vspace = h5py.h5s.create_simple((0, side, side),
+                                        (h5py.h5s.UNLIMITED, side, side))
+        vspace.select_hyperslab((0, 0, 0), (h5py.h5s.UNLIMITED, 1, 1),
+                                stride=(block[0], 1, 1), block=block)
+        dcpl = h5py.h5p.create(h5py.h5p.DATASET_CREATE)
+        dcpl.set_virtual(vspace, chip_smoke.BLOCK_SOURCE.encode(), b"/data",
+                         h5py.h5s.create_simple(block))
+        h5py.h5d.create(f.id, b"data", h5py.h5t.STD_U8LE, vspace, dcpl=dcpl)
+    source = h5py.VirtualSource(chip_smoke.GROWING_SOURCE, "data",
+                                shape=(12, 24, 24), maxshape=(None, 24, 24))
+    layout = h5py.VirtualLayout(shape=(12, 24, 24), maxshape=(None, 24, 24),
+                                dtype="<u2")
+    layout[0:h5py.h5s.UNLIMITED] = source[0:h5py.h5s.UNLIMITED]
+    with h5py.File(folder / chip_smoke.GROWING_VDS, "w", libver="latest") as f:
+        f.create_virtual_dataset("data", layout, fillvalue=chip_smoke.VIRTUAL_FILL)
+
+
 if __name__ == "__main__":
     write_fixtures(Path(chip_smoke.FIXTURE_DIR))
     write_virtual_fixtures(Path(chip_smoke.FIXTURE_DIR))
     write_szip_fixtures(Path(chip_smoke.FIXTURE_DIR))
+    write_type_fixtures(Path(chip_smoke.FIXTURE_DIR))
+    write_sourceless_fixtures(Path(chip_smoke.FIXTURE_DIR))

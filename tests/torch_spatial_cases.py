@@ -321,11 +321,11 @@ def float64_first_loss(case: dict, images, masks) -> float:
 def family_rank(rank: int, in_path: str, out_dir: str) -> None:
     """Over a 1 x 2 mesh, from each pair's seeded weights
     (`seeded_model`), each pair on the top-left side x side crop of the
-    blob's images (its entries are (struc, side)): for each of the blob's
+    blob's first n images (its entries are (struc, side, n)): for each of
+    the blob's
     `train` pairs one train step
-    (`torch_parallel_cases.train_run`: DiceLoss, augmentation on where
-    the side is a multiple of 16, a seeded
-    dropout generator, lr `lr`), rank 0 adding the one-process step, the
+    (`torch_parallel_cases.train_run`: DiceLoss, augmentation on, a
+    seeded dropout generator, lr `lr`), rank 0 adding the one-process step, the
     comparison (`against_one_process`, without a float64 step) and the
     first step's float64 loss (`float64_first_loss`; none for FPN, whose
     GroupNorm runs in float32 whatever its input); for
@@ -340,29 +340,26 @@ def family_rank(rank: int, in_path: str, out_dir: str) -> None:
     mesh = get_mesh(device="cpu", space=2)
     images, masks = blob["images"], blob["masks"]
 
-    def crop(side):
-        return (np.ascontiguousarray(images[:, :side, :side]),
-                np.ascontiguousarray(masks[:, :side, :side]))
+    def crop(side, n):
+        return (np.ascontiguousarray(images[:n, :side, :side]),
+                np.ascontiguousarray(masks[:n, :side, :side]))
 
-    def evaluate(model, on, side):
+    def evaluate(model, on, side, n):
         step = build_dp_eval_step(model, cases.loss_fn("DiceLoss"), mean_iou,
                                   num_labels=2, mesh=on,
                                   compute_dtype=torch.float32)
-        rows, (imgs, msks) = on.rows(images.shape[0]), crop(side)
+        rows, (imgs, msks) = on.rows(n), crop(side, n)
         loss, score = step(torch.from_numpy(imgs[rows]),
-                           torch.from_numpy(msks[rows]), images.shape[0])
+                           torch.from_numpy(msks[rows]), n)
         return loss.item(), score.item()
 
     out = {"train": [], "eval": []}
-    for struc, side in blob["train"]:
-        # The port's CLAHE (K2, K3 and their plain versions) takes sides
-        # that are multiples of 16 only, where the JAX package's XLA clahe
-        # takes any: other sides train without augmentation.
+    for struc, side, n in blob["train"]:
         case = dict(struc=struc, state=seeded_model(struc).state_dict(),
                     loss="DiceLoss",
-                    frozen=False, augment=side % 16 == 0, lr=blob["lr"],
+                    frozen=False, augment=True, lr=blob["lr"],
                     steps=1, seed=11)
-        imgs, msks = crop(side)
+        imgs, msks = crop(side, n)
         run = cases.train_run(case, imgs, msks, mesh)
         res = {"losses": run["losses"], "digest": cases.digest(run["final"])}
         if rank == 0:
@@ -371,10 +368,10 @@ def family_rank(rank: int, in_path: str, out_dir: str) -> None:
                 None if struc["type"] == "FPN"
                 else float64_first_loss(case, imgs, msks)))
         out["train"].append(res)
-    for struc, side in blob["eval"]:
+    for struc, side, n in blob["eval"]:
         model = seeded_model(struc)
-        res = {"eval": evaluate(model, mesh, side)}
+        res = {"eval": evaluate(model, mesh, side, n)}
         if rank == 0:
-            res["ref_eval"] = evaluate(model, Mesh(), side)
+            res["ref_eval"] = evaluate(model, Mesh(), side, n)
         out["eval"].append(res)
     torch.save(out, Path(out_dir, f"rank{rank}.pt"))

@@ -12,8 +12,7 @@ resize of the logits back to the input run row-sharded):
 - the eval step (DiceLoss, MeanIoU; running statistics, so the forward is
   the whole op's up to summation order): loss and score within 1e-6 on
   both ranks alike;
-- one train step with augmentation on (off at a side that is not a
-  multiple of 16, which the port's CLAHE does not take) and a seeded
+- one train step with augmentation on (at every side) and a seeded
   dropout generator:
   the loss within 1e-5 relative or twice the one-process float32 loss's
   distance from the float64 loss of the same step, whichever is larger
@@ -75,18 +74,21 @@ def batch(n=GLOBAL, seed=8):
     return images, (images > 128).astype(np.uint8)
 
 
-def run_family(tmp, train_pairs, eval_pairs, n=GLOBAL):
+def run_family(tmp, train_pairs, eval_pairs, n=GLOBAL, batches=None):
     """Both ranks' results of `family_rank` for the pairs ((decoder,
     encoder) at side `S`, or (decoder, encoder, side)), on a global batch
-    of `n`."""
-    images, masks = batch(n)
+    of `n`, or of `batches[pair]` for a train pair there (the first images
+    of the same seeded draw)."""
+    batches = batches or {}
+    images, masks = batch(max([n, *batches.values()]))
 
-    def entries(pairs):
-        return [(struc(*p[:2]), p[2] if len(p) > 2 else S) for p in pairs]
+    def entries(pairs, sizes):
+        return [(struc(*p[:2]), p[2] if len(p) > 2 else S, sizes.get(p, n))
+                for p in pairs]
 
     torch.save({"images": images, "masks": masks, "lr": LR,
-                "train": entries(train_pairs), "eval": entries(eval_pairs)},
-               tmp / "in.pt")
+                "train": entries(train_pairs, batches),
+                "eval": entries(eval_pairs, {})}, tmp / "in.pt")
     spawn_ranks(spatial_cases.family_rank, 2,
                 args=(str(tmp / "in.pt"), str(tmp)), timeout=FAMILY_TIMEOUT_S)
     return [torch.load(tmp / f"rank{r}.pt", weights_only=False)

@@ -1,5 +1,9 @@
 """Batched Contrast-Limited Adaptive Histogram Equalization with OpenCV
-semantics (port of the JAX package's `ops/clahe.py`).
+semantics (port of the JAX package's `ops/clahe.py`), at any square side
+S >= 8 as the JAX package's XLA `clahe` computes it: tiles of th = S //
+grid_h by tw = S // grid_w pixels, pixel (y, x) counted in tile (y // th)
+* grid_w + x // tw when that is a tile (`_tile_ids`), the clip limit and
+the LUT scale from th * tw.
 
 CLAHE runs in two steps, each with a plain PyTorch version and a CUDA
 kernel (`csrc/clahe.cu`):
@@ -25,11 +29,25 @@ def _bins(imgs: torch.Tensor) -> torch.Tensor:
 
 def _check_geometry(imgs, grid_h, grid_w):
     n, h, w = imgs.shape
-    if h != w or h % (2 * grid_h) or w % grid_w:
+    if h != w or h < max(grid_h, grid_w):
         raise ValueError(
-            f"CLAHE expects square tiles with S % {2 * grid_h} == 0, got {h}x{w}"
+            f"CLAHE expects square images of side at least "
+            f"{max(grid_h, grid_w)} (one pixel a tile), got {h}x{w}"
         )
     return n, h
+
+
+def _tile_ids(s: int, grid_h: int, grid_w: int, device) -> torch.Tensor:
+    """(S, S) tile id of each pixel as the JAX package assigns it,
+    (y // th) * grid_w + x // tw, with ids past the last tile (rows past
+    grid_h * th, and the last columns of the last tile row) set to
+    grid_h * grid_w: those pixels count in no histogram. Where S % grid_w
+    is not 0, the columns past grid_w * tw of tile row r count in tile row
+    r + 1's first tiles."""
+    th, tw = s // grid_h, s // grid_w
+    pos = torch.arange(s, device=device)
+    ids = (pos // th)[:, None] * grid_w + (pos // tw)[None, :]
+    return torch.clamp(ids, max=grid_h * grid_w)
 
 
 def clahe_luts_plain(imgs: torch.Tensor, clips: torch.Tensor,
@@ -37,15 +55,14 @@ def clahe_luts_plain(imgs: torch.Tensor, clips: torch.Tensor,
     """(N, S, S) float32 in [0, 1], (N,) clip limits -> (N, grid_h*grid_w,
     256) uint8 LUTs (OpenCV clip/redistribute/CDF, all in exact integers)."""
     n, s = _check_geometry(imgs, grid_h, grid_w)
-    th, tw = s // grid_h, s // grid_w
-    area = th * tw
-    tiles = (
-        _bins(imgs).reshape(n, grid_h, th, grid_w, tw)
-        .permute(0, 1, 3, 2, 4).reshape(n, grid_h * grid_w, area)
-    )
-    hist = torch.zeros(n, grid_h * grid_w, N_BINS, dtype=torch.int64,
+    tiles = grid_h * grid_w
+    area = (s // grid_h) * (s // grid_w)
+    idx = (_tile_ids(s, grid_h, grid_w, imgs.device) * N_BINS
+           + _bins(imgs)).reshape(n, -1)
+    hist = torch.zeros(n, (tiles + 1) * N_BINS, dtype=torch.int64,
                        device=imgs.device)
-    hist.scatter_add_(2, tiles, torch.ones_like(tiles))
+    hist.scatter_add_(1, idx, torch.ones_like(idx))
+    hist = hist[:, :tiles * N_BINS].reshape(n, tiles, N_BINS)
     limit = torch.clamp(torch.floor(clips.float() * area / N_BINS), min=1.0)
     clipped = torch.minimum(hist, limit.to(torch.int64)[:, None, None])
     excess = (hist - clipped).sum(-1, keepdim=True)

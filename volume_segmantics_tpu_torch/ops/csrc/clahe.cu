@@ -1,5 +1,10 @@
 // K2 and K3: batched CLAHE (OpenCV semantics) as a LUT kernel and a blend
-// kernel.
+// kernel, at any square side S >= grid, as the JAX package's XLA `clahe`
+// computes it: th = S / grid_h, tw = S / grid_w, pixel (y, x) counts in
+// tile (y / th) * grid_w + x / tw, so where S % grid_w != 0 the last
+// columns of tile row r count in tile row r + 1's first tiles and (with
+// S % grid_h != 0) the last rows in none; the clip limit and the LUT
+// scale use th * tw whatever a tile holds.
 //
 // K2 replaces the TPU kernel volume_segmantics_tpu/ops/clahe.py:
 // _clahe_lut_kernel_body; K3 replaces _clahe_blend_kernel_body (both
@@ -19,10 +24,13 @@
 // float4 groups and the image is 16-byte aligned, at S=256 two float4 of a
 // 32x32 tile; one float a thread otherwise) before the shared histogram of
 // clip(rint(px*255), 0, 255) is cleared; shared-memory atomics build it in
-// integers. After the second barrier warp 0 alone makes the LUTs: lane l
+// integers. A tile of a side the grid does not divide then adds, one pixel
+// a thread, the columns from (grid_w + tx) * tw of the tile row above. After
+// the second barrier warp 0 alone makes the LUTs: lane l
 // takes bins 8l..8l+7, and a warp shuffle scan joins the lanes. One scan
-// suffices: the histogram sums to the tile's area, so the OpenCV excess is
-// area - sum(clipped), and the redistribution's prefix has a closed form
+// suffices: the histogram sums to the pixels counted (th * (tw + spill)),
+// so the OpenCV excess is that count - sum(clipped), and the
+// redistribution's prefix has a closed form
 // (bins 0, step, 2 step, ... below residual * step get one more, so bins
 // <= t get min(t / step + 1, residual)). The clip limit is computed in f32
 // in the reference's order, floor(clip * area / 256); every count is an
@@ -37,13 +45,15 @@
 // dealt to applied tiles only.
 //
 // K3 design: many small blocks, 16-byte accesses, taps computed once. A
-// block takes `rows` rows of one half-tile band of one sample (at S=256:
-// 4 rows of 64 float4 column groups, 256 threads, one float4 a thread;
-// 768 blocks for a batch of 12, against the ~5 of 256 threads that fit on
-// each of the 132 SMs). Every row of a band blends the same two tile rows,
-// so the block stages only those 2 x grid_w LUTs (4 KB for an 8x8 grid) in
-// shared memory with 16-byte loads, after it has started its own image
-// loads so the two are in flight together. Beside them it computes each
+// block takes `rows` rows of one band of one sample, a band being rows
+// that blend the same two tile rows: half tiles where S % (2 grid_h) == 0,
+// else the grid_h + 1 runs of rows whose clamped floor(y / th - 0.5) is
+// the same, the last from ~(grid_h - 1/2) th to the end (at S=256: 4 rows
+// of 64 float4 column groups, 256 threads, one float4 a thread; 768
+// blocks for a batch of 12, against the ~5 of 256 threads that fit on
+// each of the 132 SMs). So the block stages only those 2 x grid_w LUTs
+// (4 KB for an 8x8 grid) in shared memory with 16-byte loads, after it has
+// started its own image loads so the two are in flight together. Beside them it computes each
 // column's OpenCV taps once (tx0, tx1, fx: fraction taken before clamping,
 // neighbours clamped separately), which a thread then reads for its 4
 // columns with two 16-byte shared loads; each row's fy is computed once a
@@ -56,6 +66,15 @@
 // are not whole float4 groups, or images that are not 16-byte aligned,
 // take a scalar instance of the same kernel (one pixel a thread). The TPU
 // kernel's static (n_bands, 64, band_h*S) weight tensor is not needed.
+// The host finds the bands' rows with the plain version's float32 row
+// arithmetic and passes them as a kernel parameter (see Bands); each band
+// takes as many blocks as the longest needs, those past a shorter band's
+// end returning at once. Measured and dropped (PERF.md): each
+// block searching its band's rows (0.00909 ms at S=256, against 0.00703)
+// and each band dealt only the blocks it needs, a block finding its band
+// by a scan of the table (0.00799 against the parent's 0.00690: the scan's
+// dependent constant loads delay the first image load); the general
+// bands at S=256 too, 8 of 72 blocks empty, 0.00711.
 //
 // The one-block-per-band design took one block per band (192 blocks of 256
 // threads, ~18% of the card's thread slots), each thread walking 16 pixels
@@ -69,6 +88,7 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <cmath>
 
 namespace {
 
@@ -133,13 +153,14 @@ __device__ __forceinline__ void load_round(const float* base, int s, int idx,
 
 // One warp turns a tile's histogram into its LUT: lane l scans bins
 // 8l..8l+7 of the clipped counts, a shuffle scan joins the lanes, and the
-// excess is area - total. The count of bins <= t that get one more is
+// excess is count - total, `count` being the pixels the histogram holds
+// (the tile's area where S is a multiple of the grid). The count of bins <= t that get one more is
 // min(t / step + 1, residual); (t + 0.5) / step lies at least 0.5 / 256
 // from an integer, far beyond the product's rounding, so the floor of
 // (t + 0.5) * (1 / step) is t / step. `scale` is (float)(255.0 / area);
 // `lut` is 8-byte aligned.
 __device__ __forceinline__ void warp_luts(const int4* hist4, int lane,
-                                          int limit, int area, float scale,
+                                          int limit, int count, float scale,
                                           uint8_t* lut) {
   const int4 h0 = hist4[2 * lane], h1 = hist4[2 * lane + 1];
   const int h[8] = {h0.x, h0.y, h0.z, h0.w, h1.x, h1.y, h1.z, h1.w};
@@ -153,7 +174,7 @@ __device__ __forceinline__ void warp_luts(const int4* hist4, int lane,
     if (lane >= o) incl += u;
   }
   const int total = __shfl_sync(kFull, incl, 31), below = incl - run;
-  const int excess = area - total, redist = excess >> 8, residual = excess & 255;
+  const int excess = count - total, redist = excess >> 8, residual = excess & 255;
   const float inv_step = __fdiv_rn(1.f, (float)(kBins / max(residual, 1)));
   uint32_t word[2] = {0, 0};
 #pragma unroll
@@ -161,7 +182,7 @@ __device__ __forceinline__ void warp_luts(const int4* hist4, int lane,
     const int t = 8 * lane + k;
     const int ones = min((int)__fmul_rn((float)t + 0.5f, inv_step) + 1, residual);
     const int cdf = below + p[k] + redist * (t + 1) + ones;
-    // round half to even, as rintf; cdf <= area, so at most 255
+    // round half to even, as rintf; clamped, as cdf may pass the area
     word[k >> 2] |= min(__float2uint_rn(__fmul_rn((float)cdf, scale)), 255u)
                     << (8 * (k & 3));
   }
@@ -183,6 +204,12 @@ __global__ void __launch_bounds__(kLutThreads)
   const int th = s / grid_h, tw = s / grid_w, area = th * tw;
   const int ty = tile / grid_w, tx = tile - ty * grid_w;
   const float* base = imgs + (size_t)b * s * s + (size_t)ty * th * s + tx * tw;
+  // Pixel (y, x) counts in tile (y / th) * grid_w + x / tw, as the JAX
+  // package numbers tiles: where S % grid_w != 0 the columns from
+  // (grid_w + tx) * tw of the tile row above count here too (at most tw of
+  // them, and only from the row above, as S < grid_w * (tw + 1)).
+  const int spill_x = (grid_w + tx) * tw;
+  const int spill_w = ty > 0 ? min(max(s - spill_x, 0), tw) : 0;
   const int qn = tw / V, n_groups = th * qn;
   const int dr = kLutThreads / qn, dc = kLutThreads - dr * qn;
   Cursor cur{t / qn, t - t / qn * qn};
@@ -205,9 +232,17 @@ __global__ void __launch_bounds__(kLutThreads)
     load_round<V, kLutRound>(base, s, next, kLutThreads, n_groups, cur, dr, dc,
                              qn, v, ok);
   }
+  if (spill_w > 0) {  // uniform per block
+    const float* spill = base - (size_t)th * s - tx * tw + spill_x;
+    for (int i = t; i < th * spill_w; i += kLutThreads) {
+      const int r = i / spill_w;
+      atomicAdd(&hist[bin_of(__ldg(spill + (size_t)r * s + (i - r * spill_w)))],
+                1);
+    }
+  }
   __syncthreads();
   if (t >= 32) return;
-  warp_luts(hist4, t, clip_limit(clip, area), area, scale,
+  warp_luts(hist4, t, clip_limit(clip, area), th * (tw + spill_w), scale,
             luts + ((size_t)b * grid_h * grid_w + tile) * kBins);
 }
 
@@ -215,6 +250,20 @@ __global__ void __launch_bounds__(kLutThreads)
 __device__ __forceinline__ float tile_coord(int pos, int tile) {
   return __fsub_rn(__fdiv_rn((float)pos, (float)tile), 0.5f);
 }
+
+// K3's bands of rows, every row of a band blending the same two tile rows:
+// in general band j (0..grid_h) holds the rows y whose clamped floor(t),
+// t = y / th - 0.5 in f32, is j - 1 (it blends tile rows max(j - 1, 0)
+// and min(j, grid_h - 1)), band grid_h every row from about
+// (grid_h - 1/2) th to the end (the rows past grid_h * th too, which take
+// the edge tile row alone); where S % (2 grid_h) == 0, the 2 grid_h half
+// tiles of th / 2 rows, which all hold as many rows. The host finds the
+// rows with the same IEEE f32 arithmetic as tile_coord (x86-64 float
+// division and subtraction round as __fdiv_rn and __fsub_rn do).
+constexpr int kMaxBands = 128;  // grid_h <= 64
+struct Bands {
+  int row[kMaxBands + 1];  // band j: rows [row[j], row[j + 1])
+};
 
 constexpr int kBlendThreads = 256;
 
@@ -257,8 +306,9 @@ __device__ __forceinline__ float blend_px(const uint8_t* lut_sh, int row_bytes,
   return __fdiv_rn(__fadd_rn(__fmul_rn(top, oy), __fmul_rn(bot, fy)), 255.f);
 }
 
-// Block (bx, by) = (column groups of V pixels, rows); blockIdx.x = (half-tile
-// band, split of `rows` rows of it); blockIdx.y strides over samples.
+// Block (bx, by) = (column groups of V pixels, rows); blockIdx.x = (band,
+// split of `rows` rows of it; see Bands: a split past a short band's end
+// has no rows); blockIdx.y strides over samples.
 // Dynamic shared memory: the band's two LUT rows [2][grid_w][kBins], then
 // each column's taps (int, o0 | o1 << 16) and fraction (float), [s] each.
 template <int V>
@@ -267,19 +317,21 @@ __global__ void __launch_bounds__(kBlendThreads)
                        const int* __restrict__ apply,
                        const uint8_t* __restrict__ luts, float* __restrict__ out,
                        int n, int s, int grid_h, int grid_w, int rows,
-                       int splits) {
+                       int splits, const Bands bands) {
   extern __shared__ __align__(16) uint8_t smem[];
-  const int th = s / grid_h, tw = s / grid_w, band_h = th / 2;
+  const int th = s / grid_h, tw = s / grid_w;
   const int band = blockIdx.x / splits;
   const int r0 = (blockIdx.x - band * splits) * rows;
-  const int y_band = band * band_h, nrows = min(rows, band_h - r0);
+  const int y_band = bands.row[band];
+  const int nrows = min(rows, bands.row[band + 1] - y_band - r0);
+  if (nrows <= 0) return;  // uniform per block
   const int nq = s / V, row_bytes = grid_w * kBins;
   uint8_t* lut_sh = smem;
   int* col_taps = reinterpret_cast<int*>(smem + 2 * row_bytes);
   float* col_fx = reinterpret_cast<float*>(col_taps + s);
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int tid = ty * blockDim.x + tx, nthreads = blockDim.x * blockDim.y;
-  // Every row of a half-tile band blends the same two tile rows.
+  // Every row of a band blends the same two tile rows.
   const int tyf = (int)floorf(tile_coord(y_band, th));
   const int ty0 = min(max(tyf, 0), grid_h - 1);
   const int ty1 = min(max(tyf + 1, 0), grid_h - 1);
@@ -355,6 +407,30 @@ __global__ void __launch_bounds__(kBlendThreads)
   }
 }
 
+// The bands (see Bands): their count; `most` is set to the most rows a
+// band holds.
+int band_rows(int s, int grid_h, Bands& bands, int& most) {
+  const int th = s / grid_h;
+  int n_bands = grid_h + 1;
+  if (s % (2 * grid_h) == 0) {
+    n_bands = 2 * grid_h, most = th / 2;
+    for (int j = 0; j <= n_bands; ++j) bands.row[j] = j * most;
+    return n_bands;
+  }
+  int band = 0;
+  bands.row[0] = 0;
+  for (int y = 0; y < s; ++y) {
+    const float t = (float)y / (float)th - 0.5f;
+    const int j = std::min(std::max((int)std::floor(t), -1), grid_h - 1) + 1;
+    while (band < j) bands.row[++band] = y;
+  }
+  while (band < n_bands) bands.row[++band] = s;
+  most = 0;
+  for (int j = 0; j < n_bands; ++j)
+    most = std::max(most, bands.row[j + 1] - bands.row[j]);
+  return n_bands;
+}
+
 }  // namespace
 
 extern "C" int volseg_clahe_luts(const void* imgs, const void* clips,
@@ -365,7 +441,7 @@ extern "C" int volseg_clahe_luts(const void* imgs, const void* clips,
     // are 16-byte aligned; one pixel a load otherwise. `luts` comes from
     // torch.empty, so it is aligned for warp_luts' 8-byte stores.
     const int area = (s / grid_h) * (s / grid_w);
-    const bool vec = (s / grid_w) % 4 == 0 &&
+    const bool vec = (s / grid_w) % 4 == 0 && s % 4 == 0 &&
                      (reinterpret_cast<uintptr_t>(imgs) & 15) == 0;
     const auto kernel = vec ? clahe_luts_kernel<4> : clahe_luts_kernel<1>;
     kernel<<<dim3(grid_h * grid_w, n), kLutThreads, 0, (cudaStream_t)stream>>>(
@@ -381,16 +457,20 @@ extern "C" int volseg_clahe_blend(const void* imgs, const void* apply,
   if (n > 0) {
     // float4 accesses where rows are whole 16-byte groups and both images
     // are 16-byte aligned; one pixel a thread otherwise.
+    if (2 * grid_h > kMaxBands) return (int)cudaErrorInvalidValue;
     const bool vec = s % 4 == 0 &&
                      (reinterpret_cast<uintptr_t>(imgs) & 15) == 0 &&
                      (reinterpret_cast<uintptr_t>(out) & 15) == 0;
-    const int band_h = (s / grid_h) / 2, nq = vec ? s / 4 : s;
+    Bands bands;
+    int band_h;
+    const int n_bands = band_rows(s, grid_h, bands, band_h);
+    const int nq = vec ? s / 4 : s;
     // One group of pixels a thread: a block is a row's column groups times
     // as many rows of one band as fill kBlendThreads threads.
     const int bx = std::min(nq, kBlendThreads);
     const int rows = std::max(1, std::min(kBlendThreads / bx, band_h));
     const int splits = (band_h + rows - 1) / rows;
-    const dim3 grid(2 * grid_h * splits, std::min(n, 65535)), block(bx, rows);
+    const dim3 grid(n_bands * splits, std::min(n, 65535)), block(bx, rows);
     const size_t smem = 2 * (size_t)grid_w * kBins + 8 * (size_t)s;
     const auto kernel = vec ? clahe_blend_kernel<4> : clahe_blend_kernel<1>;
     if (smem > 48 * 1024) {
@@ -400,7 +480,7 @@ extern "C" int volseg_clahe_blend(const void* imgs, const void* apply,
     }
     kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
         (const float*)imgs, (const int*)apply, (const uint8_t*)luts, (float*)out,
-        n, s, grid_h, grid_w, rows, splits);
+        n, s, grid_h, grid_w, rows, splits, bands);
   }
   return (int)cudaGetLastError();
 }

@@ -19,8 +19,12 @@ it:
   looked for as the library looks for it (`File._other_file`), and a
   dataset reached through one keeps that file open for as long as it
   lives;
-- fixed-point (1, 2, 4 or 8 bytes, signed or not) and IEEE float (2, 4 or
-  8 bytes) datatypes of full precision in either byte order;
+- fixed-point (1, 2, 4 or 8 bytes, signed or not) datatypes in either
+  byte order, of full precision or of fewer bits at a bit offset (each
+  value converted to the full-width type as the library converts it,
+  sign-extended), and IEEE float (2, 4 or 8 bytes) of full precision; a
+  datatype committed to the file (a named type: the dataset's or an
+  attribute's datatype message shared from the type's object header);
 - contiguous, compact and chunked layouts (layout message versions 3 and
   4), with chunks found through each index the library writes: the
   version 1 B-tree, a single chunk, the implicit index, the fixed array,
@@ -28,8 +32,9 @@ it:
   chunks never written (these take the fill value);
 - the filters deflate, shuffle, Fletcher-32, LZF (h5py's filter 32000),
   scale-offset (integers, and floats with a decimal scale, bit for bit as
-  the library decodes them), n-bit (full-precision types, which it
-  leaves as they are) and szip (as libaec decodes it) in `hdf5_filters`;
+  the library decodes them), n-bit (integers of reduced precision, and
+  full-precision types, which it leaves as they are) and szip (as libaec
+  decodes it) in `hdf5_filters`;
   a chunk's filter mask skips the filters its writer skipped, such as LZF
   or szip on a chunk it cannot shrink;
 - external raw storage: the data in segments of raw files, a relative
@@ -38,11 +43,15 @@ it:
   file raises OSError, a short one reads as zeros;
 - virtual datasets (layout class 3): the mappings in the global heap,
   their source and virtual selections ("all" and hyperslabs, regular or
-  not, in each encoding the library writes). A source file is looked for
-  as an external link's, under $HDF5_VDS_PREFIX; "." is the same file. A
-  source is opened through this reader (chunked, filtered, external or
-  itself virtual) once a dataset; a region whose source file or dataset is
-  missing takes the fill value, as h5py gives it.
+  not, in each encoding the library writes), unlimited mappings and
+  printf-style (%b) source names, resolved when the dataset is opened as
+  h5py's default view resolves them (`shape` follows the sources found
+  then); sources of another type converted as the library converts them.
+  A source file is looked for as an external link's, under
+  $HDF5_VDS_PREFIX; "." is the same file. A source is opened through this
+  reader (chunked, filtered, external or itself virtual) once a dataset; a
+  region whose source file or dataset is missing takes the fill value, as
+  h5py gives it.
 
 Every checksum the library writes on the way is verified: the superblock
 (versions 2 and 3), object headers and their continuation blocks,
@@ -58,15 +67,18 @@ inflates only those that meet the selection, a virtual one reads only the
 mappings that meet it, so a volume larger than host memory is read a slab
 at a time. Every chunk a read inflates, through any depth of virtual
 datasets, is a job of one thread pool. Every other feature raises
-NotImplementedError naming it: other filters, reduced-precision types
-(as the n-bit filter packs them), scale-offset's E-scale method, point
-selections, unlimited and printf-style (%b) mappings of virtual datasets,
-shared object header messages, other datatypes, offsets that are not 8
-bytes, steps and fancy indexing, and more. A path that is not in the file
-raises KeyError, as h5py does. `ds.attrs` gives a dataset's attributes
-kept in its object header (attribute messages of versions 1 to 3) whose
-types the reader knows, numpy scalars for scalar ones as h5py gives them;
-dense attribute storage and shared messages raise NotImplementedError.
+NotImplementedError naming it: other filters, floats of reduced
+precision, scale-offset's E-scale method, point selections in virtual
+dataset mappings, virtual sources of floats under integers or of other
+types under float16, shared object header messages kept in the file's
+shared message index (SOHM), unfiltered partial edge chunks, other
+datatypes, offsets that are not 8 bytes, steps and fancy indexing, and
+more. A path that is not in the file raises KeyError, as h5py does.
+`ds.attrs` gives a dataset's attributes kept in its object header
+(attribute messages of versions 1 to 3) whose types the reader knows,
+committed ones too, numpy scalars for scalar ones as h5py gives them;
+dense attribute storage and shared attribute messages raise
+NotImplementedError.
 
 The writer makes what ``h5py.File(p, "w").create_dataset(path, data=...,
 chunks=..., compression="gzip")`` makes: superblock version 0, chunked,
@@ -111,6 +123,7 @@ FILTER_NAMES = {FILTER_DEFLATE: "deflate", FILTER_SHUFFLE: "shuffle",
                 FILTER_NBIT: "n-bit", FILTER_SCALEOFFSET: "scale-offset",
                 FILTER_LZF: "LZF"}
 LINK_HARD, LINK_SOFT, LINK_EXTERNAL = 0, 1, 64
+SHARED_COMMITTED = 2  # a shared message's kind: in another object's header
 LAYOUT_COMPACT, LAYOUT_CONTIGUOUS, LAYOUT_CHUNKED, LAYOUT_VIRTUAL = 0, 1, 2, 3
 
 # Where the library looks for other files: an external link's file, a
@@ -126,6 +139,8 @@ SEL_NONE, SEL_POINTS, SEL_HYPERSLABS, SEL_ALL = 0, 1, 2, 3
 HYPER_REGULAR = 0x1
 VDS_HEAP_VERSION = 0  # the encoding of a virtual dataset's mappings
 MAX_VDS_DEPTH = 32  # virtual datasets one read may pass through (cycles)
+VDS_PRINTF_GAP = 0  # missing %b sources a search passes (the library's default)
+_OPENING = threading.local()  # virtual datasets this thread is resolving
 
 # Chunk indexes: the version 1 B-tree of a version 3 layout message, and
 # the index types of a version 4 one.
@@ -413,6 +428,27 @@ class File:
                     msgs.setdefault(mtype, []).append((mflags, p + prefix, msize))
                 p += prefix + msize
         return msgs
+
+    def _shared(self, d: int, mtype: int) -> int:
+        """The data offset of the message of type `mtype` that the shared
+        message at `d` points to: one kept in another object's header (a
+        committed datatype), read there. One kept in the file's shared
+        message index (SOHM) is refused."""
+        version, kind = self._buf[d], self._buf[d + 1]
+        if version == 1:
+            addr = self._u("Q", d + 8)[0]
+        elif version == 2 or (version == 3 and kind == SHARED_COMMITTED):
+            addr = self._u("Q", d + 2)[0]
+        elif version == 3:
+            raise unsupported(f"shared object header messages (type {mtype}) "
+                              "in the file's shared message index (SOHM)")
+        else:
+            raise unsupported(f"shared message encoding version {version}")
+        found = self._messages(addr).get(mtype)
+        if not found:
+            raise ValueError(f"{self.path}: the shared object at {addr} lacks "
+                             f"message {mtype}")
+        return found[0][1]
 
     def _btree_children(self, addr: int, node_type: int, key_size: int):
         """(key offset, child address) of every level-0 entry of the
@@ -739,26 +775,31 @@ class Dataset:
         for mtype in (MSG_DATASPACE, MSG_DATATYPE, MSG_LAYOUT):
             if mtype not in msgs:
                 raise ValueError(f"{name}: object header lacks message {mtype}")
-        for mtype in (MSG_DATASPACE, MSG_DATATYPE, MSG_FILL, MSG_FILL_OLD,
-                      MSG_LAYOUT, MSG_FILTERS, MSG_EXTERNAL):
+        for mtype in (MSG_DATASPACE, MSG_FILL, MSG_FILL_OLD, MSG_LAYOUT,
+                      MSG_FILTERS, MSG_EXTERNAL):
             if any(flags & 0x2 for flags, _, _ in msgs.get(mtype, ())):
                 raise unsupported(f"shared object header messages (type {mtype})")
-        self.shape, maxshape = self._dataspace(msgs[MSG_DATASPACE][0][1])
-        self.maxshape = tuple(None if m == UNDEF else m for m in maxshape)
-        self._stored = self._datatype(msgs[MSG_DATATYPE][0][1])
-        self.dtype = self._stored.newbyteorder("=")
-        self._filters = (self._pipeline(msgs[MSG_FILTERS][0][1])
-                         if MSG_FILTERS in msgs else [])
-        self._fill = self._fill_value(msgs)
-        self._layout(msgs[MSG_LAYOUT][0][1])
-        self._efl = None  # external raw data files: [(name, offset, size)]
-        if MSG_EXTERNAL in msgs:
-            self._external_files(msgs[MSG_EXTERNAL][0][1])
         self._index = None  # chunk offset -> storage, read at the first read
         self._lock = threading.Lock()
         self._inflated = 0  # chunks inflated by this object's reads
         self._sources = {}  # a virtual dataset's source datasets, by mapping
         self.opened_sources = 0
+        self.shape, maxshape = self._dataspace(msgs[MSG_DATASPACE][0][1])
+        self.maxshape = tuple(None if m == UNDEF else m for m in maxshape)
+        flags, d, _ = msgs[MSG_DATATYPE][0]
+        self._stored, self._bits = self._datatype(
+            file._shared(d, MSG_DATATYPE) if flags & 0x2 else d)
+        self.dtype = self._stored.newbyteorder("=")
+        self._filters = (self._pipeline(msgs[MSG_FILTERS][0][1])
+                         if MSG_FILTERS in msgs else [])
+        self._fill = self._values(np.array(self._fill_value(msgs),
+                                           self._stored))[()]
+        self._layout(msgs[MSG_LAYOUT][0][1])
+        self._efl = None  # external raw data files: [(name, offset, size)]
+        if MSG_EXTERNAL in msgs:
+            self._external_files(msgs[MSG_EXTERNAL][0][1])
+        if self._layout_class == LAYOUT_VIRTUAL:
+            self._mappings = self._resolve_mappings()
 
     @property
     def inflated_chunks(self) -> int:
@@ -782,20 +823,21 @@ class Dataset:
             return dims, tuple(u(f"{rank}Q", p + 8 * rank))
         return dims, dims
 
-    def _datatype(self, d) -> np.dtype:
-        """The stored type. Types of reduced precision, the ones the n-bit
-        filter packs, are refused."""
+    def _datatype(self, d) -> tuple:
+        """(the stored type, (bit offset, precision) of an integer type of
+        reduced precision, else None). Floats of reduced precision are
+        refused."""
         u, buf = self._f._u, self._f._buf
         cls, bits0 = buf[d] & 0x0F, buf[d + 1]
         size = u("I", d + 4)[0]
         order = ">" if bits0 & 0x1 else "<"
         if cls == 0:
             offset, precision = u("HH", d + 8)
-            if size not in (1, 2, 4, 8) or offset or precision != 8 * size:
+            if size not in (1, 2, 4, 8) or not 0 < precision <= 8 * size - offset:
                 raise unsupported(f"{size}-byte fixed-point with precision "
-                                  f"{precision} at bit {offset} (reduced "
-                                  "precision, as the n-bit filter packs it)")
-            return np.dtype(f"{order}{'i' if bits0 & 0x8 else 'u'}{size}")
+                                  f"{precision} at bit {offset}")
+            stored = np.dtype(f"{order}{'i' if bits0 & 0x8 else 'u'}{size}")
+            return stored, (None if precision == 8 * size else (offset, precision))
         if cls == 1:
             props = u("HHBBBBI", d + 8)
             if (size not in IEEE or bits0 & 0x40 or props[:2] != (0, 8 * size)
@@ -803,9 +845,16 @@ class Dataset:
                 raise unsupported(f"non-IEEE {size}-byte floating point (or "
                                   "reduced precision, as the n-bit filter "
                                   "packs it)")
-            return np.dtype(f"{order}f{size}")
+            return np.dtype(f"{order}f{size}"), None
         raise unsupported(f"datatype class {cls} (only integers and IEEE "
                           "floats are read)")
+
+    def _values(self, stored: np.ndarray) -> np.ndarray:
+        """Values of the stored type as the dataset's type: `stored` itself
+        at full precision; for a reduced-precision integer, as the library
+        converts it to the full-width type, the `precision` bits from the
+        bit offset, those of a signed type sign-extended."""
+        return stored if self._bits is None else _reduced(stored, *self._bits)
 
     def _pipeline(self, d) -> list:
         """The filter pipeline message at `d` as [(filter id, flags, client
@@ -837,7 +886,7 @@ class Dataset:
                                   "szip are read)")
             if fid == FILTER_NBIT:
                 try:
-                    hdf5_filters.nbit_check(values, self._stored)
+                    hdf5_filters.nbit_check(values, self._stored, self._bits)
                 except NotImplementedError as e:
                     raise unsupported(str(e)) from None
             filters.append((fid, flags, values))
@@ -910,7 +959,7 @@ class Dataset:
             self._index_addr = u("Q", p)[0]
         elif cls == LAYOUT_VIRTUAL and version == 4:
             heap, index = u("QI", d + 2)
-            self._mappings = self._virtual_mappings(
+            self._stored_mappings = self._virtual_mappings(
                 self._f._global_heap_object(heap, index))
         else:
             raise unsupported(f"data layout class {cls} (message version "
@@ -948,7 +997,9 @@ class Dataset:
         """A virtual dataset's mappings from their global heap object: a
         version byte, a count, then per mapping the source file's and
         dataset's names and the source and virtual selections; last, a
-        lookup3 checksum of the rest."""
+        lookup3 checksum of the rest. Returns [(file name parts, dataset
+        name parts, source selection, virtual selection)] (see
+        `_name_parts` and `_parse_selection`)."""
         if len(blob) < 13 or lookup3(blob[:-4]) != struct.unpack_from(
                 "<I", blob, len(blob) - 4)[0]:
             raise ValueError(f"{self._f.path}: {self.name}: the virtual dataset's "
@@ -961,13 +1012,86 @@ class Dataset:
             names = []
             for _ in range(2):
                 end = blob.index(b"\0", p)
-                names.append(_source_name(blob[p:end].decode()))
+                names.append(_name_parts(blob[p:end].decode()))
                 p = end + 1
             source, p = _parse_selection(blob, p)
             virtual, p = _parse_selection(blob, p)
-            mappings.append(_Mapping(*names, source,
-                                     _Selection(virtual, self.shape)))
+            mappings.append((*names, source, virtual))
         return mappings
+
+    def _resolve_mappings(self) -> list:
+        """The `_Mapping`s of a virtual dataset as the library resolves them
+        when it opens the dataset, under its default view
+        (H5D_VDS_LAST_AVAILABLE, printf gap `VDS_PRINTF_GAP`). An unlimited
+        mapping (`layout[0:UNLIMITED] = source[0:UNLIMITED]`) takes as
+        many slices as its source holds now: none if the source is missing.
+        A printf-style mapping (a %b in a name) takes block b from the
+        source named with b, for b = 0, 1, ... while the blocks are found,
+        a gap of `VDS_PRINTF_GAP` missing ones allowed; a block within that
+        run whose source is missing keeps the fill value. Each unlimited
+        dimension's extent is the furthest that its unlimited mappings
+        reach, and at least what the other mappings need; it replaces the
+        stored one in `shape`."""
+        key = (os.path.abspath(self._f.path), self._addr)
+        opening = _OPENING.__dict__.setdefault("keys", set())
+        if key in opening:
+            raise ValueError(f"{self._f.path}: {self.name}: an unlimited "
+                             "virtual dataset mapping's source is the dataset "
+                             "itself (a cycle)")
+        opening.add(key)
+        try:
+            resolved, reach, least = [], {}, [0] * len(self.shape)
+            for files, datasets, source, virtual in self._stored_mappings:
+                dim = _unlimited_dim(virtual)
+                for d, end in enumerate(_bounds_end(virtual, self.shape)):
+                    if d != dim:
+                        least[d] = max(least[d], end)
+                if dim is None:
+                    if len(files) > 1 or len(datasets) > 1:
+                        raise ValueError(f"{self.name}: a printf-style (%b) "
+                                         "mapping of a limited selection")
+                    resolved.append((files[0], datasets[0], source, virtual, None))
+                    continue
+                _, start, stride, count, block = virtual
+                if len(files) > 1 or len(datasets) > 1:
+                    if count[dim] >= 0:
+                        raise ValueError(f"{self.name}: a printf-style (%b) "
+                                         "mapping whose blocks are unlimited")
+                    found, b = 0, 0
+                    while b <= VDS_PRINTF_GAP + found:
+                        if self._named_source(str(b).join(files),
+                                              str(b).join(datasets)) is not None:
+                            found = b + 1
+                        b += 1
+                    for b in range(found):
+                        one = count.copy()
+                        one[dim] = 1
+                        at = start.copy()
+                        at[dim] += b * stride[dim]
+                        resolved.append((str(b).join(files), str(b).join(datasets),
+                                         source, ("regular", at, stride, one, block),
+                                         None))
+                    end = (start[dim] + (found - 1) * stride[dim] + block[dim]
+                           if found else 0)
+                else:
+                    src = self._named_source(files[0], datasets[0])
+                    slices = 0
+                    if src is not None:
+                        src_dim = _unlimited_dim(source)
+                        if src_dim is None:
+                            raise ValueError(f"{self.name}: an unlimited virtual "
+                                             "selection mapped to a limited one")
+                        slices = len(_Selection(source, src.shape).axes[src_dim])
+                    resolved.append((files[0], datasets[0], source, virtual, slices))
+                    end = _clip_extent(start[dim], stride[dim], block[dim], slices)
+                reach[dim] = max(reach.get(dim, 0), end)
+        finally:
+            opening.discard(key)
+        self.shape = tuple(max(least[d], reach[d]) if d in reach else n
+                           for d, n in enumerate(self.shape))
+        return [_Mapping(file_name, dataset_name, source,
+                         _Selection(virtual, self.shape, slices))
+                for file_name, dataset_name, source, virtual, slices in resolved]
 
     @property
     def size(self) -> int:
@@ -1003,18 +1127,21 @@ class Dataset:
         if version == 1:
             p, pad = d + 8, lambda n: -(-n // 8) * 8
         elif version in (2, 3):
-            if flags & 0x3:
-                raise unsupported("attributes of shared datatypes or dataspaces")
+            if flags & 0x2:
+                raise unsupported("attributes of shared dataspaces")
             p, pad = d + 8 + (version == 3), lambda n: n
         else:
             raise unsupported(f"attribute message version {version}")
         name = bytes(buf[p:p + name_size - 1]).decode()
         p += pad(name_size)
-        dtype = self._datatype(p)
+        dtype, bits = self._datatype(
+            self._f._shared(p, MSG_DATATYPE) if version > 1 and flags & 0x1 else p)
         p += pad(dt_size)
         shape, _ = self._dataspace(p)
         p += pad(ds_size)
         value = np.frombuffer(buf, dtype, math.prod(shape), offset=p)
+        if bits is not None:
+            value = _reduced(value, *bits)
         value = value.astype(dtype.newbyteorder("=")).reshape(shape)
         return name, value[()] if shape == () else value
 
@@ -1096,7 +1223,8 @@ class Dataset:
         elif self._layout_class == LAYOUT_VIRTUAL:
             self._plan_virtual(ranges, out, jobs, after, depth)
         elif self._efl is not None:
-            jobs.append(lambda: out.__setitem__(..., self._read_external(ranges)))
+            jobs.append(lambda: out.__setitem__(
+                ..., self._values(self._read_external(ranges))))
         else:
             addr = (self._compact[0] if self._layout_class == LAYOUT_COMPACT
                     else self._contiguous[0])
@@ -1105,7 +1233,7 @@ class Dataset:
                 def copy():
                     stored = np.frombuffer(self._f._buf, self._stored,
                                            count=self.size, offset=addr)
-                    out[...] = stored.reshape(self.shape)[region]
+                    out[...] = self._values(stored.reshape(self.shape)[region])
 
                 jobs.append(copy)
 
@@ -1146,7 +1274,7 @@ class Dataset:
         hits = [(offset, index[offset]) for offset in grid if offset in index]
 
         def place(offset, entry):
-            block = self._inflate(*entry)
+            block = self._values(self._inflate(*entry))
             src, dst = [], []
             for o, c, (a, b) in zip(offset, chunks, ranges):
                 lo, hi = max(a, o), min(b, o + c)
@@ -1180,15 +1308,19 @@ class Dataset:
                              source.dtype)
             source._plan(box, buffer, jobs, after, depth + 1)
             src = [c - a for c, (a, _) in zip(src, box)]
-            after.append(functools.partial(_gather, out, dst, buffer, src,
-                                           pointwise))
+            after.append(functools.partial(
+                _gather, out, dst, buffer, src, pointwise,
+                _conversion(source.dtype, self.dtype)))
 
     def _source(self, i: int):
         """The source dataset of mapping `i`, opened once a dataset: None
         when its file or its dataset is missing, as the library then leaves
         the mapping's region to the fill value."""
         m = self._mappings[i]
-        key = (m.file_name, m.dataset_name)
+        return self._named_source(m.file_name, m.dataset_name)
+
+    def _named_source(self, file_name: str, dataset_name: str):
+        key = (file_name, dataset_name)
         with self._lock:
             if key not in self._sources:
                 self._sources[key] = self._open_source(*key)
@@ -1206,9 +1338,7 @@ class Dataset:
             source = f[dataset_name]
         except (KeyError, TypeError):
             return None
-        if not np.can_cast(source.dtype, self.dtype, "safe"):
-            raise unsupported(f"virtual dataset sources of type {source.dtype} "
-                              f"under a dataset of type {self.dtype}")
+        _conversion(source.dtype, self.dtype)  # refuses what is not read
         return source
 
     def _chunk_index(self) -> dict:
@@ -1440,9 +1570,11 @@ class Dataset:
                 raw = _unshuffle(raw, values[0] if values else self._stored.itemsize)
             elif fid == FILTER_FLETCHER32:
                 raw = self._fletcher32_checked(raw, addr)
-            elif fid != FILTER_NBIT:  # n-bit leaves full precision as it is
+            else:
                 try:
-                    if fid == FILTER_DEFLATE:
+                    if fid == FILTER_NBIT:
+                        raw = hdf5_filters.nbit_decode(raw, values, self._stored)
+                    elif fid == FILTER_DEFLATE:
                         raw = zlib.decompress(raw)
                     elif fid == FILTER_LZF:
                         raw = hdf5_filters.lzf_decode(raw)
@@ -1472,6 +1604,21 @@ class Dataset:
         return body
 
 
+def _reduced(stored: np.ndarray, offset: int, precision: int) -> np.ndarray:
+    """Integers of a reduced-precision type as the library converts them to
+    the full-width type of their size (H5T__conv_i_i): the `precision` bits
+    from bit `offset`, sign-extended for a signed type; the padding bits
+    around them are dropped."""
+    native = stored.dtype.newbyteorder("=")
+    bits = 8 * native.itemsize
+    unsigned = stored.astype(native).view(f"u{native.itemsize}")
+    value = (unsigned >> offset) & np.array((1 << precision) - 1, unsigned.dtype)
+    if native.kind == "i" and precision < bits:
+        sign = np.array(1 << (precision - 1), unsigned.dtype)
+        value = (value ^ sign) - sign  # wraps: the sign bit extended
+    return value.view(native)
+
+
 def _unshuffle(raw, size: int):
     """Undo the shuffle filter (H5Z__filter_shuffle): the first n * size
     bytes hold byte 0 of every element, then byte 1, and so on; bytes past
@@ -1483,31 +1630,87 @@ def _unshuffle(raw, size: int):
     return body + bytes(raw[n * size:])
 
 
-def _source_name(name: str) -> str:
-    """A mapping's source file or dataset name with its printf-style
-    escapes undone ("%%" is "%"), as the library parses it. A "%b" (the
-    block number of an unlimited mapping) is refused."""
-    parts, i = [], 0
+def _name_parts(name: str) -> tuple:
+    """A mapping's source file or dataset name as the library parses it:
+    its printf-style escapes undone ("%%" is "%"), cut at each "%b" (the
+    block number of a printf-style mapping), so that
+    ``str(b).join(parts)`` names block b's source."""
+    parts, literal, i = [], [], 0
     while (j := name.find("%", i)) >= 0:
-        parts.append(name[i:j])
+        literal.append(name[i:j])
         spec = name[j + 1:j + 2]
         if spec == "b":
-            raise unsupported("printf-style (%b) source names in virtual "
-                              f"dataset mappings ({name!r})")
-        if spec != "%":
+            parts.append("".join(literal))
+            literal = []
+        elif spec == "%":
+            literal.append("%")
+        else:
             raise ValueError(f"invalid format specifier in the virtual dataset "
                              f"source name {name!r}")
-        parts.append("%")
         i = j + 2
-    return "".join(parts) + name[i:]
+    return (*parts, "".join(literal) + name[i:])
+
+
+def _unlimited_dim(raw):
+    """The dimension in which a parsed selection is unlimited, or None."""
+    if raw[0] != "regular":
+        return None
+    unlimited = np.flatnonzero((raw[3] < 0) | (raw[4] < 0))
+    if len(unlimited) > 1:
+        raise ValueError("a selection unlimited in more than one dimension")
+    return int(unlimited[0]) if len(unlimited) else None
+
+
+def _bounds_end(raw, extent) -> list:
+    """1 + the last index a parsed selection takes in each dimension (of
+    an unlimited dimension, its first block's)."""
+    if raw[0] == "all":
+        return list(extent)
+    if raw[0] == "blocks":
+        ends = raw[2].max(axis=0) if len(raw[2]) else np.full(len(extent), -1)
+        return [int(e) + 1 for e in ends]
+    _, start, stride, count, block = raw
+    return [int(s + max(c - 1, 0) * st + max(b, 1)) for s, st, c, b in
+            zip(start, stride, count, block)]
+
+
+def _clip_extent(start: int, stride: int, block: int, slices: int) -> int:
+    """The extent of an unlimited dimension that holds the first `slices`
+    indices of a virtual selection (H5S__hyper_get_clip_extent_real, not
+    counting the space after the last block)."""
+    if slices == 0:
+        return 0
+    if block < 0 or block == stride:
+        return start + slices
+    blocks, rest = divmod(slices, block)
+    if rest:
+        return start + blocks * stride + rest
+    return start + (blocks - 1) * stride + block
+
+
+def _regular_axis(start, stride, count, block, extent, slices=None):
+    """The indices a regular hyperslab takes along one dimension, in order.
+    An unlimited count or block (-1) takes them up to `extent`, or only the
+    first `slices` of them."""
+    if count >= 0 and block >= 0:
+        return (start + np.arange(count)[:, None] * stride + np.arange(block)).ravel()
+    if block < 0:
+        return start + np.arange(max(0, extent - start) if slices is None else slices)
+    if slices is None:
+        blocks = max(0, -(-(extent - start) // stride))
+    else:
+        blocks = -(-slices // block)
+    axis = (start + np.arange(blocks)[:, None] * stride + np.arange(block)).ravel()
+    return axis[axis < extent] if slices is None else axis[:slices]
 
 
 def _parse_selection(blob: bytes, p: int) -> tuple:
     """The serialised selection at `p` of `blob` and the offset past it:
     ("all",), ("regular", start, stride, count, block) with an array of
-    each a dimension, or ("blocks", starts, ends) with an array (blocks,
-    rank) of each, ends inclusive. Hyperslabs come in version 1 (blocks,
-    4-byte numbers), 2 (regular, 8-byte) and 3 (either, 2, 4 or 8 bytes)."""
+    each a dimension (a count or block of -1 is unlimited), or ("blocks",
+    starts, ends) with an array (blocks, rank) of each, ends inclusive.
+    Hyperslabs come in version 1 (blocks, 4-byte numbers), 2 (regular,
+    8-byte) and 3 (either, 2, 4 or 8 bytes)."""
     kind, version = struct.unpack_from("<II", blob, p)
     p += 8
     if kind == SEL_ALL and version == 1:
@@ -1535,10 +1738,9 @@ def _parse_selection(blob: bytes, p: int) -> tuple:
         raise unsupported(f"hyperslab selection encoding version {version}")
     code = f"<u{size}"
     if flags & HYPER_REGULAR:
-        values = np.frombuffer(blob, code, 4 * rank, p).reshape(rank, 4)
-        if (values[:, 2:] == np.iinfo(code).max).any():
-            raise unsupported("unlimited virtual dataset mappings")
-        values = values.astype(np.int64)
+        raw = np.frombuffer(blob, code, 4 * rank, p).reshape(rank, 4)
+        values = raw.astype(np.int64)
+        values[:, 2:][raw[:, 2:] == np.iinfo(code).max] = -1  # unlimited
         return ("regular", *values.T), p + 4 * rank * size
     if version == 3:
         n = int.from_bytes(blob[p:p + size], "little")
@@ -1551,9 +1753,10 @@ def _parse_selection(blob: bytes, p: int) -> tuple:
 class _Selection:
     """A selection of an extent's points, in the order the library pairs
     them (row-major): a product of sorted index arrays, one a dimension
-    (`axes`), or else sorted flat indices (`flat`)."""
+    (`axes`), or else sorted flat indices (`flat`). An unlimited dimension
+    takes the indices below the extent, or its first `slices`."""
 
-    def __init__(self, raw: tuple, extent):
+    def __init__(self, raw: tuple, extent, slices=None):
         self.extent = tuple(int(n) for n in extent)
         self.axes = self.flat = None
         rank = len(self.extent)
@@ -1564,8 +1767,8 @@ class _Selection:
             if len(start) != rank:
                 raise ValueError(f"a rank {len(start)} selection of a rank "
                                  f"{rank} extent")
-            self.axes = [(s + np.arange(c)[:, None] * st + np.arange(b)).ravel()
-                         for s, st, c, b in zip(start, stride, count, block)]
+            self.axes = [_regular_axis(*dim, slices) for dim in
+                         zip(start, stride, count, block, self.extent)]
         else:
             _, starts, ends = raw
             if starts.shape[1] != rank:
@@ -1675,8 +1878,47 @@ def _index(arrays, pointwise: bool) -> tuple:
     return np.ix_(*arrays)
 
 
-def _gather(out, dst, buffer, src, pointwise: bool) -> None:
-    out[_index(dst, pointwise)] = buffer[_index(src, pointwise)]
+def _gather(out, dst, buffer, src, pointwise: bool, convert) -> None:
+    values = buffer[_index(src, pointwise)]
+    out[_index(dst, pointwise)] = values if convert is None else convert(values)
+
+
+def _conversion(source: np.dtype, target: np.dtype):
+    """How a source's values become a virtual dataset's of another type, as
+    the library converts them: None where numpy's cast is exact; integers
+    saturated at the target's range; to float32 or float64, rounded to
+    nearest, a float past the target's largest finite value made
+    infinite (numpy would round it back to that value). Floats to integers
+    are refused (the library's result for NaN and out-of-range values
+    follows the platform's C conversion), and so is float16 (the library's
+    own conversion there is neither numpy's nor IEEE rounding)."""
+    if np.can_cast(source, target, "safe"):
+        return None
+    if target.kind == "f" and target.itemsize >= 4:
+        top = np.finfo(target).max
+
+        def to_float(values):
+            with np.errstate(over="ignore"):
+                out = values.astype(target)
+            if values.dtype.kind == "f":
+                out[values > top] = np.inf
+                out[values < -top] = -np.inf
+            return out
+        return to_float
+    if source.kind in "iu" and target.kind in "iu":
+        lo, hi = np.iinfo(target).min, np.iinfo(target).max
+        src_lo, src_hi = np.iinfo(source).min, np.iinfo(source).max
+
+        def saturate(values):
+            out = values.astype(target)
+            if src_hi > hi:
+                out[values > source.type(hi)] = hi
+            if src_lo < lo:
+                out[values < source.type(lo)] = lo
+            return out
+        return saturate
+    raise unsupported(f"virtual dataset sources of type {source} under a "
+                      f"dataset of type {target}")
 
 
 def read(path, internal_path: str = "/data"):

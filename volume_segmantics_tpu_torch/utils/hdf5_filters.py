@@ -25,7 +25,7 @@ UNPACK_ELEMENTS = 1 << 18  # elements unpacked at a time
 
 # n-bit client data (H5Znbit.c): the number of values, "no need to
 # compress", elements in a chunk, then per atom its class, size, byte
-# order, precision and offset.
+# order, precision and offset (one atom: integers are read).
 NBIT_ATOMIC = 1
 
 
@@ -312,7 +312,7 @@ def _unpack_bits(buf, n: int, bits: int, width: int) -> np.ndarray:
     """`n` values of `bits` bits each, packed most significant bit first
     one after another, as unsigned `width`-byte integers."""
     if len(buf) < (n * bits + 7) // 8:
-        raise ValueError("scale-offset: the chunk is shorter than its values")
+        raise ValueError("the chunk is shorter than its packed values")
     raw = np.frombuffer(buf, np.uint8)
     out = np.empty(n, f">u{width}")
     for first in range(0, n, UNPACK_ELEMENTS):
@@ -393,11 +393,11 @@ def scaleoffset_decode(data, cd, stored: np.dtype) -> bytes:
     return values.astype(stored).tobytes()
 
 
-def nbit_check(cd, stored: np.dtype) -> None:
+def nbit_check(cd, stored: np.dtype, bits) -> None:
     """Read the n-bit filter's parameters against the dataset's type
-    `stored`: one atom of its class, size, byte order, full precision and
-    offset 0, which the library marks as needing no packing (cd[1]): the
-    filter then leaves the data as it is. Anything else raises."""
+    `stored` and its (bit offset, precision) `bits` (None at full
+    precision): one atom of its class, size, byte order, precision and
+    offset. Anything else raises."""
     if len(cd) < 8 or cd[0] != len(cd):
         raise ValueError(f"n-bit: a parameter list of {len(cd)} values")
     if cd[3] != NBIT_ATOMIC:
@@ -406,6 +406,20 @@ def nbit_check(cd, stored: np.dtype) -> None:
     if size != stored.itemsize or (size > 1 and order != (stored.str[0] == ">")):
         raise ValueError(f"n-bit: parameters for a {size}-byte atom in order "
                          f"{order}, data of {stored}")
-    if precision != 8 * size or offset or not cd[1]:
-        raise NotImplementedError(f"the n-bit filter on reduced-precision types "
-                          f"({precision} bits at bit {offset})")
+    if (offset, precision) != (bits or (0, 8 * size)):
+        raise ValueError(f"n-bit: parameters for {precision} bits at bit "
+                         f"{offset}, data of {bits or 'full precision'}")
+
+
+def nbit_decode(data, cd, stored: np.dtype) -> bytes:
+    """An n-bit chunk decoded (H5Z__filter_nbit's reverse path) as bytes of
+    the dataset's integer type `stored`: where the library marked the type
+    as needing no packing (cd[1]), the data as they are; else each of the
+    chunk's cd[2] values is `precision` bits, most significant first, one
+    after another, put back at its bit offset with every other bit 0."""
+    if cd[1]:
+        return bytes(data)
+    n, size, precision, offset = cd[2], cd[4], cd[6], cd[7]
+    codes = _unpack_bits(bytes(data), n, precision, size).astype(f"=u{size}")
+    unsigned = np.dtype(f"{'>' if stored.str[0] == '>' else '<'}u{size}")
+    return (codes << np.array(offset, codes.dtype)).astype(unsigned).tobytes()
