@@ -165,10 +165,19 @@
    LZW at 256^3: a 512^3 one took 56 s on a slow host); (c) the library's
    PNG-directory path: the
    slicer writes the pair as PNG slices (timed, and the PNG read of every
-   file), `VolSeg2dTrainer(image_dir, label_dir, ...)` and a trainer on
-   the CLI's in-memory slices take `FORMATS_STEPS` seeded steps each:
-   equal arrays and losses bit for bit, each kernel launched once a step;
-   `clean_up_slices` leaves no file.
+   file), (e) rewrites its image PNGs Adam7-interlaced (`png_adam7_bytes`)
+   and reads them back equal to the originals (timed), then
+   `VolSeg2dTrainer(image_dir, label_dir, ...)` on the interlaced files and
+   a trainer on the CLI's in-memory slices take `FORMATS_STEPS` seeded
+   steps each: equal arrays and losses bit for bit, each kernel launched
+   once a step; `clean_up_slices` leaves no file; (d) the 256^3 vessels
+   volume written by `write_tiff` as PackBits uint8, float32 Deflate with
+   predictor 3, LZMA uint8, fill order 2 uint8, 1-bit labels
+   (`labels > 0`), an ImageJ `frames=256` stack, a shaped file with a
+   second 64^3 series and a stack interleaved with 64x64 thumbnails, each
+   read back equal to its first series (read s and MB/s), then
+   `model-predict-2d` on the predictor-3 float32 file with the shipped
+   settings: labels equal to the CLI phase's of the uint8 volume.
 13a. Sides phase (run after the virtual phase, beside the parallel and
    spatial phases), in `<out-dir>/sides`: `model-train-2d` with the shipped
    settings but `type: DeepLabV3` (whose x8 head resizes the logits back)
@@ -320,6 +329,7 @@ import csv
 import functools
 import json
 import logging
+import lzma
 import math
 import os
 import re
@@ -1240,62 +1250,143 @@ def lzw_encode(data: bytes) -> bytes:
     return np.packbits(bits[shifts[None, :] < width[:, None]].astype(np.uint8)).tobytes()
 
 
-def write_tiff(path: Path, vol: np.ndarray, compression=None, predictor=1,
+def packbits_encode(data: bytes) -> bytes:
+    """PackBits: runs of 3 or more equal bytes as repeats (at most 128
+    each), the bytes between them as literals (at most 128 each)."""
+    a = np.frombuffer(data, np.uint8)
+    if not a.size:
+        return b""
+    starts = np.concatenate([[0], np.flatnonzero(np.diff(a)) + 1])
+    lengths = np.diff(np.concatenate([starts, [a.size]]))
+    long = lengths >= 3
+    out = []
+
+    def literal(lo, hi):
+        for at in range(lo, hi, 128):
+            n = min(128, hi - at)
+            out.append(bytes([n - 1]) + data[at:at + n])
+
+    done = 0
+    for start, length in zip(starts[long].tolist(), lengths[long].tolist()):
+        literal(done, start)
+        for at in range(start, start + length, 128):
+            n = min(128, start + length - at)
+            if n < 3:  # a tail too short to repeat
+                literal(at, at + n)
+            else:
+                out.append(bytes([257 - n, data[at]]))
+        done = start + length
+    literal(done, a.size)
+    return b"".join(out)
+
+
+def float_predictor_encode(part: np.ndarray) -> np.ndarray:
+    """TIFF predictor 3 on (rows, cols) floating-point samples: each row's
+    byte planes, most significant first, each byte differenced from the
+    one before it. Returns (rows, cols * itemsize) uint8."""
+    rows, cols = part.shape
+    size = part.dtype.itemsize
+    big = np.ascontiguousarray(part, part.dtype.newbyteorder(">")).view(np.uint8)
+    planes = big.reshape(rows, cols, size).transpose(0, 2, 1).reshape(rows, -1)
+    return np.diff(planes, axis=1, prepend=np.zeros((rows, 1), np.uint8))
+
+
+REVERSED_BITS = bytes(int(f"{i:08b}"[::-1], 2) for i in range(256))
+TIFF_COMPRESSIONS = {None: 1, "lzw": 5, "deflate": 8, "packbits": 32773,
+                     "lzma": 34925}
+
+
+def write_tiff(path: Path, vol, compression=None, predictor=1,
                bigtiff=False, byteorder="<", tile=None, rows_per_strip=None,
-               imagej=False, extra_tags=None) -> None:
-    """Write a (pages, H, W) array as a multipage TIFF, one sample per
-    pixel: `compression` None, "deflate" (8) or "lzw" (5); `predictor` 2
-    differences each row; `tile` (length, width) stores tiles, else strips
-    of `rows_per_strip` rows (default: about 64 KB); `imagej` writes one IFD
-    naming `images=N` before N contiguous uncompressed pages, as ImageJ
-    writes stacks above 4 GB. `extra_tags` {tag: (field type, values)} adds
-    or replaces entries. Identical blocks are compressed once."""
-    vol = np.asarray(vol)
-    pages, height, width = vol.shape
-    dtype = vol.dtype.newbyteorder(byteorder)
+               imagej=False, extra_tags=None, bits=None, fill_order=1,
+               descriptions=None) -> None:
+    """Write pages, a (pages, H, W) array or a sequence of 2-D arrays of
+    any sizes and one type, as a multipage TIFF, one sample per pixel:
+    `compression` None, "deflate" (8), "lzw" (5), "packbits" (32773) or
+    "lzma" (34925); `predictor` 2 differences each row, 3 (floating-point
+    samples) each row's byte planes; `bits` 1, 2 or 4 packs the samples
+    (values below 2**bits; bool for 1), each row padded to a byte;
+    `fill_order` 2 reverses the bits of every stored byte; `tile`
+    (length, width) stores tiles, else strips of `rows_per_strip` rows
+    (default: about 64 KB); `imagej` writes one IFD naming `images=N`
+    before N contiguous uncompressed pages, as ImageJ writes stacks above
+    4 GB; `descriptions` {page index: bytes} gives pages an
+    ImageDescription. `extra_tags` {tag: (field type, values)} adds or
+    replaces entries of every page. Identical blocks are compressed once."""
+    pages = list(vol)
+    dtype = np.dtype(pages[0].dtype).newbyteorder(byteorder)
+    if bits is not None:
+        dtype = np.dtype(np.uint8)
     off_fmt, off_type, inline = ("Q", 16, 8) if bigtiff else ("I", 4, 4)
-    encode = {None: bytes, "deflate": lambda b: zlib.compress(b, 6),
-              "lzw": lzw_encode}[compression]
-    if imagej:
-        rows, boxes = height, []
-    elif tile is None:
-        rows = rows_per_strip or max(1, 65536 // (width * dtype.itemsize))
-        boxes = [(r, 0, min(rows, height - r), width) for r in range(0, height, rows)]
-    else:
-        boxes = [(r, c, *tile) for r in range(0, height, tile[0])
-                 for c in range(0, width, tile[1])]
-    common = {256: (4, [width]), 257: (4, [height]),
-              258: (3, [8 * dtype.itemsize]),
-              259: (3, [{None: 1, "deflate": 8, "lzw": 5}[compression]]),
-              262: (3, [1]), 277: (3, [1]), 284: (3, [1]),
-              339: (3, [{"u": 1, "i": 2, "f": 3}[dtype.kind]])}
-    if predictor != 1:
-        common[317] = (3, [predictor])
-    if imagej:
-        common[270] = (2, f"ImageJ=1.54f\nimages={pages}\nslices={pages}\n".encode())
+    compress = {None: bytes, "deflate": lambda b: zlib.compress(b, 6),
+                "lzw": lzw_encode, "packbits": packbits_encode,
+                "lzma": lzma.compress}[compression]
+
+    def encode(raw):
+        data = compress(raw)
+        return data.translate(REVERSED_BITS) if fill_order == 2 else data
+
+    def stored(part):
+        """A block's bytes before compression."""
+        if bits is not None:
+            shifts = np.arange(8 - bits, -1, -bits)
+            cols = -(-part.shape[1] * bits // 8) * 8 // bits
+            wide = np.zeros((part.shape[0], cols), np.uint8)
+            wide[:, :part.shape[1]] = part
+            wide = wide.reshape(part.shape[0], -1, 8 // bits) << shifts
+            return wide.sum(axis=2, dtype=np.uint8).tobytes()
+        if predictor == 2:
+            part = np.diff(part, axis=1, prepend=np.zeros((part.shape[0], 1),
+                                                          part.dtype))
+        if predictor == 3:
+            return float_predictor_encode(part).tobytes()
+        return np.ascontiguousarray(part, dtype).tobytes()
+
     out = bytearray(b"II" if byteorder == "<" else b"MM")
     out += struct.pack(byteorder + ("HHHQ" if bigtiff else "HI"),
                        *((43, 8, 0, 0) if bigtiff else (42, 0)))
     next_ptr, cache = len(out) - inline, {}
-    for z in range(1 if imagej else pages):
+    for z in range(1 if imagej else len(pages)):
+        height, width = pages[z].shape
+        row_bytes = -(-width * (bits or 8 * dtype.itemsize) // 8)
+        if imagej:
+            rows, boxes = height, []
+        elif tile is None:
+            rows = rows_per_strip or max(1, 65536 // row_bytes)
+            boxes = [(r, 0, min(rows, height - r), width)
+                     for r in range(0, height, rows)]
+        else:
+            boxes = [(r, c, *tile) for r in range(0, height, tile[0])
+                     for c in range(0, width, tile[1])]
+        tags = {256: (4, [width]), 257: (4, [height]),
+                258: (3, [bits or 8 * dtype.itemsize]),
+                259: (3, [TIFF_COMPRESSIONS[compression]]),
+                262: (3, [1]), 277: (3, [1]), 284: (3, [1]),
+                339: (3, [{"u": 1, "b": 1, "i": 2, "f": 3}[dtype.kind]])}
+        if predictor != 1:
+            tags[317] = (3, [predictor])
+        if fill_order != 1:
+            tags[266] = (3, [fill_order])
+        if imagej:
+            tags[270] = (2, f"ImageJ=1.54f\nimages={len(pages)}\n"
+                            f"slices={len(pages)}\n".encode())
+        if descriptions and z in descriptions:
+            tags[270] = (2, descriptions[z])
         offsets, counts = [], []
         if imagej:  # every page's bytes, one after another
             offsets.append(len(out))
-            out += np.ascontiguousarray(vol, dtype).tobytes()
+            out += np.ascontiguousarray(np.stack(pages), dtype).tobytes()
             counts.append(height * width * dtype.itemsize)
         for r, c, nr, nc in boxes:
-            part = np.zeros((nr, nc), vol.dtype)  # tiles past the edge: zeros
-            src = vol[z, r:r + nr, c:c + nc]
+            part = np.zeros((nr, nc), pages[z].dtype)  # tiles past the edge: zeros
+            src = pages[z][r:r + nr, c:c + nc]
             part[:src.shape[0], :src.shape[1]] = src
-            if predictor == 2:
-                part = np.diff(part, axis=1, prepend=np.zeros((nr, 1), part.dtype))
-            raw = np.ascontiguousarray(part, dtype).tobytes()
+            raw = stored(part)
             if raw not in cache:
                 cache[raw] = encode(raw)
             offsets.append(len(out))
             out += cache[raw]
             counts.append(len(cache[raw]))
-        tags = dict(common)
         if tile is None:
             tags.update({273: (off_type, offsets), 278: (4, [rows]),
                          279: (off_type, counts)})
@@ -1326,6 +1417,36 @@ def write_tiff(path: Path, vol: np.ndarray, compression=None, predictor=1,
         next_ptr = len(out)
         out += struct.pack(byteorder + off_fmt, 0)
     Path(path).write_bytes(out)
+
+
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4),
+         (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def png_adam7_bytes(image: np.ndarray) -> bytes:
+    """An 8-bit grey PNG of a 2-D uint8 array, Adam7-interlaced: each of
+    the seven passes' rows filtered with Up on its own."""
+    height, width = image.shape
+    body = []
+    for x0, y0, dx, dy in ADAM7:
+        part = image[y0::dy, x0::dx]
+        if not part.size:
+            continue
+        rows = np.empty((part.shape[0], 1 + part.shape[1]), np.uint8)
+        rows[:, 0] = 2  # Up
+        rows[0, 1:] = part[0]
+        np.subtract(part[1:], part[:-1], out=rows[1:, 1:])
+        body.append(rows.tobytes())
+
+    def chunk(kind, payload):
+        return (struct.pack(">I", len(payload)) + kind + payload
+                + struct.pack(">I", zlib.crc32(kind + payload)))
+
+    return b"".join([b"\x89PNG\r\n\x1a\n",
+                     chunk(b"IHDR", struct.pack(">IIBBBBB", width, height, 8, 0,
+                                                0, 0, 1)),
+                     chunk(b"IDAT", zlib.compress(b"".join(body), 1)),
+                     chunk(b"IEND", b"")])
 
 
 FORMATS_STEPS = 10  # 20 before the spatial phase's (d)
@@ -1432,7 +1553,7 @@ def formats_phase(dev, out_dir: Path, cli_res):
 
     # (b) model-predict-2d on the 256^3 vessels volume as LZW TIFF, against
     # the CLI phase's labels of the same volume from HDF5.
-    vol, _ = make_vessel_volume((P, P, P), seed=7)
+    vol, vessel_labels = make_vessel_volume((P, P, P), seed=7)
     t0 = time.perf_counter()
     write_tiff(root / "vessels_256.tif", vol, compression="lzw")
     res["lzw_256_write_s"] = time.perf_counter() - t0
@@ -1489,7 +1610,7 @@ def formats_phase(dev, out_dir: Path, cli_res):
             failures.append(f"{name}: the 512^3 volume read back differs")
         path.unlink()
         del back
-    del raw, raw16, vol
+    del raw, raw16
 
     # (c) The library's PNG-directory path: the slicer writes the pair as
     # PNG slices, a trainer is built on the directories and trains
@@ -1516,6 +1637,27 @@ def formats_phase(dev, out_dir: Path, cli_res):
                   "write_s": write_s, "write_slices_per_s": len(written) / write_s,
                   "read_s": read_s, "read_slices_per_s": len(written) / read_s,
                   "stacked_arrays_s": stacked_s}
+    # (e) The slicer's image PNGs rewritten as Adam7 read back equal to
+    # the originals; the trainers below then read the interlaced files.
+    images = sorted((pngs / "data").glob("*.png"))
+    originals = [png.read_grey(path) for path in images]
+    t0 = time.perf_counter()
+    for path, image in zip(images, originals):
+        path.write_bytes(png_adam7_bytes(image))
+    adam7_write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = [png.read_grey(path) for path in images]
+    adam7_read_s = time.perf_counter() - t0
+    res["png_adam7"] = {
+        "files": len(images), "bytes": sum(p.stat().st_size for p in images),
+        "write_s": adam7_write_s, "read_s": adam7_read_s,
+        "read_slices_per_s": len(images) / adam7_read_s,
+        "read_mb_per_s": sum(a.nbytes for a in back) / 1e6 / adam7_read_s,
+        "equal": len(back) == len(originals) and all(
+            np.array_equal(a, b) for a, b in zip(back, originals))}
+    if not res["png_adam7"]["equal"]:
+        failures.append("the Adam7 rewrites of the slicer's PNGs read back differ")
+    del originals, back
     (data, labels), _, codes, _ = train_2d_model._slice_all_volumes(
         [pair[0]], [pair[1]], settings)
     codes = {str(i): code for i, code in enumerate(codes)}
@@ -1552,10 +1694,80 @@ def formats_phase(dev, out_dir: Path, cli_res):
         failures.append("the PNG-directory trainer differs from the in-memory one")
     if left:
         failures.append(f"clean_up_slices left {left}")
+
+    # (d) The 256^3 vessels volume in further TIFF encodings and series
+    # layouts, each read back equal to the array written (series 0 only),
+    # then model-predict-2d on the predictor-3 float32 file against the
+    # CLI phase's labels of the uint8 volume.
+    tiff_encodings_step(root, cli_root, cli_res, vol, vessel_labels, res,
+                        failures)
+    del vol, vessel_labels
     res.update(launches=launches, train_steps=steps,
                seconds=time.perf_counter() - t_phase, failures=failures)
     print(json.dumps(res), flush=True)
     return res
+
+
+def tiff_encodings_step(root: Path, cli_root: Path, cli_res, vol, labels, res,
+                        failures):
+    """The formats phase's (d) (see the module doc)."""
+    from volume_segmantics_tpu_torch.scripts import predict_2d_model
+    from volume_segmantics_tpu_torch.utils import hdf5, tiff
+
+    small = np.ascontiguousarray(vol[:64, :64, :64])
+    as_float = vol.astype(np.float32)
+    files = {  # name: (array written, the first series' array, options)
+        "packbits_u8": (vol, vol, dict(compression="packbits")),
+        "predictor3_f32_deflate": (as_float, as_float,
+                                   dict(compression="deflate", predictor=3)),
+        "lzma_u8": (vol, vol, dict(compression="lzma")),
+        "fill_order2_u8": (vol, vol, dict(fill_order=2)),
+        "bits1_labels": (labels > 0, labels > 0, dict(bits=1)),
+        "imagej_frames_u8": (vol, vol, dict(imagej=True, descriptions={
+            0: f"ImageJ=1.54f\nimages={len(vol)}\nframes={len(vol)}\n".encode()})),
+        "shaped_second_series_u8": ([*vol, *small], vol, dict(descriptions={
+            0: json.dumps({"shape": list(vol.shape)}).encode(),
+            len(vol): json.dumps({"shape": list(small.shape)}).encode()})),
+        "thumbnails_interleaved_u8": (
+            [p for z in range(len(vol)) for p in (vol[z], vol[z, ::4, ::4])],
+            vol, dict(compression="deflate")),
+    }
+    res["reads_256"] = {}
+    for name, (pages, first, options) in files.items():
+        path = root / f"{name}.tif"
+        t0 = time.perf_counter()
+        write_tiff(path, pages, **options)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = tiff.read(path)
+        read_s = time.perf_counter() - t0
+        equal = back.dtype == first.dtype and bool(np.array_equal(back, first))
+        res["reads_256"][name] = {
+            "read_s": read_s, "read_mb_per_s": first.nbytes / 1e6 / read_s,
+            "array_mb": first.nbytes / 1e6, "file_mb": path.stat().st_size / 1e6,
+            "write_s": write_s, "equal": equal}
+        if not equal:
+            failures.append(f"{name}: the 256^3 TIFF read back differs from "
+                            "its first series")
+        if name != "predictor3_f32_deflate":
+            path.unlink()
+        del back
+    # Both packages turn the float32 copy into the uint8 volume's clipped
+    # uint8 (tests/test_torch_tiff_codecs.py), so the labels must agree.
+    t0 = time.perf_counter()
+    predict_2d_model.main([str(cli_root / cli_res["checkpoint"]),
+                           str(root / "predictor3_f32_deflate.tif"),
+                           "--data_dir", str(root)])
+    res["predict_predictor3_f32_main_s"] = time.perf_counter() - t0
+    got, _ = hdf5.read(predict_2d_model.create_output_path(
+        root, Path("predictor3_f32_deflate.tif")))
+    want, _ = hdf5.read(predict_2d_model.create_output_path(
+        cli_root, Path("vessels_256.h5")))
+    res["predictor3_f32_labels_equal_cli"] = bool(np.array_equal(got, want))
+    if not res["predictor3_f32_labels_equal_cli"]:
+        failures.append("model-predict-2d labels from the predictor-3 float32 "
+                        "TIFF differ from the CLI phase's")
+    (root / "predictor3_f32_deflate.tif").unlink()
 
 
 SIDES_TYPE = "DeepLabV3"  # its x8 head resizes the logits back at side 100

@@ -1,5 +1,5 @@
 """The PyTorch port stands alone: no module of the package, nor
-`chip_smoke.py`, imports JAX, flax, optax, the JAX package, or the host
+`chip_smoke.py` or `examples/library_api_torch.py`, imports JAX, flax, optax, the JAX package, or the host
 libraries the card machine lacks (cv2, h5py, yaml, imageio, matplotlib,
 tqdm, msgpack, Pillow, tifffile): settings files, HDF5, flax msgpack, PNG
 and TIFF go through the port's own readers. The package imports where there is no triton and no
@@ -19,7 +19,8 @@ PACKAGE = Path(volume_segmantics_tpu_torch.__file__).parent
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "volume_segmantics_tpu", "cv2",
              "h5py", "yaml", "imageio", "matplotlib", "tqdm", "triton", "msgpack",
              "PIL", "tifffile"}
-SOURCES = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                             ROOT / "examples" / "library_api_torch.py"]
 
 
 def imported_roots(path: Path):
@@ -50,7 +51,7 @@ def test_every_module_imports_and_no_kernel_is_built():
                    "utils.hdf5", "utils.yaml_settings", "data.slicers",
                    "utils.flax_msgpack", "models.pretrained", "utils.host_memory",
                    "model.operations.vol_seg_large_predictor",
-                   "utils.png", "utils.tiff", "utils.figures", "data.datasets",
+                   "utils.png", "utils.tiff", "utils.tiff_codecs", "utils.figures", "data.datasets",
                    "models.torch_convert", "scripts.convert_torch_encoder",
                    "parallel.mesh", "parallel.predict",
                    "parallel.multihost_predict", "parallel.spatial",

@@ -1,12 +1,12 @@
 """The port's PNG codec (`utils/png.py`) against OpenCV, Pillow and
 imageio: the reader equals ``cv2.imread(path, cv2.IMREAD_GRAYSCALE)`` (the
 JAX package's `VolSeg2dDataset` reader) on PNGs Pillow writes and on PNGs
-built byte by byte here with each row filter; the writer's files read back
-exactly through cv2 and imageio; every refused feature raises
-NotImplementedError naming it."""
+built chunk by chunk (`tests/torch_png_builder.py`) with each row filter;
+the writer's files read back exactly through cv2 and imageio; the
+features this reader once refused read as cv2 reads them; an unknown
+critical chunk raises NotImplementedError naming it."""
 
 import struct
-import zlib
 
 import cv2
 import imageio.v2 as imageio
@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 from PIL import Image
 
+from torch_png_builder import chunk, png_bytes
 from volume_segmantics_tpu_torch.utils import png
 
 SHAPE = (13, 17)
@@ -21,50 +22,6 @@ SHAPE = (13, 17)
 
 def rng(seed=0):
     return np.random.default_rng(seed)
-
-
-def chunk(kind: bytes, payload: bytes) -> bytes:
-    return (struct.pack(">I", len(payload)) + kind + payload
-            + struct.pack(">I", zlib.crc32(kind + payload)))
-
-
-def paeth(a, b, c):
-    p = a + b - c
-    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
-    return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
-
-
-def filtered_rows(pixels: np.ndarray, bpp: int, filters) -> bytes:
-    """`pixels` (H, W * bpp bytes) with the PNG filter filters[y % len]
-    on row y, each byte predicted from the unfiltered neighbours."""
-    rows = pixels.astype(np.int64)
-    out = []
-    for y, row in enumerate(rows):
-        kind = filters[y % len(filters)]
-        a = np.concatenate([np.zeros(bpp, np.int64), row[:-bpp]])
-        b = rows[y - 1] if y else np.zeros_like(row)
-        c = np.concatenate([np.zeros(bpp, np.int64), b[:-bpp]])
-        pred = [0, a, b, (a + b) // 2, paeth(a, b, c)][kind]
-        out.append(bytes([kind]) + ((row - pred) % 256).astype(np.uint8).tobytes())
-    return b"".join(out)
-
-
-def png_bytes(pixels, colour, depth=8, filters=(0,), palette=None,
-              interlace=0, extra=()) -> bytes:
-    """A PNG of `pixels` ((H, W, channels) uint8, or uint16 for depth 16,
-    big-endian as PNG stores it), built chunk by chunk."""
-    h, w = pixels.shape[:2]
-    raw = pixels.astype(">u2").view(np.uint8) if depth == 16 else pixels
-    raw = np.ascontiguousarray(raw).reshape(h, -1)
-    bpp = max(1, raw.shape[1] // w)
-    parts = [png.SIGNATURE, chunk(b"IHDR", struct.pack(
-        ">IIBBBBB", w, h, depth, colour, 0, 0, interlace))]
-    if palette is not None:
-        parts.append(chunk(b"PLTE", palette.astype(np.uint8).tobytes()))
-    parts += [chunk(kind, payload) for kind, payload in extra]
-    parts.append(chunk(b"IDAT", zlib.compress(filtered_rows(raw, bpp, filters))))
-    parts.append(chunk(b"IEND", b""))
-    return b"".join(parts)
 
 
 def assert_reads_as_cv2(path):
@@ -146,25 +103,28 @@ def test_writer_refuses_other_arrays(tmp_path):
             png.write(tmp_path / "x.png", bad)
 
 
+def test_refused_features_raise_by_name(tmp_path):
+    data = png_bytes(np.zeros((*SHAPE, 1), np.uint8), png.GREY,
+                     extra=[(b"ABCD", b"x")])
+    (tmp_path / "r.png").write_bytes(data)
+    with pytest.raises(NotImplementedError, match="critical chunk ABCD"):
+        png.read_grey(tmp_path / "r.png")
+    assert cv2.imread(str(tmp_path / "r.png"), cv2.IMREAD_GRAYSCALE) is None
+
+
 @pytest.mark.parametrize("feature,build", [
     ("Adam7 interlacing", dict(interlace=1)),
     ("bit depths below 8", dict(depth=4)),
     ("16-bit colour", dict(colour=png.RGB, depth=16, channels=3)),
-    ("critical chunk ABCD", dict(extra=[(b"ABCD", b"x")])),
 ])
-def test_refused_features_raise_by_name(feature, build, tmp_path):
-    build = dict(build)
-    colour, depth = build.pop("colour", png.GREY), build.pop("depth", 8)
-    pixels = np.zeros((*SHAPE, build.pop("channels", 1)),
-                      np.uint16 if depth == 16 else np.uint8)
-    data = png_bytes(pixels, colour, 8 if depth == 4 else depth, **build)
-    if depth == 4:  # the IHDR of a 4-bit file (its data are never read)
-        data = data.replace(struct.pack(">IIBB", SHAPE[1], SHAPE[0], 8, colour),
-                            struct.pack(">IIBB", SHAPE[1], SHAPE[0], 4, colour))
-        data = data[:8] + chunk(b"IHDR", data[16:29]) + data[33:]
-    (tmp_path / "r.png").write_bytes(data)
-    with pytest.raises(NotImplementedError, match=feature):
-        png.read_grey(tmp_path / "r.png")
+def test_formerly_refused_features_read_as_cv2(feature, build, tmp_path):
+    """Each feature this reader refused before it read them as cv2 does
+    (`tests/test_torch_png_depths.py` has every depth and colour type)."""
+    colour, depth = build.get("colour", png.GREY), build.get("depth", 8)
+    pixels = rng(4).integers(0, 2 ** depth, (*SHAPE, build.get("channels", 1)))
+    (tmp_path / "f.png").write_bytes(png_bytes(
+        pixels, colour, depth, (0, 1, 2, 3, 4), interlace=build.get("interlace", 0)))
+    assert_reads_as_cv2(tmp_path / "f.png")
 
 
 def test_corrupt_files_raise_value_error(tmp_path):

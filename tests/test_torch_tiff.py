@@ -4,8 +4,8 @@ tifffile here) on multipage files Pillow writes (uncompressed, Deflate,
 LZW; uint8, uint16, int32, float32) and on files built byte by byte by
 `chip_smoke.write_tiff` (BigTIFF, tiles, big-endian, predictor 2, ImageJ
 stacks, every sample type), each also against the array written; the LZW
-codec both ways through libtiff (Pillow); and each refused feature by
-name."""
+codec both ways through libtiff (Pillow); the features this reader once
+refused, now read as JAX reads them; and each refused feature by name."""
 
 import struct
 
@@ -20,6 +20,7 @@ from volume_segmantics_tpu.utils.base_data_utils import (
 from volume_segmantics_tpu.utils.base_data_utils import (
     numpy_from_tiff as jax_numpy_from_tiff,
 )
+from torch_tiff_contract import assert_reads_as_jax
 from volume_segmantics_tpu_torch.utils import base_data_utils, tiff
 
 SHAPE = (3, 21, 30)
@@ -105,7 +106,10 @@ def test_lzw_round_trip_and_libtiff(data, tmp_path):
         tiff.lzw_decode(chip_smoke.lzw_encode(raw)), np.frombuffer(raw, np.uint8))
     if len(raw) >= 700:  # the same bytes through libtiff (Pillow) both ways
         page = np.frombuffer(raw[:700 * (len(raw) // 700)], np.uint8).reshape(-1, 700)
-        Image.fromarray(page).save(tmp_path / "p.tif", compression="tiff_lzw")
+        # Two pages: a single 2-D page is no volume (JAX reads it as 2-D).
+        Image.fromarray(page).save(tmp_path / "p.tif", compression="tiff_lzw",
+                                   save_all=True,
+                                   append_images=[Image.fromarray(page)])
         np.testing.assert_array_equal(tiff.read(tmp_path / "p.tif")[0], page)
         chip_smoke.write_tiff(tmp_path / "o.tif", page[None], compression="lzw")
         np.testing.assert_array_equal(np.asarray(Image.open(tmp_path / "o.tif")), page)
@@ -134,19 +138,13 @@ def second_page_taller(path):
 
 REFUSED = {  # feature named: (dtype, write_tiff options, file edit)
     "JPEG compression": ("uint8", dict(extra_tags={259: (3, [7])}), None),
-    "PackBits compression": ("uint8", dict(extra_tags={259: (3, [32773])}), None),
-    "predictor 3": ("float32", dict(extra_tags={317: (3, [3])}), None),
-    "predictor 2 on floating-point": ("float32", dict(predictor=2), None),
+    "CCITT Group 4 compression": ("uint8", dict(extra_tags={259: (3, [4])}), None),
+    "predictor 3 on samples that are not floating point": (
+        "uint16", dict(extra_tags={317: (3, [3])}), None),
     "pixels of 3 samples": ("uint8", dict(extra_tags={277: (3, [3])}), None),
     "12-bit samples": ("uint16", dict(extra_tags={258: (3, [12])}), None),
-    "reduced-resolution pages": ("uint8", dict(extra_tags={254: (4, [1])}), None),
-    "fill order 2": ("uint8", dict(extra_tags={266: (3, [2])}), None),
-    "photometric interpretation 0": ("uint8", dict(extra_tags={262: (3, [0])}), None),
     "SampleFormat 6": ("uint8", dict(extra_tags={339: (3, [6])}), None),
     "volume tiles": ("uint8", dict(extra_tags={32997: (4, [2])}), None),
-    "ImageJ hyperstacks": ("uint8", dict(imagej=True, extra_tags={
-        270: (2, b"ImageJ=1.54f\nimages=3\nchannels=3\n")}), None),
-    "pages that differ in shape or type": ("uint8", dict(), second_page_taller),
 }
 
 
@@ -157,8 +155,32 @@ def test_refused_features_raise_by_name(feature, tmp_path):
     chip_smoke.write_tiff(path, volume(dtype, seed=4), **options)
     if edit is not None:
         edit(path)
-    with pytest.raises(NotImplementedError, match=feature):
-        tiff.read(path)
+    assert_reads_as_jax(path, feature)
+
+
+FORMERLY_REFUSED = {  # feature: (dtype, write_tiff options, file edit)
+    "PackBits compression": ("uint8", dict(compression="packbits"), None),
+    "predictor 3": ("float32", dict(compression="deflate", predictor=3), None),
+    "predictor 2 on floating-point": ("float32", dict(predictor=2), None),
+    "reduced-resolution pages": ("uint8", dict(extra_tags={254: (4, [1])}), None),
+    "fill order 2": ("uint8", dict(fill_order=2), None),
+    "photometric interpretation 0": ("uint8", dict(extra_tags={262: (3, [0])}), None),
+    "ImageJ hyperstacks": ("uint8", dict(imagej=True, extra_tags={
+        270: (2, b"ImageJ=1.54f\nimages=3\nchannels=3\n")}), None),
+    "pages that differ in shape or type": ("uint8", dict(), second_page_taller),
+}
+
+
+@pytest.mark.parametrize("feature", FORMERLY_REFUSED)
+def test_formerly_refused_features_read_as_jax(feature, tmp_path):
+    """Each feature this reader refused before it read them as the JAX
+    package does; a page of another shape starts a series of its own."""
+    dtype, options, edit = FORMERLY_REFUSED[feature]
+    path = tmp_path / "r.tif"
+    chip_smoke.write_tiff(path, volume(dtype, seed=4), **options)
+    if edit is not None:
+        edit(path)
+    assert_reads_as_jax(path)
 
 
 def halve_last_strip_count(path):

@@ -2,15 +2,19 @@
 Pillow, imageio or OpenCV).
 
 `read_grey(path)` returns what ``cv2.imread(path, cv2.IMREAD_GRAYSCALE)``
-returns (OpenCV decodes through libpng), as a 2-D uint8 array: 8-bit grey
-as it is stored; 16-bit grey as its high byte (libpng's ``strip_16``);
-grey+alpha (8 or 16-bit) as its grey channel; 8-bit RGB, RGBA and palette
-images through libpng's fixed-point BT.601 grey, (9797 R + 19234 G +
-3737 B) >> 15 (``png_set_rgb_to_gray(png, 1, 0.299, 0.587)``), alpha
-dropped. It undoes all five row filters and checks the critical chunks'
-CRCs. Adam7 interlacing, bit depths below 8, 16-bit colour and any other
-critical chunk raise NotImplementedError naming the feature; a file that
-is not a PNG, or whose data end early, raises ValueError.
+returns (OpenCV decodes through libpng), as a 2-D uint8 array, in the
+order of libpng's transformations: grey of 1, 2 or 4 bits widened to 8
+(``expand_gray_1_2_4_to_8``: each value times 255, 85 or 17); 8-bit grey
+as it is stored; 16-bit grey as its high byte (``strip_16``); grey+alpha
+(8 or 16-bit) as its grey channel; palette images (1, 2, 4 or 8-bit)
+through their palette, then as 8-bit RGB; RGB and RGBA through libpng's
+fixed-point BT.601 grey (``png_set_rgb_to_gray(png, 1, 0.299, 0.587)``):
+(9797 R + 19234 G + 3737 B) >> 15 at 8 bits, and at 16 bits the same sum
+plus 16384, shifted by 15, before ``strip_16`` keeps its high byte; alpha
+dropped. It undoes all five row filters, de-interlaces Adam7 (each of the
+seven passes filtered on its own) and checks the critical chunks' CRCs.
+Any other critical chunk raises NotImplementedError naming it; a file
+that is not a PNG, or whose data end early, raises ValueError.
 
 `write(path, image, text=None)` writes a 2-D uint8 array as 8-bit grey or
 an (H, W, 3) uint8 array as 8-bit RGB, every row filtered with Up (the
@@ -32,6 +36,11 @@ FILTER_NONE, FILTER_SUB, FILTER_UP, FILTER_AVERAGE, FILTER_PAETH = range(5)
 # libpng's png_set_rgb_to_gray_fixed(png, 1, 29900, 58700) coefficients:
 # 0.299 and 0.587 of 32768, truncated, and blue the rest.
 RGB_TO_GREY = (9797, 19234, 32768 - 9797 - 19234)
+# Adam7's passes: (first column, first row, column step, row step).
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4),
+         (1, 0, 2, 2), (0, 1, 1, 2))
+DEPTHS = {GREY: (1, 2, 4, 8, 16), RGB: (8, 16), PALETTE: (1, 2, 4, 8),
+          GREY_ALPHA: (8, 16), RGBA: (8, 16)}
 
 
 def unsupported(feature: str) -> NotImplementedError:
@@ -107,10 +116,50 @@ def _unfilter(raw: np.ndarray, height: int, stride: int, bpp: int) -> np.ndarray
     return out
 
 
-def _to_grey(rgb: np.ndarray) -> np.ndarray:
+def _to_grey(rgb: np.ndarray, depth: int = 8) -> np.ndarray:
+    """libpng's rgb_to_gray, then (at 16 bits) strip_16."""
     r, g, b = (rgb[..., i].astype(np.uint32) for i in range(3))
     rc, gc, bc = RGB_TO_GREY
+    if depth == 16:
+        return (((rc * r + gc * g + bc * b + 16384) >> 15) >> 8).astype(np.uint8)
     return ((rc * r + gc * g + bc * b) >> 15).astype(np.uint8)
+
+
+def _samples(rows: np.ndarray, width: int, depth: int, channels: int) -> np.ndarray:
+    """Unfiltered rows as (height, width, channels) samples: uint8 below
+    16 bits (sub-byte samples unpacked, most significant first), uint16
+    at 16."""
+    height = rows.shape[0]
+    if depth == 16:
+        return rows.view(">u2").reshape(height, width, channels).astype(np.uint16)
+    if depth == 8:
+        return rows.reshape(height, width, channels)
+    shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+    values = (rows[:, :, None] >> shifts) & np.uint8((1 << depth) - 1)
+    return values.reshape(height, -1)[:, :width, None]
+
+
+def _pixels(raw: np.ndarray, width: int, height: int, depth: int, channels: int,
+            interlace: int) -> np.ndarray:
+    """The image's samples, (height, width, channels), from its inflated
+    data: one pass, or Adam7's seven passes, each filtered on its own."""
+    bits = channels * depth
+    bpp = max(1, bits // 8)
+    out = np.empty((height, width, channels), np.uint16 if depth == 16 else np.uint8)
+    at = 0
+    for x0, y0, dx, dy in ADAM7 if interlace else ((0, 0, 1, 1),):
+        w, h = -(-(width - x0) // dx), -(-(height - y0) // dy)
+        if w <= 0 or h <= 0:
+            continue  # an empty pass stores nothing, not even filter bytes
+        stride = (w * bits + 7) // 8
+        need = h * (1 + stride)
+        if raw.size < at + need:
+            raise ValueError(f"PNG image data hold {raw.size} bytes of at "
+                             f"least {at + need}")
+        rows = _unfilter(raw[at:at + need], h, stride, bpp)
+        out[y0::dy, x0::dx] = _samples(rows, w, depth, channels)
+        at += need
+    return out
 
 
 def read_grey(path) -> np.ndarray:
@@ -130,25 +179,16 @@ def read_grey(path) -> np.ndarray:
     width, height, depth, colour, method, filters, interlace = header
     if colour not in CHANNELS:
         raise ValueError(f"{path}: PNG colour type {colour} does not exist")
-    if depth < 8:
-        raise unsupported(f"bit depths below 8 ({depth}-bit)")
-    if depth not in (8, 16) or (colour == PALETTE and depth != 8):
+    if depth not in DEPTHS[colour]:
         raise ValueError(f"{path}: PNG bit depth {depth} with colour type {colour}")
-    if depth == 16 and colour in (RGB, RGBA):
-        raise unsupported("16-bit colour")
-    if interlace:
-        raise unsupported("Adam7 interlacing")
-    if method or filters:
-        raise ValueError(f"{path}: PNG compression or filter method "
-                         f"{method}/{filters} does not exist")
-    bpp = CHANNELS[colour] * depth // 8
-    stride = width * bpp
-    need = height * (1 + stride)
+    if method or filters or interlace > 1:
+        raise ValueError(f"{path}: PNG compression, filter or interlace method "
+                         f"{method}/{filters}/{interlace} does not exist")
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    if raw.size < need:
-        raise ValueError(f"{path}: PNG image data hold {raw.size} bytes of {need}")
-    pixels = _unfilter(raw[:need], height, stride, bpp).reshape(
-        height, width, bpp)
+    try:
+        pixels = _pixels(raw, width, height, depth, CHANNELS[colour], interlace)
+    except ValueError as e:
+        raise ValueError(f"{path}: {e}") from None
     if colour == PALETTE:
         if palette is None:
             raise ValueError(f"{path}: palette PNG without a PLTE chunk")
@@ -156,8 +196,11 @@ def read_grey(path) -> np.ndarray:
             raise ValueError(f"{path}: PNG pixel outside its palette")
         return _to_grey(palette[pixels[..., 0]])
     if colour in (RGB, RGBA):
-        return _to_grey(pixels)
-    return pixels[..., 0].copy()  # the grey byte, or a 16-bit sample's high byte
+        return _to_grey(pixels, depth)
+    grey = pixels[..., 0]
+    if depth == 16:
+        return (grey >> 8).astype(np.uint8)  # strip_16: the high byte
+    return grey * np.uint8(255 // ((1 << depth) - 1))
 
 
 def _chunk(kind: bytes, payload: bytes) -> bytes:
