@@ -72,7 +72,13 @@
    msgpack writer) must rebuild to a state_dict bit-equal to the torch
    file's, and `model-predict-2d` on it must give the torch file's labels
    at every voxel of the 256^3 volume; the torch file must unpickle through
-   the reference-path Unpickler and name the reference's module.
+   the reference-path Unpickler and name the reference's module. The same
+   weights as bfloat16 tensors, with an extra of a bfloat16 array chunked
+   past a 1 MiB `CHUNK_LIMIT`, complex64 and complex128 arrays and a Python
+   complex, written as a `VSTPU1` file and read back
+   (`bfloat16_checkpoint`): the bytes rewritten from what was read equal
+   the bytes written, each bfloat16 and complex leaf keeps its bits, and
+   `load_checkpoint` gives the bfloat16 weights widened to float32.
 9. Large phase, from the slice phase's checkpoint, in `<out-dir>/large`:
    the 256^3 vessels volume as gzip HDF5 (chunks=True), kept lazy
    (`lazy_ingest_threshold` below it, clip on, bf16): LOW, MEDIUM, HIGH
@@ -237,7 +243,19 @@
    `vessels_labels_szip.h5`): every loss and eval score finite, each
    kernel launched once a step; then `model-predict-2d` from (c)'s
    checkpoint on the szip volume and on its gzip copy
-   (`vessels_latest.h5`): labels equal at every voxel.
+   (`vessels_latest.h5`): labels equal at every voxel. (f) What the
+   library writes beyond h5py's defaults (`OPTION_READS`): h5py's bool
+   labels, a big-endian int16 enumeration, the crop in files of offsets
+   and lengths of (4, 4), (8, 4), (4, 8) and (2, 2) bytes at superblock 0
+   and 3, and unfiltered partial edge chunks under a fixed array, an
+   extensible array and a version 2 B-tree, each equal to its array (the
+   best of three reads, s and MB/s); then `model-train-2d` as (e) on the
+   vessels volume in a (4, 4) file with unfiltered partial edge chunks
+   (`vessels_sizes_44_edges.h5`) and the bool labels (`labels_bool.h5`):
+   fails unless the trainer is handed (e)'s slices bit for bit, the
+   checkpoint's label codes are label_val_False and label_val_True, the run
+   writes every file (e)'s wrote, every loss and eval score is finite and
+   each kernel launched once a step.
 16. Train-batch sweep (`THROUGHPUT_TRAIN_BATCH`): `SWEEP_STEPS` timed
    `build_train_step` steps on one seeded batch at batches 12, 32, 64, 128
    and 256 (bf16, unfrozen), samples/s and peak memory; the smallest batch
@@ -254,13 +272,20 @@
    ranks on cuda:0 (NCCL refuses two ranks on one GPU; gloo carries CUDA
    tensors through the host), float32, TF32 off, global batch 12, 6 rows a
    rank, augmentation on, `PARALLEL_STEPS_TWO` steps at
-   `PARALLEL_LR_TWO`: losses within 1e-5 relative of one process on the
+   `PARALLEL_LR_TWO`, every run under deterministic algorithms
+   (`deterministic_algorithms`): losses within 1e-5 relative of one process on the
    global batch, the first step's gradients within 30x the one-process
    float32 noise against a float64 step (BatchNorm in float64 too), its
    running statistics within the larger of 1e-4 and 10x that noise, the
    parameters it moved clear of the two runs' difference within 1e-6, both
    ranks' states equal, each kernel launched once a step on each rank's 6
-   rows; median step ms. (3) In the same two ranks, multi-host prediction:
+   rows; median step ms. (2b) In the same two ranks, a mesh over rank 0
+   alone (`get_mesh(n_devices=1)`): rank 0's `SUBMESH_STEPS` steps on it,
+   both runs under deterministic algorithms, equal one process's losses,
+   first gradients and state after each step bit for bit, each kernel
+   launched once a step, and rank 1's
+   step raises ValueError naming that it is not in the mesh; rank 1 then
+   waits for rank 0's runs at a barrier. (3) In the same two ranks, multi-host prediction:
    each sweeps half of the 256^3 vessels volume's Z slices from the
    checkpoint into its partial HDF5 file (labels, float16 max-probs,
    `global_start` / `global_slices`), stitched to equal the one-process Z
@@ -327,6 +352,7 @@ import concurrent.futures
 import contextlib
 import csv
 import functools
+import hashlib
 import json
 import logging
 import lzma
@@ -340,6 +366,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 import zlib
 from pathlib import Path
 from types import SimpleNamespace
@@ -1978,6 +2005,71 @@ def write_native_checkpoint(torch_file: Path, path: Path) -> Path:
     return path
 
 
+def bfloat16_checkpoint(torch_file: Path, path: Path) -> dict:
+    """`torch_file` as a JAX package checkpoint of bfloat16 weights with an
+    extra of bfloat16 (an array and a scalar), complex and chunked leaves
+    (an array past
+    `CHUNK_LIMIT`, patched to 1 MiB here), written and read back: the
+    bytes rewritten from what was read are the bytes written, every
+    bfloat16 and complex leaf keeps its bits, the chunked array comes back
+    whole, and `load_checkpoint` maps the weights to the bfloat16 values
+    widened to float32."""
+    from volume_segmantics_tpu_torch.models.checkpoint import MAGIC, load_checkpoint
+    from volume_segmantics_tpu_torch.models.torch_export import (
+        variables_from_smp_state_dict,
+    )
+    from volume_segmantics_tpu_torch.utils import flax_msgpack
+
+    t0 = time.perf_counter()
+    ckpt = load_checkpoint(torch_file)
+    struc = dict(ckpt["model_struc_dict"], type=ckpt["model_struc_dict"]["type"].name)
+
+    def bf16(tree):
+        if isinstance(tree, dict):
+            return {k: bf16(v) for k, v in tree.items()}
+        return torch.from_numpy(np.ascontiguousarray(tree)).to(torch.bfloat16)
+
+    weights = bf16(variables_from_smp_state_dict(ckpt["model_state_dict"], struc))
+    rng = np.random.default_rng(4)
+    extra = {"ema": torch.from_numpy(rng.normal(size=(768, 1024)).astype(
+                 np.float32)).to(torch.bfloat16),
+             "phase": np.exp(1j * rng.normal(size=(64,))).astype(np.complex64),
+             "shift": (rng.normal(size=(8,)) + 1j).astype(np.complex128),
+             "z": complex(rng.normal(), -rng.normal()),
+             "scale": torch.tensor(rng.normal(), dtype=torch.bfloat16).as_subclass(
+                 flax_msgpack.BFloat16Scalar)}
+    blob = {"model_state_dict": weights, "model_struc_dict": struc,
+            "optimizer_state_dict": {}, "loss_val": 0.5,
+            "label_codes": ckpt["label_codes"], "extra": extra}
+    limit, flax_msgpack.CHUNK_LIMIT = flax_msgpack.CHUNK_LIMIT, 1 << 20
+    try:
+        data = MAGIC + flax_msgpack.msgpack_serialize(blob)
+        path.write_bytes(data)
+        raw = flax_msgpack.msgpack_restore(path.read_bytes()[len(MAGIC):])
+        rewritten = MAGIC + flax_msgpack.msgpack_serialize(raw)
+    finally:
+        flax_msgpack.CHUNK_LIMIT = limit
+    back = load_checkpoint(path)
+    got = back["extra"]
+    widened = {k: v.to(torch.bfloat16).float() for k, v in
+               ckpt["model_state_dict"].items() if v.is_floating_point()}
+    return {
+        "mb": len(data) / 1e6, "s": time.perf_counter() - t0,
+        "chunked_arrays": data.count(flax_msgpack.CHUNKED.encode()),
+        "rewrite_equal": rewritten == data,
+        "ema_bits_equal": bool(got["ema"].dtype == torch.bfloat16 and torch.equal(
+            got["ema"].view(torch.int16), extra["ema"].view(torch.int16))),
+        "scalar_bits_equal": bool(
+            type(got["scale"]) is flax_msgpack.BFloat16Scalar and torch.equal(
+                got["scale"].view(torch.int16), extra["scale"].view(torch.int16))),
+        "complex_bits_equal": all(
+            got[k].dtype == extra[k].dtype
+            and got[k].tobytes() == extra[k].tobytes() for k in ("phase", "shift"))
+        and got["z"] == extra["z"],
+        "weights_equal": set(widened) <= set(back["model_state_dict"]) and all(
+            torch.equal(back["model_state_dict"][k], v) for k, v in widened.items())}
+
+
 def checkpoint_phase(model_file: Path, dev, out_dir: Path):
     """The JAX package's checkpoint format and the reference's pickling,
     on the slice phase's model (see the module doc)."""
@@ -2006,6 +2098,9 @@ def checkpoint_phase(model_file: Path, dev, out_dir: Path):
     if not res["state_dict_bit_equal"]:
         failures.append("the VSTPU1 file rebuilds another state_dict")
     del torch_model, native_model, sd, ref_sd
+    res["bfloat16"] = bfloat16_checkpoint(model_file, root / "vessels_bf16.vstpu")
+    if not all(v for k, v in res["bfloat16"].items() if k.endswith("equal")):
+        failures.append(f"the bfloat16 VSTPU1 file {res['bfloat16']}")
 
     (root / cfg.SETTINGS_DIR / cfg.PREDICTION_SETTINGS_FN).write_text(
         settings_text(cfg.PREDICTION_SETTINGS_FN))
@@ -3219,7 +3314,24 @@ VIRTUAL_READS = {
     "crop_nbit_signed.h5": ("data", "crop_signed"),
     "crop_saturated.h5": ("data", "crop_saturated"),
 }
-FIXTURE_READS = {**INTERCHANGE_READS, **VIRTUAL_READS}
+# What the library writes beyond h5py's defaults, read by the virtual
+# phase's step 6: h5py's bool and an enumeration, offsets and lengths of
+# (offsets, lengths) bytes at superblock 0 and 3, and partial edge chunks
+# stored unfiltered.
+SIZED_FIXTURES = [(f"crop_sizes_{o}{n}{'_latest' if libver == 'latest' else ''}.h5",
+                   (o, n), libver)
+                  for o, n in ((4, 4), (8, 4), (4, 8), (2, 2))
+                  for libver in ("earliest", "latest")]
+OPTION_READS = {
+    "labels_bool.h5": ("data", "labels_bool"),
+    "crop_enum.h5": ("data", "crop_enum"),
+    **{name: ("data", "crop") for name, _, _ in SIZED_FIXTURES},
+    "vessels_sizes_44_edges.h5": ("data", "vessels"),
+    "crop_edges_fixed.h5": ("data", "crop"),
+    "crop_edges_extensible.h5": ("data", "crop"),
+    "crop_edges_btree2.h5": ("data", "crop"),
+}
+FIXTURE_READS = {**INTERCHANGE_READS, **VIRTUAL_READS, **OPTION_READS}
 # Virtual datasets committed without their sources, which the virtual
 # phase and the tests write beside a copy with the port's writer: a
 # printf-style (%b) mapping of Z blocks of BLOCK_DEPTH slices, one file a
@@ -3252,7 +3364,9 @@ def fixture_arrays() -> dict:
     vessels volume and labels with the slices' corners outside the field of
     view zeroed ("stitched", as uint16, and its halves as stored), and a
     64^3 vessels tile cut so, alone and tiled 4 x 4 x 4; the crop less 128
-    as int16 ("crop_signed"), and saturated to int8."""
+    as int16 ("crop_signed"), and saturated to int8; the labels as bool,
+    and the crop spread to the values of an int16 enumeration with gaps
+    between them ("crop_enum": 3 x - 300)."""
     vol, labels = make_vessel_volume(FIXTURE_SHAPE, seed=1)
     crop = np.ascontiguousarray(vol[:12, :24, :24])
     crop_u2 = crop.astype(np.uint16) * 3 + 1000
@@ -3273,7 +3387,9 @@ def fixture_arrays() -> dict:
             "stitched_labels": labels * inside.astype(np.uint8),
             "tile": tile, "tile_256": np.tile(tile, (TILE_COPIES[0],) * 3),
             "crop_signed": signed,
-            "crop_saturated": np.minimum(crop, 127).astype(np.int8)}
+            "crop_saturated": np.minimum(crop, 127).astype(np.int8),
+            "labels_bool": labels.astype(bool),
+            "crop_enum": crop.astype(np.int16) * 3 - 300}
 
 
 def write_block_sources(folder: Path, vol: np.ndarray) -> None:
@@ -3542,6 +3658,7 @@ def virtual_phase(dev, out_dir: Path):
         frozen_parameter_names,
     )
     from volume_segmantics_tpu_torch.ops import kernels
+    from volume_segmantics_tpu_torch.models.checkpoint import load_checkpoint
     from volume_segmantics_tpu_torch.scripts import predict_2d_model, train_2d_model
     from volume_segmantics_tpu_torch.utils import hdf5
     from volume_segmantics_tpu_torch.utils.base_data_utils import LazyHDF5Volume
@@ -3781,35 +3898,9 @@ def virtual_phase(dev, out_dir: Path):
                       num_cyc_unfrozen=1, seed=0))
     (szip_dir / cfg.SETTINGS_DIR / cfg.PREDICTION_SETTINGS_FN).write_text(
         settings_text(cfg.PREDICTION_SETTINGS_FN))
-    trainers = []
-
-    class SzipTrainer(train_2d_model.VolSeg2dTrainer):
-        def __init__(self, *args, **kwargs):
-            super().__init__(*args, **kwargs)
-            trainers.append(self)
-
-    train_2d_model.VolSeg2dTrainer = SzipTrainer
-    kernels.reset_launch_counts()
-    t0 = time.perf_counter()
-    try:
-        train_2d_model.main(["--data", str(FIXTURE_DIR / "vessels_szip.h5"),
-                             "--labels", str(FIXTURE_DIR / "vessels_labels_szip.h5"),
-                             "--data_dir", str(szip_dir)])
-    finally:
-        train_2d_model.VolSeg2dTrainer = SzipTrainer.__bases__[0]
-    torch.cuda.synchronize()
-    (trainer,) = trainers
-    szip = {"train_main_s": time.perf_counter() - t0,
-            "launches": dict(kernels.LAUNCHES), "train_steps": trainer.train_steps,
-            "eval_scores": trainer.avg_eval_scores}
-    losses = trainer.avg_train_losses + trainer.avg_valid_losses
-    if not losses or not all(np.isfinite(losses + trainer.avg_eval_scores)):
-        failures.append(f"szip run losses {losses} eval {trainer.avg_eval_scores}")
-    for entry, count in szip["launches"].items():
-        if count != trainer.train_steps:
-            failures.append(f"{entry} launched {count} times in the szip run's "
-                            f"{trainer.train_steps} train steps")
-    del trainers, trainer
+    szip, szip_slices = recorded_train_run(
+        szip_dir, FIXTURE_DIR / "vessels_szip.h5",
+        FIXTURE_DIR / "vessels_labels_szip.h5", "szip", failures)
     szip_labels = {}
     for run, src in (("szip", FIXTURE_DIR / "vessels_szip.h5"),
                      ("gzip", FIXTURE_DIR / "vessels_latest.h5")):
@@ -3826,8 +3917,53 @@ def virtual_phase(dev, out_dir: Path):
         failures.append(f"the szip volume's labels {szip['labels_shape']} "
                         "differ from the gzip copy's")
     res["szip"] = szip
+
+    # 6. What the library writes beyond h5py's defaults: every fixture of
+    # OPTION_READS equal to its array (the best of three reads, MB/s);
+    # model-train-2d (0 + 1 epochs) on the vessels volume in a file of
+    # 4-byte offsets and lengths with unfiltered partial edge chunks, and
+    # its labels as h5py's bool: the slicer hands the trainer step 5's
+    # arrays, the checkpoint's label codes are label_val_False and
+    # label_val_True, and the run writes every output step 5's wrote.
+    t_step = time.perf_counter()
+    options = {"reads": {}}
+    for name, (internal, array) in OPTION_READS.items():
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            with hdf5.File(FIXTURE_DIR / name) as f:
+                got = f[internal][()]
+                sizes = (f.offset_size, f.length_size)
+            times.append(time.perf_counter() - t0)
+        options["reads"][name] = {
+            "s": min(times), "mb_per_s": got.nbytes / min(times) / 1e6,
+            "sizes": sizes, "dtype": str(got.dtype),
+            "equal": bool(got.dtype == arrays[array].dtype
+                          and np.array_equal(got, arrays[array]))}
+        if not options["reads"][name]["equal"]:
+            failures.append(f"fixture {name}:{internal} differs from {array}")
+    bool_dir = root / "bool"
+    (bool_dir / cfg.SETTINGS_DIR).mkdir(parents=True)
+    shutil.copy(szip_dir / cfg.SETTINGS_DIR / cfg.TRAIN_SETTINGS_FN,
+                bool_dir / cfg.SETTINGS_DIR)
+    run, slices = recorded_train_run(
+        bool_dir, FIXTURE_DIR / "vessels_sizes_44_edges.h5",
+        FIXTURE_DIR / "labels_bool.h5", "bool labels", failures)
+    options.update(run)
+    options["slices_equal_szip"] = slices == szip_slices
+    if not options["slices_equal_szip"]:
+        failures.append("the bool-label run's slices differ from the szip run's")
+    (ckpt_file,) = bool_dir.glob("*_trained_2d_model.pytorch")
+    options["label_codes"] = load_checkpoint(ckpt_file)["label_codes"]
+    if options["label_codes"] != {"0": "label_val_False", "1": "label_val_True"}:
+        failures.append(f"the bool-label run's codes {options['label_codes']}")
+    if run["outputs"] != szip["outputs"]:
+        failures.append(f"the bool-label run wrote {run['outputs']}, the szip "
+                        f"run {szip['outputs']}")
+    options["step_s"] = time.perf_counter() - t_step
+    res["options"] = options
     res["launches"] = {entry: res["launches"][entry] + szip["launches"][entry]
-                       for entry in res["launches"]}
+                       + run["launches"][entry] for entry in res["launches"]}
     shutil.rmtree(root, ignore_errors=True)
     res["phase_s"] = time.perf_counter() - t_phase
     res["failures"] = failures
@@ -3835,9 +3971,57 @@ def virtual_phase(dev, out_dir: Path):
     return res
 
 
+def recorded_train_run(data_dir: Path, data: Path, labels: Path, tag: str,
+                       failures: list):
+    """`model-train-2d` on `data` and `labels` with the settings in
+    `data_dir`: ({its seconds, the kernels' launches, the train steps, the
+    eval scores, the files it wrote with their dates cut}, a digest of
+    the slices the trainer was handed). Non-finite losses or a kernel
+    launched other than once a train step go into `failures`."""
+    from volume_segmantics_tpu_torch.ops import kernels
+    from volume_segmantics_tpu_torch.scripts import train_2d_model
+
+    trainers, handed = [], []
+
+    class Recorded(train_2d_model.VolSeg2dTrainer):
+        def __init__(self, data, labels, *args, **kwargs):
+            h = hashlib.sha256()
+            for s in (*data, *labels):
+                h.update(f"{s.shape}{s.dtype}".encode())
+                h.update(np.ascontiguousarray(s).tobytes())
+            handed.append(h.hexdigest())
+            super().__init__(data, labels, *args, **kwargs)
+            trainers.append(self)
+
+    train_2d_model.VolSeg2dTrainer = Recorded
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        train_2d_model.main(["--data", str(data), "--labels", str(labels),
+                             "--data_dir", str(data_dir)])
+    finally:
+        train_2d_model.VolSeg2dTrainer = Recorded.__bases__[0]
+    torch.cuda.synchronize()
+    (trainer,) = trainers
+    run = {"train_main_s": time.perf_counter() - t0,
+           "launches": dict(kernels.LAUNCHES), "train_steps": trainer.train_steps,
+           "eval_scores": trainer.avg_eval_scores,
+           "outputs": sorted(p.name.split("_", 1)[1] for p in data_dir.iterdir()
+                             if p.is_file())}
+    losses = trainer.avg_train_losses + trainer.avg_valid_losses
+    if not losses or not all(np.isfinite(losses + trainer.avg_eval_scores)):
+        failures.append(f"{tag} run losses {losses} eval {trainer.avg_eval_scores}")
+    for entry, count in run["launches"].items():
+        if count != trainer.train_steps:
+            failures.append(f"{entry} launched {count} times in the {tag} run's "
+                            f"{trainer.train_steps} train steps")
+    return run, handed[0]
+
+
 PARALLEL_STEPS_ONE = 10  # NCCL world 1: DP steps, then as many plain ones (20
 # until the spatial phase came)
 PARALLEL_STEPS_TWO = 6  # two gloo ranks on one card, float32 (10 before (d))
+SUBMESH_STEPS = 2  # (2b): the mesh over rank 0 of two, against one process
 PARALLEL_LR = 1e-4  # world 1: bit for bit at any rate
 # Two ranks against one process: Adam moves an element whose gradient is
 # within float32 noise by 2 x lr either way, and over 10 steps at 1e-4 the
@@ -3850,8 +4034,6 @@ PARALLEL_TIMEOUT_S = 600  # a hung rank fails the phase, not the call
 
 def digest(state: dict) -> str:
     """A hash of a state_dict's bytes: equal digests, equal tensors."""
-    import hashlib
-
     h = hashlib.sha256()
     for name, t in state.items():
         h.update(name.encode())
@@ -4001,6 +4183,7 @@ def against_one_process(got, ref, grads64, stats64, covered=0.25) -> dict:
                              for a, b in zip(got["losses"], ref["losses"])),
            "grad_ratio": 0.0, "stats_ratio": 0.0, "param_err": 0.0,
            "n_clear": 0, "n_trainable": 0}
+    fractions = []  # [name, share clear, elements] of the large tensors
     for n, g in ref["grads1"].items():
         noise = max(1e-7, 10 * (g.double() - grads64[n]).abs().max().item())
         if noise < 0.1 * g.abs().max().item():
@@ -4012,6 +4195,8 @@ def against_one_process(got, ref, grads64, stats64, covered=0.25) -> dict:
                 got["params1"][n][clear] - ref["params1"][n][clear]).abs().max().item())
         res["n_clear"] += int(clear.sum())
         res["n_trainable"] += g.numel()
+        if g.numel() >= 100_000:
+            fractions.append([n, int(clear.sum()) / g.numel(), g.numel()])
     for n, v in ref["stats1"].items():
         floor = max(1e-4, 10 * (v.double() - stats64[n]).abs().max().item())
         res["stats_ratio"] = max(res["stats_ratio"], (got["stats1"][n] - v)
@@ -4019,7 +4204,28 @@ def against_one_process(got, ref, grads64, stats64, covered=0.25) -> dict:
     res["ok"] = bool(res["loss_ratio"] <= 1 and res["grad_ratio"] <= 3
                      and res["stats_ratio"] <= 1 and res["param_err"] <= 1e-6
                      and res["n_clear"] > covered * res["n_trainable"])
+    res["least_clear"] = sorted(fractions, key=lambda f: f[1])[:3]
     return res
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """PyTorch's and cuDNN's deterministic algorithms, cuDNN's autotuner
+    off, for the block; yields the warnings it records, among them those of
+    any operation that has no deterministic implementation."""
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled(),
+             torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield caught
+    finally:
+        torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved[2:]
 
 
 def parallel_one_rank(rank, work):
@@ -4070,22 +4276,75 @@ def parallel_pair_rank(rank, work, ckpt, backend):
     blob = torch.load(work / "in.pt", weights_only=False)
     res = {"rank": rank}
 
-    # (2): float32 DP steps on this rank's rows against one process.
+    # (2): float32 DP steps on this rank's rows against one process, every
+    # run under deterministic algorithms, so that the comparison sees the
+    # steps' arithmetic and not run-to-run noise (with cuDNN's defaults one
+    # whole-script card run found 11% of the trainable elements clear of
+    # the two runs' difference where others found 37-43%).
     mesh = get_mesh(device=dev)
-    run = dp_run(blob["state"], blob["images"], blob["masks"], mesh,
-                 PARALLEL_STEPS_TWO, torch.float32, dev, PARALLEL_LR_TWO)
-    res.update(losses=run["losses"], step_ms=statistics.median(run["ms"][1:]),
-               launches=run["launches"], digest=digest(run["final"]))
-    if rank == 0:
-        ref = dp_run(blob["state"], blob["images"], blob["masks"], Mesh(),
-                     PARALLEL_STEPS_TWO, torch.float32, dev, PARALLEL_LR_TWO,
-                     dp=False)
-        res["against_one_process"] = against_one_process(
-            run, ref, *float64_first_step(blob["state"], blob["images"],
-                                          blob["masks"], dev))
-        res["one_process_losses"] = ref["losses"]
+    with deterministic_algorithms() as caught:
+        run = dp_run(blob["state"], blob["images"], blob["masks"], mesh,
+                     PARALLEL_STEPS_TWO, torch.float32, dev, PARALLEL_LR_TWO)
+        res.update(losses=run["losses"], step_ms=statistics.median(run["ms"][1:]),
+                   launches=run["launches"], digest=digest(run["final"]))
+        if rank == 0:
+            ref = dp_run(blob["state"], blob["images"], blob["masks"], Mesh(),
+                         PARALLEL_STEPS_TWO, torch.float32, dev, PARALLEL_LR_TWO,
+                         dp=False)
+            res["against_one_process"] = against_one_process(
+                run, ref, *float64_first_step(blob["state"], blob["images"],
+                                              blob["masks"], dev))
+            res["one_process_losses"] = ref["losses"]
+    res["nondeterministic"] = sorted({str(w.message)[:160] for w in caught})
     del run
     torch.cuda.empty_cache()
+
+    # (2b): a mesh over the first rank alone (`get_mesh(n_devices=1)`, a
+    # group both ranks create): rank 0's DP steps against one process's,
+    # the first step's gradients and the state after each step bit for bit;
+    # rank 1, outside it, raises at its step, then waits at a barrier until
+    # rank 0's two runs are done, so that no sweep of (3) shares the card
+    # with them. Both runs take deterministic algorithms, so that what
+    # differs is the steps' arithmetic, not run-to-run noise.
+    sub = get_mesh(n_devices=1, device=dev)
+    res["submesh"] = {"member": sub.member, "size": sub.size}
+    if sub.member:
+        with deterministic_algorithms() as caught:
+            run = dp_run(blob["state"], blob["images"], blob["masks"], sub,
+                         SUBMESH_STEPS, torch.float32, dev, PARALLEL_LR_TWO,
+                         digests=True)
+            ref = dp_run(blob["state"], blob["images"], blob["masks"], Mesh(),
+                         SUBMESH_STEPS, torch.float32, dev, PARALLEL_LR_TWO,
+                         dp=False, digests=True)
+        res["submesh"].update(
+            losses=run["losses"], one_process_losses=ref["losses"],
+            launches=run["launches"],
+            equal=digest(run["final"]) == digest(ref["final"]),
+            steps_equal=[a == b for a, b in zip(run["digests"], ref["digests"])],
+            grads1_equal=all(torch.equal(g, ref["grads1"][n])
+                             for n, g in run["grads1"].items()),
+            nondeterministic=sorted({str(w.message)[:160] for w in caught}))
+        del run, ref
+    else:
+        from volume_segmantics_tpu_torch.data.losses import get_loss_fn
+        from volume_segmantics_tpu_torch.parallel.train import (
+            build_dp_train_step,
+            make_base_optimizer,
+        )
+
+        model = model_from_state(STRUC, blob["state"], dev)
+        step = build_dp_train_step(
+            model, get_loss_fn(loss_settings("DiceLoss")),
+            make_base_optimizer(model.parameters()), mesh=sub, image_size=S,
+            compute_dtype=torch.float32)
+        try:
+            step(torch.from_numpy(blob["images"]).to(dev),
+                 torch.from_numpy(blob["masks"]).to(dev), PARALLEL_LR_TWO)
+        except ValueError as e:
+            res["submesh"]["error"] = str(e)
+        del model, step
+    torch.cuda.empty_cache()
+    dist.barrier()
 
     # (3): each rank sweeps its half of the 256^3 volume's Z slices.
     vol = np.load(work / "vessels.npy")
@@ -4207,6 +4466,20 @@ def parallel_phase(model_file: Path, out_dir: Path):
         if ranks[0]["losses"] != ranks[1]["losses"] or \
                 ranks[0]["digest"] != ranks[1]["digest"]:
             failures.append(f"{tag}: the ranks' steps differ")
+        inside, outside = pair["submesh"] = [r["submesh"] for r in ranks]
+        if not (inside["member"] and inside["equal"] and all(inside["steps_equal"])
+                and inside["grads1_equal"]
+                and inside["losses"] == inside["one_process_losses"]):
+            failures.append(f"{tag}: the mesh over rank 0 against one process "
+                            f"{inside}")
+        if outside["member"] or "not in this mesh" not in outside.get("error", ""):
+            failures.append(f"{tag}: rank 1 outside the mesh over rank 0 {outside}")
+        for entry in launches:
+            if inside["launches"][entry] != SUBMESH_STEPS:
+                failures.append(f"{tag}: {entry} launched "
+                                f"{inside['launches'][entry]} times in "
+                                f"{SUBMESH_STEPS} steps on the mesh over rank 0")
+            launches[entry] += inside["launches"][entry]
         cli = pair["cli"]
         if [c["mesh"] for c in cli] != [[0, 2], [1, 2]]:
             failures.append(f"{tag}: model-train-2d meshes {[c['mesh'] for c in cli]}")

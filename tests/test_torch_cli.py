@@ -296,7 +296,7 @@ def test_native_jax_checkpoints_raise_naming_the_roadmap(volumes, tmp_path):
     """`model-predict-2d` takes a JAX package `VSTPU1` model file, under
     `.vstpu` as the JAX CLI does, and predicts with it as from the same
     weights in the port's torch format; what the port's msgpack reader
-    does not take (here a bfloat16 leaf) raises naming ROADMAP."""
+    does not take (here a float8 leaf) raises naming ROADMAP."""
     import jax.numpy as jnp
     from flax import serialization
 
@@ -326,9 +326,9 @@ def test_native_jax_checkpoints_raise_naming_the_roadmap(volumes, tmp_path):
             tmp_path, volumes / "d1.h5"))[0]
     np.testing.assert_array_equal(outs["m.vstpu"], outs["m.pytorch"])
     blob["model_state_dict"]["params"]["head_conv"]["bias"] = np.zeros(
-        2, jnp.bfloat16)
+        2, jnp.float8_e4m3fn)
     (tmp_path / "m.vstpu").write_bytes(MAGIC + serialization.msgpack_serialize(blob))
-    with pytest.raises(NotImplementedError, match="bfloat16.*ROADMAP"):
+    with pytest.raises(NotImplementedError, match="float8_e4m3fn.*ROADMAP"):
         predict.main([str(tmp_path / "m.vstpu"), str(volumes / "d1.h5"),
                       "--data_dir", str(tmp_path)], device="cpu")
 

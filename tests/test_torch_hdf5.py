@@ -136,11 +136,11 @@ def test_missing_paths_raise_key_error_and_nxs_fallback_exits(tmp_path):
 
 
 def test_unsupported_features_raise_not_implemented(tmp_path):
-    """A filter the reader does not know, strings and booleans stay
-    refused by name. Superblock version 3, Fletcher-32, soft links, LZF
-    and szip, refused before, now read as h5py reads them
-    (tests/test_torch_hdf5_layouts.py, _links.py and _filters.py test them
-    in full)."""
+    """A filter the reader does not know and strings stay refused by
+    name. Superblock version 3, Fletcher-32, soft links, LZF, szip and
+    booleans, refused before, now read as h5py reads them
+    (tests/test_torch_hdf5_layouts.py, _links.py, _filters.py and
+    _enum.py test them in full)."""
     latest = tmp_path / "latest.h5"
     with h5py.File(latest, "w", libver="latest") as f:
         f["data"] = np.zeros((2, 3, 4), np.uint8)
@@ -161,11 +161,10 @@ def test_unsupported_features_raise_not_implemented(tmp_path):
         h5py.h5d.create(f.id, b"bzip2", h5py.h5t.STD_U8LE,
                         h5py.h5s.create_simple((4, 4)), dcpl=dcpl)
     for name, feature in (("bzip2", "filter 307 \\(unknown"),
-                          ("strings", "datatype class 3"),
-                          ("flags", "datatype class 8")):
+                          ("strings", "datatype class 3")):
         with pytest.raises(NotImplementedError, match=feature):
             hdf5.read(other, name)
-    for name in ("fletcher", "link", "lzf", "szip"):
+    for name in ("fletcher", "link", "lzf", "szip", "flags"):
         assert_read_equals_h5py(other, name)
     with pytest.raises(ValueError, match="not an HDF5 file"):
         (tmp_path / "x.h5").write_bytes(b"not hdf5" * 20)

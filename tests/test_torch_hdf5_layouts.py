@@ -379,15 +379,15 @@ def test_checksum_functions_match_the_library():
 def test_refused_features_raise_not_implemented_by_name(tmp_path, monkeypatch):
     """A filter the reader does not know and strings stay refused by name,
     and so do shared messages kept in the file's shared message index
-    (SOHM), unfiltered partial edge chunks (chunk option flag 1) and dense
-    attribute storage; h5py writes the last alone, and the first two are
-    patched into a file it writes (a committed datatype's shared message
-    made an index entry, a layout message's flags), its header checksum
-    made again. LZF, scale-offset, n-bit (at full and reduced precision),
-    szip, external storage and virtual datasets, refused before, now read
-    as h5py reads them (tests/test_torch_hdf5_filters.py and _virtual.py
-    test them in full, and committed datatypes and reduced precision
-    below)."""
+    (SOHM) and dense attribute storage; h5py writes the last alone, and
+    the first is patched into a file it writes (a committed datatype's
+    shared message made an index entry), its header checksum made again.
+    LZF, scale-offset, n-bit (at full and reduced precision), szip,
+    external storage, virtual datasets and unfiltered partial edge chunks
+    (chunk option flag 1, patched into a layout message here), refused
+    before, now read as h5py reads them (tests/test_torch_hdf5_filters.py,
+    _virtual.py and _edge_chunks.py test them in full, and committed
+    datatypes and reduced precision below)."""
     monkeypatch.chdir(tmp_path)
     path = tmp_path / "r.h5"
     vol = volume("u1")
@@ -436,10 +436,12 @@ def test_refused_features_raise_not_implemented_by_name(tmp_path, monkeypatch):
     for file, name, feature in (
             (path, "bzip2", "filter 307 \\(unknown"),
             (path, "strings", "datatype class 3"),
-            (latest, "sohm", "shared message index \\(SOHM\\)"),
-            (latest, "partial_edge", "unfiltered partial edge chunks")):
+            (latest, "sohm", "shared message index \\(SOHM\\)")):
         with pytest.raises(NotImplementedError, match=feature):
             hdf5.read(file, name)
+    with h5py.File(latest, "r") as f:
+        np.testing.assert_array_equal(hdf5.read(latest, "partial_edge")[0],
+                                      f["partial_edge"][()])
     with hdf5.File(latest) as f, pytest.raises(NotImplementedError,
                                                match="dense attribute storage"):
         f["dense"].attrs

@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: no module of the package, nor
 `chip_smoke.py` or `examples/library_api_torch.py`, imports JAX, flax, optax, the JAX package, or the host
 libraries the card machine lacks (cv2, h5py, yaml, imageio, matplotlib,
-tqdm, msgpack, Pillow, tifffile): settings files, HDF5, flax msgpack, PNG
+tqdm, msgpack, Pillow, tifffile, ml_dtypes), or loads h5py's libhdf5
+through `ctypes`: settings files, HDF5, flax msgpack (bfloat16 too), PNG
 and TIFF go through the port's own readers. The package imports where there is no triton and no
 nvcc, and builds its kernels only at the first CUDA call."""
 
@@ -18,7 +19,7 @@ ROOT = Path(__file__).resolve().parents[1]
 PACKAGE = Path(volume_segmantics_tpu_torch.__file__).parent
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "volume_segmantics_tpu", "cv2",
              "h5py", "yaml", "imageio", "matplotlib", "tqdm", "triton", "msgpack",
-             "PIL", "tifffile"}
+             "PIL", "tifffile", "ml_dtypes"}
 SOURCES = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                              ROOT / "examples" / "library_api_torch.py"]
 
@@ -37,6 +38,29 @@ def imported_roots(path: Path):
 def test_no_forbidden_imports(path):
     assert path.exists(), path
     assert not set(imported_roots(path)) & FORBIDDEN
+
+
+def code_strings(path: Path):
+    """The string constants of `path`'s code, its docstrings left out."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    docs = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)):
+            doc = node.body[0] if node.body else None
+            if isinstance(doc, ast.Expr) and isinstance(doc.value, ast.Constant):
+                docs.add(id(doc.value))
+    return [node.value for node in ast.walk(tree)
+            if isinstance(node, ast.Constant) and isinstance(node.value, str)
+            and id(node) not in docs]
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_libhdf5_through_ctypes(path):
+    """The fixtures' writer calls the libhdf5 h5py bundles through
+    `ctypes`; nothing the port runs does."""
+    assert not [s for s in code_strings(path)
+                if "libhdf5" in s or "h5py.libs" in s or "H5P" in s]
 
 
 def test_every_module_imports_and_no_kernel_is_built():

@@ -77,6 +77,10 @@ def test_collectives_and_the_factor_of_the_ranks(tmp_path):
             2.0 * w for w in (2 * rank, 2 * rank + 1)]
         assert got["averaged"].tolist() == [3.0] * 3  # (2 + 4) / 2
         assert got["rows"] == slice(3 * rank, 3 * rank + 3)
+        # Both ranks' channel-major gradients summed, in that layout.
+        part = got["weights"][2 * rank:2 * rank + 2]
+        assert torch.equal(got["handed"], 2 * part)
+        assert got["handed"].stride() == part.stride() == (16, 64, 4, 1)
 
 
 def test_a_process_alone_is_a_mesh_of_one():

@@ -9,10 +9,21 @@ files and what each holds, `chip_smoke.FIXTURE_OTHERS` the rest.
 
 The committed files were written with h5py 3.14.0 on HDF5 1.14.6 (szip
 through its libaec). Rewriting the older files changes their bytes (their
-object headers hold times): write only the new ones.
+object headers hold times): write only the new ones, as
+
+    python tests/torch_hdf5_fixtures.py write_option_fixtures
+
+does for the files of `write_option_fixtures`. Those use what h5py does
+not offer through its own API: offsets and lengths of other sizes
+(`H5Pset_sizes`, which h5py's low level has) and unfiltered partial edge
+chunks (`H5Pset_chunk_opts`, called through `ctypes` on the libhdf5 that
+h5py loads, here and in the tests only).
 """
 
+import ctypes
+import glob
 import itertools
+import os
 import sys
 from pathlib import Path
 
@@ -264,9 +275,88 @@ def write_sourceless_fixtures(folder: Path) -> None:
         f.create_virtual_dataset("data", layout, fillvalue=chip_smoke.VIRTUAL_FILL)
 
 
+DONT_FILTER_PARTIAL_CHUNKS = 0x2  # H5D_CHUNK_DONT_FILTER_PARTIAL_CHUNKS
+
+
+def set_dont_filter_partial_chunks(dcpl) -> None:
+    """Chunk option flag 1 on a dataset creation property list: the
+    library then stores partial edge chunks unfiltered. h5py has no call
+    for it; this calls the libhdf5 h5py loads (its wheel's own copy)."""
+    folder = os.path.dirname(h5py.__file__) + ".libs"
+    lib = ctypes.CDLL(glob.glob(os.path.join(folder, "libhdf5-*.so*"))[0])
+    set_chunk_opts = lib.H5Pset_chunk_opts  # (hid_t plist, unsigned opts)
+    set_chunk_opts.argtypes = [ctypes.c_int64, ctypes.c_uint]
+    set_chunk_opts.restype = ctypes.c_int  # herr_t
+    if set_chunk_opts(dcpl.id, DONT_FILTER_PARTIAL_CHUNKS) < 0:
+        raise RuntimeError("H5Pset_chunk_opts failed")
+
+
+def sized_file(path: Path, sizes, libver: str) -> h5py.File:
+    """A new h5py File whose offsets and lengths are of `sizes` bytes."""
+    fcpl = h5py.h5p.create(h5py.h5p.FILE_CREATE)
+    fcpl.set_sizes(*sizes)
+    fapl = h5py.h5p.create(h5py.h5p.FILE_ACCESS)
+    if libver == "latest":
+        fapl.set_libver_bounds(h5py.h5f.LIBVER_LATEST, h5py.h5f.LIBVER_LATEST)
+    return h5py.File(h5py.h5f.create(str(path).encode(), h5py.h5f.ACC_TRUNC,
+                                     fcpl=fcpl, fapl=fapl))
+
+
+def edge_dataset(f: h5py.File, array: np.ndarray, chunks, maxshape=None,
+                 fletcher32=False) -> None:
+    """`array` at /data of `f`, shuffled and deflated, partial edge chunks
+    stored unfiltered."""
+    dcpl = h5py.h5p.create(h5py.h5p.DATASET_CREATE)
+    dcpl.set_chunk(chunks)
+    dcpl.set_shuffle()
+    dcpl.set_deflate(6)
+    if fletcher32:
+        dcpl.set_fletcher32()
+    set_dont_filter_partial_chunks(dcpl)
+    maxshape = tuple(h5py.h5s.UNLIMITED if m is None else m
+                     for m in (maxshape or array.shape))
+    ds = h5py.h5d.create(f.id, b"data", h5py.h5t.py_create(array.dtype),
+                         h5py.h5s.create_simple(array.shape, maxshape), dcpl=dcpl)
+    ds.write(h5py.h5s.ALL, h5py.h5s.ALL, np.ascontiguousarray(array))
+
+
+def write_option_fixtures(folder: Path) -> None:
+    """What the library writes beyond h5py's defaults: the vessels labels
+    as h5py's bool; the crop as a big-endian int16 enumeration with gaps
+    between its values; the crop in files of offsets and lengths of (4, 4),
+    (8, 4), (4, 8) and (2, 2) bytes, at superblock 0 and 3; the vessels
+    volume at (4, 4) with unfiltered partial edge chunks (10 x 20 x 20
+    chunks divide neither 48 nor 96: 61 of its 125 chunks are partial and
+    stored raw, 461 KB); and the crop with them under a fixed array, an
+    extensible array and a version 2 B-tree."""
+    arrays = chip_smoke.fixture_arrays()
+    crop, enum = arrays["crop"], arrays["crop_enum"]
+    with h5py.File(folder / "labels_bool.h5", "w") as f:
+        f.create_dataset("data", data=arrays["labels_bool"], chunks=True,
+                         compression="gzip")
+    members = {f"V{v}": int(v) for v in np.unique(enum)}
+    with h5py.File(folder / "crop_enum.h5", "w") as f:
+        f.create_dataset("data", data=enum.astype(">i2"), chunks=(5, 10, 10),
+                         compression="gzip",
+                         dtype=h5py.enum_dtype(members, basetype=">i2"))
+    for name, sizes, libver in chip_smoke.SIZED_FIXTURES:
+        with sized_file(folder / name, sizes, libver) as f:
+            f.create_dataset("data", data=crop, chunks=(5, 10, 10), shuffle=True,
+                             compression="gzip")
+    with sized_file(folder / "vessels_sizes_44_edges.h5", (4, 4), "earliest") as f:
+        edge_dataset(f, arrays["vessels"], (10, 20, 20))
+    for name, maxshape in (("crop_edges_fixed.h5", None),
+                           ("crop_edges_extensible.h5", (None, 24, 24)),
+                           ("crop_edges_btree2.h5", (None, None, 24))):
+        with h5py.File(folder / name, "w", libver="latest") as f:
+            edge_dataset(f, crop, (5, 10, 10), maxshape, fletcher32=True)
+
+
 if __name__ == "__main__":
-    write_fixtures(Path(chip_smoke.FIXTURE_DIR))
-    write_virtual_fixtures(Path(chip_smoke.FIXTURE_DIR))
-    write_szip_fixtures(Path(chip_smoke.FIXTURE_DIR))
-    write_type_fixtures(Path(chip_smoke.FIXTURE_DIR))
-    write_sourceless_fixtures(Path(chip_smoke.FIXTURE_DIR))
+    writers = (write_fixtures, write_virtual_fixtures, write_szip_fixtures,
+               write_type_fixtures, write_sourceless_fixtures,
+               write_option_fixtures)
+    chosen = sys.argv[1:] or [w.__name__ for w in writers]
+    for writer in writers:
+        if writer.__name__ in chosen:
+            writer(Path(chip_smoke.FIXTURE_DIR))

@@ -242,11 +242,19 @@ def collectives_rank(rank: int, out_dir: str) -> None:
     w = torch.arange(4.0)[:, None]
     (w * gathered).sum().backward()  # the same loss on both ranks
     gather_grad = y.grad.clone()
+    # A channel-major gradient of the gathered tensor reaches each rank's
+    # part in that layout, as one process's step hands it on.
+    z = torch.ones(2, 3, 4, 4, requires_grad=True)
+    handed = []
+    z.register_hook(lambda g: handed.append(g))
+    weights = torch.arange(192.0).reshape(3, 4, 4, 4).permute(1, 0, 2, 3)
+    (mesh.all_gather(z) * weights).sum().backward()
     p = torch.nn.Parameter(torch.zeros(3))
     p.grad = torch.full((3,), 2.0 * (rank + 1))
     mesh.average_gradients([p])
     torch.save({"total": total.detach(), "reduce_grad": reduce_grad,
                 "gathered": gathered.detach(), "gather_grad": gather_grad,
+                "handed": handed[0], "weights": weights,
                 "averaged": p.grad, "rows": mesh.rows(6)},
                Path(out_dir, f"rank{rank}.pt"))
 
@@ -329,3 +337,56 @@ def multihost_rank(rank: int, ckpt: str, settings: dict, vol_path: str,
                                           out_stem, output_probs=True)
     torch.save({"range": (start, stop), "refused": refused, "path": str(path)},
                Path(out_dir, f"rank{rank}.pt"))
+
+
+def submesh_rank(rank: int, in_path: str, out_dir: str) -> None:
+    """A mesh over the first rank of two (`get_mesh(n_devices=1)`): rank 0
+    runs each case of `in_path` on it and on a process alone (`Mesh()`),
+    and an eval step on both; rank 1, outside it, saves what a step, a
+    batch split and a collective raise. Both save the sizes of the meshes
+    over 2 and 3 ranks (the whole group) and what `space=2` raises on the
+    mesh of one."""
+    torch.set_num_threads(THREADS)
+    blob = torch.load(in_path, weights_only=False)
+    mesh = get_mesh(n_devices=1, device="cpu")
+    out = {"member": mesh.member, "size": mesh.size,
+           "whole": [get_mesh(n_devices=k, device="cpu").size for k in (2, 3)]}
+    try:
+        get_mesh(n_devices=1, space=2, device="cpu")
+    except ValueError as e:
+        out["space_error"] = str(e)
+    images, masks = blob["images"], blob["masks"]
+    if mesh.member:
+        out["runs"] = []
+        for case in blob["cases"]:
+            run = train_run(case, images, masks, mesh)
+            ref = train_run(case, images, masks, Mesh())
+            out["runs"].append({
+                "losses": run["losses"], "ref_losses": ref["losses"],
+                "stats": run["stats"], "digest": digest(run["final"]),
+                "ref_digest": digest(ref["final"])})
+        model = create_model(blob["cases"][0]["struc"])
+        model.load_state_dict(blob["cases"][0]["state"])
+        evals = [build_dp_eval_step(model, loss_fn("DiceLoss"), mean_iou, 2, m,
+                                    torch.float32)(
+            torch.from_numpy(images), torch.from_numpy(masks), 3)
+                 for m in (mesh, Mesh())]
+        out["evals"] = [(loss.item(), score.item()) for loss, score in evals]
+    else:
+        case = blob["cases"][0]
+        model = create_model(case["struc"])
+        model.load_state_dict(case["state"])
+        step = build_dp_train_step(
+            model, loss_fn("DiceLoss"),
+            make_base_optimizer(list(model.parameters()), 0.01), mesh=mesh,
+            compute_dtype=torch.float32, augment=False)
+        out["errors"] = []
+        for call in (lambda: step(torch.from_numpy(images),
+                                  torch.from_numpy(masks), 1e-5),
+                     lambda: mesh.rows(images.shape[0]),
+                     lambda: mesh.all_reduce(torch.ones(2))):
+            try:
+                call()
+            except ValueError as e:
+                out["errors"].append(str(e))
+    torch.save(out, Path(out_dir, f"rank{rank}.pt"))

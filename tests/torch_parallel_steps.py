@@ -122,16 +122,17 @@ def make_runs(tmp, jax_losses, self_cases):
                            cases=all_cases, ranks=ranks)
 
 
-def jax_steps(bundle, images, masks, loss, frozen):
-    """JAX's DP step on the 2-device mesh, STEPS times: the losses and the
-    state_dict after each step."""
+def jax_steps(bundle, images, masks, loss, frozen, n_devices=RANKS):
+    """JAX's DP step on the mesh of its first `n_devices` devices (2 by
+    default), STEPS times: the losses and the state_dict after each
+    step."""
     tx = jax_make_base_optimizer(0.01)
     params = jax.tree_util.tree_map(jnp.array, bundle.params)
     batch_stats = jax.tree_util.tree_map(jnp.array, bundle.batch_stats)
     opt_state = tx.init(params)
     step = build_dp_train_step(
         bundle.module, jax_loss_fn(loss), tx, _freeze_mask(params, frozen),
-        num_labels=2, image_size=S, mesh=jax_get_mesh(RANKS),
+        num_labels=2, image_size=S, mesh=jax_get_mesh(n_devices),
         compute_dtype=jnp.float32, augment=False)
     losses, states = [], []
     for _ in range(STEPS):

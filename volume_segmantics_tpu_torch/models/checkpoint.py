@@ -33,7 +33,10 @@ from volume_segmantics_tpu_torch.models.torch_export import (
 )
 from volume_segmantics_tpu_torch.utils import base_data_utils
 from volume_segmantics_tpu_torch.utils.base_data_utils import ModelType
-from volume_segmantics_tpu_torch.utils.flax_msgpack import msgpack_restore
+from volume_segmantics_tpu_torch.utils.flax_msgpack import (
+    msgpack_restore,
+    numpy_leaves,
+)
 
 MAGIC = b"VSTPU1\x00\x00"
 REFERENCE_MODULE = "volume_segmantics.utilities.base_data_utils"
@@ -116,15 +119,18 @@ def save_checkpoint(path, model: torch.nn.Module, model_struc_dict: dict,
 
 
 def _load_native(data: bytes) -> Dict[str, Any]:
-    """A JAX package `VSTPU1` file, its weights mapped to the port's names.
-    Its optax optimizer state is not read: the port cannot use it."""
+    """A JAX package `VSTPU1` file, its weights mapped to the port's names
+    (bfloat16 ones as float32, exactly). Its optax optimizer state is not
+    read: the port cannot use it. Its other leaves come back as
+    `msgpack_restore` gives them: bfloat16 arrays as `torch.bfloat16`
+    tensors of the same bits, chunked arrays whole."""
     blob = msgpack_restore(data[len(MAGIC):])
     struc = dict(blob["model_struc_dict"])
     if isinstance(struc.get("type"), str):
         struc["type"] = ModelType[struc["type"]]
     blob["model_struc_dict"] = struc
     blob["model_state_dict"] = smp_state_dict_from_variables(
-        blob["model_state_dict"], struc
+        numpy_leaves(blob["model_state_dict"]), struc
     )
     blob["optimizer_state_dict"] = {}
     return blob

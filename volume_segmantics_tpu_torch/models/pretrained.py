@@ -22,7 +22,10 @@ from volume_segmantics_tpu_torch.models.torch_export import (
     encoder_state_dict_from_variables,
     encoder_variables_from_state_dict,
 )
-from volume_segmantics_tpu_torch.utils.flax_msgpack import msgpack_restore
+from volume_segmantics_tpu_torch.utils.flax_msgpack import (
+    msgpack_restore,
+    numpy_leaves,
+)
 
 WEIGHTS_DIR_ENV = "VOLSEG_TPU_WEIGHTS_DIR"
 
@@ -100,7 +103,7 @@ def load_pretrained_encoder(model: torch.nn.Module, encoder_name: str,
             "convert_torch_encoder` to enable them."
         )
         return False
-    blob = msgpack_restore(path.read_bytes())
+    blob = numpy_leaves(msgpack_restore(path.read_bytes()))
     params = _with_adapted_first_conv(blob["params"], in_channels)
     own = model.state_dict()
     stats = (blob.get("batch_stats") or encoder_variables_from_state_dict(

@@ -16,6 +16,14 @@ the factor this leaves).
 
 A process with no group is a mesh of one: rank 0 of 1, no collective.
 
+`get_mesh(n_devices=k)` with k below the world size spans ranks 0..k-1, as
+the JAX package's mesh spans its first k devices: a group of those ranks
+(`dist.new_group`, which every rank of the world calls, in the same
+order), over which ranks 0..k-1 step and evaluate as a world of k would.
+A rank at or past k gets a mesh that is not its own (`Mesh.member`
+False): every step, batch split and collective on it raises ValueError,
+so it never computes on part of the data without a word.
+
 With `space` > 1 the mesh is 2-D, (data, space), laid out as the JAX
 package lays out its devices: rank r sits at data row r // space and space
 column r % space. A space group (one `dist.new_group` each, created by
@@ -93,6 +101,18 @@ def check_space(space: int, count: int) -> None:
                          f"count ({count}).")
 
 
+def _summed(t: torch.Tensor, group) -> torch.Tensor:
+    """The SUM over the ranks of `t`, laid out as `t` is. The collectives
+    carry a contiguous buffer; one process's step, which has none, goes on
+    with `t` in its own layout, and a later reduction adds in that layout's
+    order (on a GPU a convolution bias's gradient, summed over a
+    channel-major gradient, came out in other bits than over an NCHW copy),
+    so a mesh of one rank keeps the layout to step as one process does."""
+    out = t.contiguous().clone()
+    dist.all_reduce(out, group=group)
+    return out if t.is_contiguous() else torch.empty_like(t).copy_(out)
+
+
 class _AllReduceSum(torch.autograd.Function):
     """Sum over the ranks. Its adjoint is the same sum of the incoming
     gradients: every rank's output feeds its own graph below."""
@@ -100,15 +120,11 @@ class _AllReduceSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         ctx.group = group
-        out = x.contiguous().clone()
-        dist.all_reduce(out, group=group)
-        return out
+        return _summed(x, group)
 
     @staticmethod
     def backward(ctx, grad):
-        out = grad.contiguous().clone()
-        dist.all_reduce(out, group=ctx.group)
-        return out, None
+        return _summed(grad, ctx.group), None
 
 
 class _Place(torch.autograd.Function):
@@ -129,9 +145,7 @@ class _Place(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        out = grad.contiguous().clone()
-        dist.all_reduce(out, group=ctx.group)
-        return out[ctx.region], None, None, None
+        return _summed(grad, ctx.group)[ctx.region], None, None, None
 
 
 def band(height: int, parts: int, index: int) -> slice:
@@ -150,13 +164,17 @@ class Mesh:
     the global batch and split image height (`space_group` holds them;
     None at space size 1), so there are `data_size` = size / space_size
     rows of ranks. This rank is at data row `data_index`, space column
-    `space_index`."""
+    `space_index`. On a rank outside the mesh (`member` False: a mesh over
+    the first `size` ranks of a larger world) every step, batch split and
+    collective raises ValueError (`check_member`)."""
 
     def __init__(self, group=None, rank: int = 0, size: int = 1,
-                 device=None, space_size: int = 1, space_group=None):
+                 device=None, space_size: int = 1, space_group=None,
+                 member: bool = True):
         self.group = group
         self.rank = rank
         self.size = size
+        self.member = member
         self.device = torch.device("cpu" if device is None else device)
         self.space_size = space_size
         self.space_group = space_group
@@ -167,9 +185,18 @@ class Mesh:
         # A handle on the process group: a copied model shares it.
         return self
 
+    def check_member(self) -> None:
+        """ValueError on a rank outside the mesh."""
+        if not self.member:
+            raise ValueError(
+                f"rank {self.rank} is not in this mesh over ranks 0-{self.size - 1} "
+                f"(get_mesh(n_devices={self.size})): it takes no part in a "
+                "data-parallel step, prediction or collective")
+
     def rows(self, n_global: int) -> slice:
         """This rank's contiguous rows of a global batch of `n_global`:
         its data row's share."""
+        self.check_member()
         if n_global % self.data_size:
             raise ValueError(f"a global batch of {n_global} does not split "
                              f"over {self.data_size} ranks")
@@ -182,6 +209,7 @@ class Mesh:
 
     def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
         """Differentiable SUM over the ranks (x itself on a mesh of one)."""
+        self.check_member()
         return x if self.group is None else _AllReduceSum.apply(x, self.group)
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
@@ -189,6 +217,7 @@ class Mesh:
         concatenated along dim 0 and, on a space mesh, the space group's
         bands of rows (`band`) along dim -2, whose global height is x's
         width (the steps' images are square)."""
+        self.check_member()
         if self.group is None:
             return x
         n = x.shape[0]
@@ -215,6 +244,7 @@ class Mesh:
         into the rank that holds the row, once, so a rank's gradients are
         R times what its band and rows contribute to dL/dtheta, as
         before."""
+        self.check_member()
         if self.group is None:
             return
         grads = [p.grad for p in params if p.grad is not None]
@@ -230,6 +260,7 @@ class Mesh:
 
     def broadcast_object(self, obj):
         """Rank 0's `obj` (any picklable object) on every rank."""
+        self.check_member()
         if self.group is None:
             return obj
         box = [obj]
@@ -247,26 +278,31 @@ class Mesh:
 
 def get_mesh(n_devices: Optional[int] = None, space: int = 1,
              device=None) -> Mesh:
-    """The mesh over every rank of the process group (joined here when
-    `VOLSEG_TPU_DISTRIBUTED=1`), or over this process alone when there is
-    none: (world / space) data x `space` space, `space` dividing the world
-    size (`check_space`). `n_devices` below the world size (a mesh over
-    some of the ranks) is not ported. `device` (default: the GPU, this
-    rank's under NCCL) is where the rank works."""
+    """The mesh over the first `n_devices` ranks of the process group
+    (every rank by default; joined here when `VOLSEG_TPU_DISTRIBUTED=1`),
+    or over this process alone when there is none: (size / space) data x
+    `space` space, `space` dividing the mesh's size (`check_space`).
+    `n_devices` at or above the world size is the whole group, as the JAX
+    package's `devices[:n_devices]`; below it the mesh is a group of ranks
+    0..n_devices-1, which every rank must call `get_mesh` to create, and a
+    rank past it gets a mesh it is not a member of (`Mesh.member`).
+    `device` (default: the GPU, this rank's under NCCL) is where the rank
+    works."""
     maybe_initialize_distributed(device)
     if dist.is_initialized():
         size, rank, group = dist.get_world_size(), dist.get_rank(), dist.group.WORLD
     else:
         size, rank, group = 1, 0, None
+    if n_devices is not None and n_devices < 1:
+        raise ValueError(f"a mesh over {n_devices} devices")
     if n_devices is not None and n_devices < size:
-        raise NotImplementedError(
-            f"a mesh over {n_devices} of the group's {size} ranks is not "
-            "ported: the data mesh spans the whole group.")
+        # Every rank creates every group, in the same order.
+        size, made = n_devices, dist.new_group(list(range(n_devices)))
+        group = made if rank < size else None
     space = int(space or 1)
     check_space(space, size)
     space_group = None
     if 1 < space < size:
-        # Every rank creates every group, in the same order.
         for row in range(size // space):
             made = dist.new_group(list(range(row * space, (row + 1) * space)))
             if row == rank // space:
@@ -276,7 +312,7 @@ def get_mesh(n_devices: Optional[int] = None, space: int = 1,
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
-    return Mesh(group, rank, size, dev, space, space_group)
+    return Mesh(group, rank, size, dev, space, space_group, member=rank < size)
 
 
 def space_size(mesh: Mesh) -> int:
@@ -293,6 +329,7 @@ def replicate(module_or_tensors, mesh: Mesh):
     """Broadcast rank 0's values into every rank's tensors in place: a
     module's parameters and buffers, or an iterable of tensors. Returns
     its argument."""
+    mesh.check_member()
     if mesh.group is None:
         return module_or_tensors
     if isinstance(module_or_tensors, torch.nn.Module):

@@ -19,7 +19,9 @@ gradients are averaged over the ranks in one all-reduce a step
 (`Mesh.average_gradients` says why the mean), over the parameters that
 are trainable when the step is built, so a frozen step and an unfrozen one
 each reduce their own set. On a mesh of one process the collectives are
-the identity: `build_train_step` is the data-parallel step there.
+the identity: `build_train_step` is the data-parallel step there. On a
+rank outside its mesh (`get_mesh(n_devices=k)`, rank k or past) a step
+raises ValueError.
 
 Over a (data, space) mesh (`spatial_partitions` > 1) every rank of a space
 group augments its data row's whole images, with the global batch's draws
@@ -121,6 +123,7 @@ def build_dp_train_step(model: torch.nn.Module, loss_fn: Callable,
     trainable = [p for group in optimizer.param_groups for p in group["params"]]
 
     def step(images_u8: torch.Tensor, masks_u8: torch.Tensor, lr: float):
+        mesh.check_member()
         model.train()
         if augment:
             imgs, msks = augment_batch_u8(generator, images_u8, masks_u8,
@@ -168,6 +171,7 @@ def build_dp_eval_step(model: torch.nn.Module, loss_fn: Callable,
 
     @torch.no_grad()
     def step(images_u8: torch.Tensor, masks_u8: torch.Tensor, n_valid: int):
+        mesh.check_member()
         model.eval()
         band = _band(images_u8, mesh)
         logits = mesh.all_gather(_forward(

@@ -9,27 +9,53 @@ flax and may have no `msgpack`, so the port carries its own codec, as
 What is supported, on both sides:
 - maps with str keys, arrays (lists), nil, bool, ints of every msgpack
   width, float32 and float64, str and bin;
-- ext type 1, a numpy array: the msgpack of `(shape, dtype name, C-order
-  buffer)`;
-- ext type 3, a numpy scalar, stored as a 0-d array.
+- ext type 1, an array: the msgpack of `(shape, dtype name, C-order
+  buffer)`, of numpy's bool, int, uint, float and complex types, and of
+  bfloat16, which numpy lacks: such an array reads as a `torch.bfloat16`
+  tensor, and a `torch.bfloat16` tensor is written as one (a tensor of
+  another type is written as its numpy array);
+- ext type 2, a Python complex: the msgpack of `(real, imag)`;
+- ext type 3, a numpy scalar, stored as a 0-d array; a bfloat16 one reads
+  as a `BFloat16Scalar`, a 0-d `torch.bfloat16` tensor that is written
+  back as ext type 3 (a plain 0-d tensor is written as ext type 1, as
+  flax writes a 0-d array);
+- flax's chunked arrays: an array of more than `CHUNK_LIMIT` bytes (flax's
+  MAX_CHUNK_SIZE) that is a map's value, or the whole tree, is written as
+  the map {"__msgpack_chunked_array__": True, "shape": {"0": ...},
+  "chunks": {"0": ..., ...}} of flat pieces of CHUNK_LIMIT bytes (those
+  keys in that order), and such a map in a map, or as the tree, reads as
+  the array whole, as flax reassembles it.
 
 `msgpack_serialize(tree)` gives the bytes flax gives for the same tree:
-map keys sorted, Python floats as float64, every numpy array or scalar an
-ext, each header in its smallest form. Ext type 2 (a Python complex), flax's
-chunked arrays (`__msgpack_chunked_array__`, arrays over 2**30 bytes) and
-any dtype outside numpy's bool, int, uint and float types (bfloat16
-included: the JAX package keeps its parameters in float32) raise
-NotImplementedError.
+map keys sorted, Python floats as float64, every array or numpy scalar an
+ext, each header in its smallest form. Any other dtype (float8 types,
+int4, ...) and any other ext type raise NotImplementedError.
 """
 
 import struct
 from typing import Any
 
 import numpy as np
+import torch
 
 CHUNK_LIMIT = 2**30  # flax's MAX_CHUNK_SIZE: larger arrays are chunked
 EXT_NDARRAY, EXT_COMPLEX, EXT_NPSCALAR = 1, 2, 3
-_KINDS = {"b", "i", "u", "f"}  # bool, int, uint, float
+CHUNKED = "__msgpack_chunked_array__"
+BFLOAT16 = "bfloat16"  # a dtype name numpy does not know
+# numpy's own bool, int, uint, float and complex types (whatever other
+# types a package such as ml_dtypes registers with numpy).
+_NAMES = {"bool", "float16", "float32", "float64", "complex64", "complex128",
+          *(f"{k}int{b}" for k in ("", "u") for b in (8, 16, 32, 64))}
+
+
+class BFloat16Scalar(torch.Tensor):
+    """A bfloat16 numpy scalar as the port holds it: a 0-d `torch.bfloat16`
+    tensor that `msgpack_serialize` writes as ext type 3, as flax writes an
+    `ml_dtypes.bfloat16` scalar. Make one with `torch.tensor(v,
+    dtype=torch.bfloat16).as_subclass(BFloat16Scalar)`; what a torch
+    function makes of it is a plain tensor."""
+
+    __torch_function__ = torch._C._disabled_torch_function_impl
 
 
 def _unsupported(what: str) -> NotImplementedError:
@@ -40,14 +66,11 @@ def _unsupported(what: str) -> NotImplementedError:
 
 
 def _dtype(name: str) -> np.dtype:
-    """numpy dtype of a flax dtype name; only bool, int, uint and float."""
-    try:
-        dtype = np.dtype(name)
-    except TypeError:
-        dtype = None
-    if dtype is None or dtype.kind not in _KINDS or dtype.name != name:
+    """numpy dtype of a flax dtype name; only bool, int, uint, float and
+    complex."""
+    if name not in _NAMES:
         raise _unsupported(f"Array dtype {name!r}")
-    return dtype
+    return np.dtype(name)
 
 
 # ---------------------------------------------------------------------------
@@ -102,12 +125,63 @@ def _pack_ext(out: bytearray, code: int, data: bytes) -> None:
     out += data
 
 
-def _ndarray_bytes(arr: np.ndarray) -> bytes:
-    """flax's `_ndarray_to_bytes`: the msgpack of (shape, name, buffer)."""
-    _dtype(arr.dtype.name)
+def _ndarray_bytes(arr) -> bytes:
+    """flax's `_ndarray_to_bytes`: the msgpack of (shape, name, buffer), of
+    a numpy array or a `torch.bfloat16` tensor."""
+    if isinstance(arr, torch.Tensor):
+        name = BFLOAT16
+        data = arr.detach().cpu().contiguous().view(torch.int16).numpy().tobytes()
+    else:
+        name = _dtype(arr.dtype.name).name
+        data = arr.tobytes("C")
     out = bytearray()
-    _pack(out, [list(arr.shape), arr.dtype.name, arr.tobytes("C")])
+    _pack(out, [list(arr.shape), name, data])
     return bytes(out)
+
+
+def _as_array(x):
+    """A tensor leaf as flax would see it: a bfloat16 tensor stays one,
+    any other becomes its numpy array."""
+    if x.dtype == torch.bfloat16:
+        return x
+    return x.detach().cpu().numpy()
+
+
+def _nbytes(arr) -> int:
+    return (arr.numel() * arr.element_size() if isinstance(arr, torch.Tensor)
+            else arr.size * arr.dtype.itemsize)
+
+
+def _pack_chunked(out: bytearray, arr) -> None:
+    """flax's `_chunk`: a map of the marker, the shape and flat pieces of
+    CHUNK_LIMIT bytes, in that order, each numbered in order ("0", "1",
+    ..., "10"): flax builds it after its tree is sorted."""
+    itemsize = (arr.element_size() if isinstance(arr, torch.Tensor)
+                else arr.dtype.itemsize)
+    size = max(1, int(CHUNK_LIMIT / itemsize))
+    flat = arr.reshape(-1)
+    _pack_len(out, 3, 0x80, 16, (None, 0xDE, 0xDF))
+    _pack(out, CHUNKED)
+    _pack(out, True)
+    for key, items in (("shape", [int(n) for n in arr.shape]),
+                       ("chunks", [flat[i:i + size]
+                                   for i in range(0, flat.shape[0], size)])):
+        _pack(out, key)
+        _pack_len(out, len(items), 0x80, 16, (None, 0xDE, 0xDF))
+        for i, item in enumerate(items):
+            _pack(out, str(i))
+            _pack(out, item)
+
+
+def _pack_leaf(out: bytearray, x) -> None:
+    """A map's value or the whole tree: an array over CHUNK_LIMIT bytes is
+    chunked, as flax chunks those (and no array in a list)."""
+    if isinstance(x, torch.Tensor):
+        x = _as_array(x)
+    if isinstance(x, (np.ndarray, torch.Tensor)) and _nbytes(x) > CHUNK_LIMIT:
+        _pack_chunked(out, x)
+    else:
+        _pack(out, x)
 
 
 def _pack(out: bytearray, x: Any) -> None:
@@ -134,22 +208,24 @@ def _pack(out: bytearray, x: Any) -> None:
         _pack_len(out, len(x), 0x80, 16, (None, 0xDE, 0xDF))
         for key in sorted(x):
             _pack(out, key)
-            _pack(out, x[key])
+            _pack_leaf(out, x[key])
     elif t is list:
         _pack_len(out, len(x), 0x90, 16, (None, 0xDC, 0xDD))
         for item in x:
             _pack(out, item)
+    elif isinstance(x, BFloat16Scalar):
+        _pack_ext(out, EXT_NPSCALAR, _ndarray_bytes(x.as_subclass(torch.Tensor)))
+    elif isinstance(x, torch.Tensor):
+        x = _as_array(x)
+        _pack_ext(out, EXT_NDARRAY, _ndarray_bytes(x))
     elif isinstance(x, np.ndarray):
-        if x.nbytes > CHUNK_LIMIT:
-            raise _unsupported(
-                f"An array of {x.nbytes} bytes (flax chunks arrays over "
-                f"{CHUNK_LIMIT} bytes)"
-            )
         _pack_ext(out, EXT_NDARRAY, _ndarray_bytes(x))
     elif isinstance(x, np.generic):
         _pack_ext(out, EXT_NPSCALAR, _ndarray_bytes(np.asarray(x)))
     elif t is complex:
-        raise _unsupported("A complex number (msgpack ext type 2)")
+        data = bytearray()
+        _pack(data, [x.real, x.imag])  # msgpack.packb((real, imag))
+        _pack_ext(out, EXT_COMPLEX, bytes(data))
     else:
         raise TypeError(f"can not serialize {t.__name__!r} object")
 
@@ -158,7 +234,7 @@ def msgpack_serialize(tree: Any) -> bytes:
     """Bytes of `tree` (nested dicts and lists of the supported leaves),
     equal to `flax.serialization.msgpack_serialize(tree)`."""
     out = bytearray()
-    _pack(out, tree)
+    _pack_leaf(out, tree)
     return bytes(out)
 
 
@@ -204,9 +280,13 @@ class _Reader:
         if code == EXT_NDARRAY:
             return _ndarray_from_bytes(data)
         if code == EXT_NPSCALAR:
-            return _ndarray_from_bytes(data)[()]
+            scalar = _ndarray_from_bytes(data)
+            if isinstance(scalar, torch.Tensor):
+                return scalar.as_subclass(BFloat16Scalar)
+            return scalar[()]
         if code == EXT_COMPLEX:
-            raise _unsupported("A complex number (msgpack ext type 2)")
+            real, imag = _Reader(data).read()
+            return complex(real, imag)
         raise _unsupported(f"msgpack ext type {code}")
 
     def read(self):
@@ -250,33 +330,60 @@ class _Reader:
         raise ValueError(f"invalid msgpack byte 0x{b:02x} at {self.pos - 1}")
 
 
-def _ndarray_from_bytes(data: bytes) -> np.ndarray:
+def _ndarray_from_bytes(data: bytes):
     shape, name, buffer = _Reader(data).read()
+    if name == BFLOAT16:
+        bits = np.frombuffer(buffer, np.int16).copy()
+        return torch.from_numpy(bits).view(torch.bfloat16).reshape(shape)
     return np.frombuffer(buffer, dtype=_dtype(name)).reshape(shape, order="C")
 
 
-def _refuse_chunked(tree):
+def _unchunk(tree: dict):
+    """flax's `_unchunk`: the pieces joined and shaped."""
+    pieces = [tree["chunks"][str(i)] for i in range(len(tree["chunks"]))]
+    shape = tuple(tree["shape"][str(i)] for i in range(len(tree["shape"])))
+    if isinstance(pieces[0], torch.Tensor):
+        return torch.cat(pieces).reshape(shape)
+    return np.concatenate(pieces).reshape(shape)
+
+
+def _unchunk_leaves(tree):
+    """flax's `_unchunk_array_leaves_in_place`: a chunked map as the tree,
+    or as a map's value at any depth of maps, becomes its array."""
     if isinstance(tree, dict):
-        if "__msgpack_chunked_array__" in tree:
-            raise _unsupported(
-                "A chunked array (flax's __msgpack_chunked_array__, arrays "
-                f"over {CHUNK_LIMIT} bytes)"
-            )
-        for value in tree.values():
-            _refuse_chunked(value)
-    elif isinstance(tree, list):
-        for value in tree:
-            _refuse_chunked(value)
+        if CHUNKED in tree:
+            return _unchunk(tree)
+        for key, value in tree.items():
+            if isinstance(value, dict):
+                tree[key] = _unchunk_leaves(value)
+    return tree
 
 
 def msgpack_restore(data: bytes) -> Any:
     """The tree `flax.serialization.msgpack_restore(data)` gives: dicts,
-    lists, Python scalars, str, bytes and read-only numpy arrays."""
+    lists, Python scalars, str, bytes, read-only numpy arrays (writable
+    where reassembled from chunks), `torch.bfloat16` tensors where flax
+    gives bfloat16 arrays and `BFloat16Scalar`s where it gives bfloat16
+    scalars."""
     reader = _Reader(data)
     tree = reader.read()
     if reader.pos != len(reader.data):
         raise ValueError(
             f"msgpack data has {len(reader.data) - reader.pos} extra bytes"
         )
-    _refuse_chunked(tree)
+    return _unchunk_leaves(tree)
+
+
+def numpy_leaves(tree):
+    """`tree` with each tensor leaf (in dicts and lists) as a numpy array,
+    a bfloat16 one as float32 (exactly), a `BFloat16Scalar` as a float32
+    scalar: what the weight mappings take."""
+    if isinstance(tree, dict):
+        return {k: numpy_leaves(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [numpy_leaves(v) for v in tree]
+    if isinstance(tree, BFloat16Scalar):
+        return tree.float().numpy()[()]
+    if isinstance(tree, torch.Tensor):
+        return tree.float().numpy()
     return tree

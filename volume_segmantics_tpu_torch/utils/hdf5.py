@@ -5,7 +5,11 @@ The reader takes what h5py 3 writes at any `libver` bound, as h5py reads
 it:
 - a user block before the superblock (looked for at 0, 512, 1024, 2048,
   ..., as the library does; addresses count from the superblock), and
-  superblock versions 0 to 3;
+  superblock versions 0 to 3, with offsets and lengths of 2, 4 or 8 bytes
+  (`H5Pset_sizes`: every address read at the offsets' size, all ones
+  being `UNDEF`, and every length at the lengths', as the library decodes
+  them: an unlimited dimension under lengths of 4 bytes reads back as
+  2**32 - 1, as h5py's `maxshape` gives it);
 - version 1 object headers and version 2 ones (`OHDR`, with their `OCHK`
   continuation blocks);
 - groups of both kinds: symbol tables (v1 B-tree, SNOD nodes and a local
@@ -22,13 +26,17 @@ it:
 - fixed-point (1, 2, 4 or 8 bytes, signed or not) datatypes in either
   byte order, of full precision or of fewer bits at a bit offset (each
   value converted to the full-width type as the library converts it,
-  sign-extended), and IEEE float (2, 4 or 8 bytes) of full precision; a
+  sign-extended), and IEEE float (2, 4 or 8 bytes) of full precision;
+  enumerations (class 8) as their integer base, and h5py's booleans (an
+  enumeration of exactly FALSE = 0 and TRUE = 1, as h5py writes every
+  numpy bool array) as numpy bool, as h5py reads them; a
   datatype committed to the file (a named type: the dataset's or an
   attribute's datatype message shared from the type's object header);
 - contiguous, compact and chunked layouts (layout message versions 3 and
   4), with chunks found through each index the library writes: the
   version 1 B-tree, a single chunk, the implicit index, the fixed array,
-  the extensible array and the version 2 B-tree; partial edge chunks, and
+  the extensible array and the version 2 B-tree; partial edge chunks,
+  filtered or (chunk option flag 1, `H5Pset_chunk_opts`) stored raw, and
   chunks never written (these take the fill value);
 - the filters deflate, shuffle, Fletcher-32, LZF (h5py's filter 32000),
   scale-offset (integers, and floats with a decimal scale, bit for bit as
@@ -46,7 +54,8 @@ it:
   not, in each encoding the library writes), unlimited mappings and
   printf-style (%b) source names, resolved when the dataset is opened as
   h5py's default view resolves them (`shape` follows the sources found
-  then); sources of another type converted as the library converts them.
+  then); sources of another type converted as the library converts them,
+  an enumeration's only from one of the same base and kind.
   A source file is looked for as an external link's, under
   $HDF5_VDS_PREFIX; "." is the same file. A source is opened through this
   reader (chunked, filtered, external or itself virtual) once a dataset; a
@@ -70,14 +79,15 @@ datasets, is a job of one thread pool. Every other feature raises
 NotImplementedError naming it: other filters, floats of reduced
 precision, scale-offset's E-scale method, point selections in virtual
 dataset mappings, virtual sources of floats under integers or of other
-types under float16, shared object header messages kept in the file's
-shared message index (SOHM), unfiltered partial edge chunks, other
-datatypes, offsets that are not 8 bytes, steps and fancy indexing, and
-more. A path that is not in the file raises KeyError, as h5py does.
-`ds.attrs` gives a dataset's attributes kept in its object header
-(attribute messages of versions 1 to 3) whose types the reader knows,
-committed ones too, numpy scalars for scalar ones as h5py gives them;
-dense attribute storage and shared attribute messages raise
+types under float16, or of enumerations under another type, shared
+object header messages kept in the file's shared message index (SOHM),
+enumerations of a reduced-precision base, other datatypes, offsets or
+lengths of 16 bytes or more, steps and fancy indexing, and more. A path
+that is not in the file raises KeyError, as h5py does. `ds.attrs` gives a
+dataset's attributes kept in its object header (attribute messages of
+versions 1 to 3) whose types the reader knows, committed ones and
+enumerations too, numpy scalars for scalar ones as h5py gives them; dense
+attribute storage and shared attribute messages raise
 NotImplementedError.
 
 The writer makes what ``h5py.File(p, "w").create_dataset(path, data=...,
@@ -108,7 +118,9 @@ from volume_segmantics_tpu_torch.utils import hdf5_filters
 from volume_segmantics_tpu_torch.utils.config import HDF5_GZIP_LEVEL
 
 SIGNATURE = b"\x89HDF\r\n\x1a\n"
-UNDEF = 0xFFFFFFFFFFFFFFFF  # HDF5's undefined address
+UNDEF = 0xFFFFFFFFFFFFFFFF  # HDF5's undefined address (or unlimited length)
+# Sizes of offsets and lengths a superblock may give, and their struct codes.
+SIZE_CODES = {2: "H", 4: "I", 8: "Q"}
 MAX_LINK_TRAVERSALS = 16  # soft and external links one lookup may follow
 
 # Object header message types.
@@ -153,8 +165,8 @@ BTREE2_LINK_NAMES, BTREE2_CHUNKS, BTREE2_FILTERED_CHUNKS = 5, 10, 11
 # B-tree node capacities of a superblock version 0 file (2K entries a node):
 # group nodes K = 16, chunk index nodes K = 32; group leaf (SNOD) K = 4.
 GROUP_NODE_ENTRIES, CHUNK_NODE_ENTRIES, SNOD_ENTRIES = 32, 64, 8
-SYMBOL_ENTRY_SIZE = 40
-BTREE_HEADER_SIZE = 24
+DATATYPE_ENUM = 8  # the datatype class of an enumeration
+BOOL_MEMBERS = {b"FALSE": 0, b"TRUE": 1}  # h5py's booleans
 
 # IEEE layouts by size: (exponent location, exponent size, mantissa
 # location, mantissa size, exponent bias).
@@ -286,6 +298,19 @@ def _log2(n: int) -> int:
     return n.bit_length() - 1
 
 
+def _symbol_entry_size(offset_size: int, length_size: int) -> int:
+    """Bytes of a symbol table entry: the name's heap offset (a length) and
+    the object header's address, the cache type, 4 reserved bytes, 16 of
+    scratch."""
+    return length_size + offset_size + 24
+
+
+def _btree_header_size(offset_size: int) -> int:
+    """Bytes of a version 1 B-tree node's header: `TREE`, the node type,
+    level and entry count, the left and right siblings' addresses."""
+    return 8 + 2 * offset_size
+
+
 # ----------------------------------------------------------------------
 # Reader
 # ----------------------------------------------------------------------
@@ -343,6 +368,25 @@ class File:
     def _uint(self, offset, size) -> int:
         return int.from_bytes(self._buf[offset:offset + size], "little")
 
+    def _addr(self, offset, count=None):
+        """The address at `offset`, in the superblock's size of offsets
+        (`count` of them laid end to end, as a tuple, when given). The
+        file's undefined address, all ones, is `UNDEF`, as the library
+        decodes it."""
+        values = struct.unpack_from(
+            f"<{count or 1}{SIZE_CODES[self.offset_size]}", self._buf, offset)
+        ones = (1 << 8 * self.offset_size) - 1
+        values = tuple(UNDEF if v == ones else v for v in values)
+        return values if count is not None else values[0]
+
+    def _length(self, offset, count=None):
+        """The length at `offset`, in the superblock's size of lengths
+        (`count` of them as a tuple, when given), taken as it is: the
+        library gives all ones no meaning of its own below 8 bytes."""
+        values = struct.unpack_from(
+            f"<{count or 1}{SIZE_CODES[self.length_size]}", self._buf, offset)
+        return values if count is not None else values[0]
+
     def _cstring(self, offset) -> str:
         start = self._base + offset
         return self._map[start:self._map.find(b"\0", start)].decode()
@@ -377,12 +421,18 @@ class File:
             sizes = buf[9], buf[10]
         else:
             raise unsupported(f"superblock version {version}")
-        if sizes != (8, 8):
-            raise unsupported("offsets or lengths that are not 8 bytes")
+        for what, size in zip(("offsets", "lengths"), sizes):
+            if size not in SIZE_CODES:
+                raise unsupported(f"{what} of {size} bytes (2, 4 and 8 are read)")
+        self.offset_size, self.length_size = sizes
+        o = self.offset_size
         if version >= 2:
-            self._verify(0, 44, "superblock")
-            return self._u("Q", 36)[0]
-        return self._u("Q", (24 if version == 0 else 28) + 40)[0]
+            # The base, extension, end-of-file and root addresses follow.
+            self._verify(0, 12 + 4 * o, "superblock")
+            return self._addr(12 + 3 * o)
+        # Four addresses, then the root's symbol table entry: its name's
+        # heap offset (a length), then its object header's address.
+        return self._addr((24 if version == 0 else 28) + 4 * o + self.length_size)
 
     def _messages(self, addr: int) -> dict:
         """{message type: [(flags, data offset, size), ...]} of the object
@@ -414,7 +464,8 @@ class File:
                 else:
                     mtype, msize, mflags = self._u("BHB", p)
                 if mtype == MSG_CONTINUATION:
-                    start, length = self._u("QQ", p + prefix)
+                    start = self._addr(p + prefix)
+                    length = self._length(p + prefix + self.offset_size)
                     if prefix == 8:
                         blocks.append((start, start + length))
                     else:
@@ -436,9 +487,9 @@ class File:
         message index (SOHM) is refused."""
         version, kind = self._buf[d], self._buf[d + 1]
         if version == 1:
-            addr = self._u("Q", d + 8)[0]
+            addr = self._addr(d + 8)
         elif version == 2 or (version == 3 and kind == SHARED_COMMITTED):
-            addr = self._u("Q", d + 2)[0]
+            addr = self._addr(d + 2)
         elif version == 3:
             raise unsupported(f"shared object header messages (type {mtype}) "
                               "in the file's shared message index (SOHM)")
@@ -457,14 +508,14 @@ class File:
             raise ValueError(f"{self.path}: no type {node_type} B-tree node at {addr}")
         level = self._buf[addr + 5]
         used = self._u("H", addr + 6)[0]
-        p = addr + BTREE_HEADER_SIZE
+        p = addr + _btree_header_size(self.offset_size)
         for _ in range(used):
-            child = self._u("Q", p + key_size)[0]
+            child = self._addr(p + key_size)
             if level == 0:
                 yield p, child
             else:
                 yield from self._btree_children(child, node_type, key_size)
-            p += key_size + 8
+            p += key_size + self.offset_size
 
     def _btree2_records(self, addr: int, record_type: int):
         """(record size, record offsets in key order) of the version 2
@@ -473,16 +524,19 @@ class File:
         if buf[addr:addr + 4] != b"BTHD" or buf[addr + 5] != record_type:
             raise ValueError(f"{self.path}: no type {record_type} version 2 "
                              f"B-tree at {addr}")
-        self._verify(addr, addr + 34, "version 2 B-tree header")
+        o = self.offset_size
+        # The root's address and record count, then the tree's record count.
+        self._verify(addr, addr + 18 + o + self.length_size,
+                     "version 2 B-tree header")
         node_size, record_size, depth = self._u("IHH", addr + 6)
-        root, root_count = self._u("QH", addr + 16)
+        root, root_count = self._addr(addr + 16), self._u("H", addr + 16 + o)[0]
         # The widths of a child pointer's record counts follow from how many
         # records a node of each level can hold (the library's H5B2hdr.c).
         most = (node_size - 10) // record_size  # in a leaf
         count_size = _enc_size(most)
         totals, total_sizes = [most], [0]
         for level in range(1, depth + 1):
-            pointer = 8 + count_size + total_sizes[level - 1]
+            pointer = o + count_size + total_sizes[level - 1]
             n = (node_size - 10 - pointer) // (record_size + pointer)
             totals.append((n + 1) * totals[level - 1] + n)
             total_sizes.append(_enc_size(totals[level]))
@@ -499,12 +553,12 @@ class File:
                                  record_size)
                 return
             p = records + count * record_size
-            pointer = 8 + count_size + total_sizes[level - 1]
+            pointer = o + count_size + total_sizes[level - 1]
             self._verify(node, p + (count + 1) * pointer,
                          "version 2 B-tree internal node")
             for i in range(count + 1):
-                child = self._u("Q", p)[0]
-                child_count = self._uint(p + 8, count_size)
+                child = self._addr(p)
+                child_count = self._uint(p + o, count_size)
                 p += pointer
                 yield from walk(child, child_count, level - 1)
                 if i < count:
@@ -527,24 +581,32 @@ class File:
         return links
 
     def _symbol_table_links(self, d) -> dict:
-        btree, heap = self._u("QQ", d)
-        if self._buf[heap:heap + 4] != b"HEAP":
-            raise ValueError(f"{self.path}: no local heap at {heap}")
-        heap_data = self._u("Q", heap + 24)[0]
+        o, n = self.offset_size, self.length_size
+        btree, heap = self._addr(d, 2)
+        heap_data = self._local_heap_data(heap)
         links = {}
-        for _key, snod in self._btree_children(btree, 0, 8):
+        # A group node's keys are the heap offsets of names: lengths.
+        for _key, snod in self._btree_children(btree, 0, n):
             if self._buf[snod:snod + 4] != b"SNOD":
                 raise ValueError(f"{self.path}: no symbol table node at {snod}")
             for i in range(self._u("H", snod + 6)[0]):
-                e = snod + 8 + i * SYMBOL_ENTRY_SIZE
-                name_off, header, cache = self._u("QQI", e)
+                e = snod + 8 + i * _symbol_entry_size(o, n)
+                name_off, header = self._length(e), self._addr(e + n)
+                cache = self._u("I", e + n + o)[0]
                 name = self._cstring(heap_data + name_off)
                 if cache == 2:  # a soft link: its value is in the heap
-                    value = heap_data + self._u("I", e + 24)[0]
+                    value = heap_data + self._u("I", e + n + o + 8)[0]
                     links[name] = ("soft", self._cstring(value))
                 else:
                     links[name] = ("hard", header)
         return links
+
+    def _local_heap_data(self, heap: int) -> int:
+        """The address of the data of the local heap (`HEAP`) at `heap`:
+        after its data size and free list offset, two lengths."""
+        if self._buf[heap:heap + 4] != b"HEAP":
+            raise ValueError(f"{self.path}: no local heap at {heap}")
+        return self._addr(heap + 8 + 2 * self.length_size)
 
     def _link(self, d) -> tuple:
         """(name, link) of the link message at `d`."""
@@ -563,7 +625,7 @@ class File:
         name = bytes(buf[p + width:p + width + size]).decode()
         p += width + size
         if kind == LINK_HARD:
-            return name, ("hard", self._u("Q", p)[0])
+            return name, ("hard", self._addr(p))
         value = bytes(buf[p + 2:p + 2 + self._u("H", p)[0]])
         if kind == LINK_SOFT:
             return name, ("soft", value.decode())
@@ -578,7 +640,7 @@ class File:
         of a link message in its fractal heap. The creation-order index, if
         there is one, indexes the same links."""
         flags = self._buf[d + 1]
-        heap, names = self._u("QQ", d + 2 + (8 if flags & 0x1 else 0))
+        heap, names = self._addr(d + 2 + (8 if flags & 0x1 else 0), 2)
         if names == UNDEF:
             return {}
         heap = _FractalHeap(self, heap)
@@ -627,10 +689,13 @@ class File:
         buf = self._buf
         if buf[addr:addr + 4] != b"GCOL" or buf[addr + 4] != 1:
             raise ValueError(f"{self.path}: no global heap collection at {addr}")
-        end = addr + self._u("Q", addr + 8)[0]
+        # The collection's header and each object's are padded to 8 bytes:
+        # 16 at every size of lengths up to 8.
+        end = addr + self._length(addr + 8)
         p = addr + 16
         while p + 16 <= end:
-            obj, _refs, size = self._u("HH4xQ", p)
+            obj, _refs = self._u("HH", p)
+            size = self._length(p + 8)
             if obj == 0:  # the free space: no object follows
                 break
             if obj == index:
@@ -695,9 +760,17 @@ class _FractalHeap:
         self._checksummed = bool(f._buf[addr + 9] & 0x2)  # direct blocks
         if filter_size:
             raise unsupported("filtered fractal heaps")
-        (self._width, self._start, max_direct, max_heap_bits, _, root,
-         rows) = f._u("HQQHHQH", addr + 110)
+        # The table's fields follow ten lengths and two addresses.
+        o, n = f.offset_size, f.length_size
+        p = addr + 14 + 10 * n + 2 * o
+        self._width = f._u("H", p)[0]
+        self._start, max_direct = f._length(p + 2, 2)
+        max_heap_bits = f._u("H", p + 2 + 2 * n)[0]
+        root = f._addr(p + 6 + 2 * n)
+        rows = f._u("H", p + 6 + 2 * n + o)[0]
         self._offset_size = (max_heap_bits + 7) // 8
+        # A block's prefix: signature, version, the heap header's address.
+        self._prefix = 5 + o
         self._direct_rows = _log2(max_direct) - _log2(self._start) + 2
         self._blocks = []  # (heap offset, address, size) of each direct block
         if root != UNDEF:
@@ -714,14 +787,15 @@ class _FractalHeap:
             raise ValueError(f"{f.path}: no fractal heap direct block at {addr}")
         if self._checksummed:
             # The checksum is of the whole block with its own field zeroed.
-            at = 13 + self._offset_size
+            at = self._prefix + self._offset_size
             block = bytearray(f._buf[addr:addr + size])
             stored = struct.unpack_from("<I", block, at)[0]
             block[at:at + 4] = bytes(4)
             if lookup3(block) != stored:
                 raise ValueError(f"{f.path}: fractal heap direct block at "
                                  f"{addr} fails its checksum (the file is corrupt)")
-        self._blocks.append((f._uint(addr + 13, self._offset_size), addr, size))
+        self._blocks.append((f._uint(addr + self._prefix, self._offset_size),
+                             addr, size))
 
     def _indirect(self, addr, rows):
         """The direct blocks under the indirect block at `addr`: rows of
@@ -729,10 +803,10 @@ class _FractalHeap:
         f = self._f
         if f._buf[addr:addr + 4] != b"FHIB":
             raise ValueError(f"{f.path}: no fractal heap indirect block at {addr}")
-        p = addr + 13 + self._offset_size
+        p = addr + self._prefix + self._offset_size
         for row in range(rows):
             size = self._start << max(row - 1, 0)
-            for child in f._u(f"{self._width}Q", p):
+            for child in f._addr(p, self._width):
                 if child == UNDEF:
                     continue
                 if row < self._direct_rows:
@@ -740,7 +814,7 @@ class _FractalHeap:
                 else:
                     self._indirect(child, _log2(size) - _log2(
                         self._start * self._width) + 1)
-            p += 8 * self._width
+            p += f.offset_size * self._width
 
     def object(self, heap_id: int) -> int:
         """The file offset of the managed object whose heap ID is at
@@ -787,9 +861,9 @@ class Dataset:
         self.shape, maxshape = self._dataspace(msgs[MSG_DATASPACE][0][1])
         self.maxshape = tuple(None if m == UNDEF else m for m in maxshape)
         flags, d, _ = msgs[MSG_DATATYPE][0]
-        self._stored, self._bits = self._datatype(
+        self._stored, self._bits, self._enum = self._datatype(
             file._shared(d, MSG_DATATYPE) if flags & 0x2 else d)
-        self.dtype = self._stored.newbyteorder("=")
+        self.dtype = _value_type(self._stored, self._enum)
         self._filters = (self._pipeline(msgs[MSG_FILTERS][0][1])
                          if MSG_FILTERS in msgs else [])
         self._fill = self._values(np.array(self._fill_value(msgs),
@@ -808,7 +882,7 @@ class Dataset:
 
     def _dataspace(self, d) -> tuple:
         """(dimensions, maximum dimensions; UNDEF where unlimited)."""
-        u, buf = self._f._u, self._f._buf
+        f, buf = self._f, self._f._buf
         version, rank, flags = buf[d], buf[d + 1], buf[d + 2]
         if version == 1:
             p = d + 8
@@ -818,26 +892,32 @@ class Dataset:
             p = d + 4
         else:
             raise unsupported(f"dataspace message version {version}")
-        dims = tuple(u(f"{rank}Q", p)) if rank else ()
+        dims = f._length(p, rank) if rank else ()
         if flags & 0x1 and rank:
-            return dims, tuple(u(f"{rank}Q", p + 8 * rank))
+            return dims, f._length(p + f.length_size * rank, rank)
         return dims, dims
 
     def _datatype(self, d) -> tuple:
         """(the stored type, (bit offset, precision) of an integer type of
-        reduced precision, else None). Floats of reduced precision are
-        refused."""
+        reduced precision, else None, and for an enumeration "bool" where
+        h5py reads it as numpy bool, else its members (`_enumeration`),
+        else None). An enumeration is stored as its integer base. Floats of
+        reduced precision, and enumerations of a reduced-precision base,
+        are refused."""
         u, buf = self._f._u, self._f._buf
         cls, bits0 = buf[d] & 0x0F, buf[d + 1]
         size = u("I", d + 4)[0]
         order = ">" if bits0 & 0x1 else "<"
+        if cls == DATATYPE_ENUM:
+            return self._enumeration(d)
         if cls == 0:
             offset, precision = u("HH", d + 8)
             if size not in (1, 2, 4, 8) or not 0 < precision <= 8 * size - offset:
                 raise unsupported(f"{size}-byte fixed-point with precision "
                                   f"{precision} at bit {offset}")
             stored = np.dtype(f"{order}{'i' if bits0 & 0x8 else 'u'}{size}")
-            return stored, (None if precision == 8 * size else (offset, precision))
+            return (stored, None if precision == 8 * size else (offset, precision),
+                    None)
         if cls == 1:
             props = u("HHBBBBI", d + 8)
             if (size not in IEEE or bits0 & 0x40 or props[:2] != (0, 8 * size)
@@ -845,16 +925,33 @@ class Dataset:
                 raise unsupported(f"non-IEEE {size}-byte floating point (or "
                                   "reduced precision, as the n-bit filter "
                                   "packs it)")
-            return np.dtype(f"{order}f{size}"), None
-        raise unsupported(f"datatype class {cls} (only integers and IEEE "
-                          "floats are read)")
+            return np.dtype(f"{order}f{size}"), None, None
+        raise unsupported(f"datatype class {cls} (only integers, IEEE "
+                          "floats and enumerations are read)")
+
+    def _enumeration(self, d) -> tuple:
+        """`_datatype` of the enumeration at `d`: its base type's message,
+        then its member names (NUL-terminated, each padded to 8 bytes before
+        version 3), then their values in the base type. Its kind is "bool"
+        where the members are h5py's FALSE = 0 and TRUE = 1 (h5py's rule,
+        whatever the base), else the ((name, value), ...) members."""
+        buf = self._f._buf
+        version, count = buf[d] >> 4, self._f._u("H", d + 1)[0]
+        stored, bits, _ = self._datatype(d + 8)
+        if bits is not None:
+            raise unsupported("enumerations of a reduced-precision base")
+        p, names = d + 8 + 12, []  # the base: a fixed-point type's message
+        for _ in range(count):
+            end = self._f._map.find(b"\0", self._f._base + p) - self._f._base
+            names.append(bytes(buf[p:end]))
+            p = end + 1 if version >= 3 else p + -(-(end + 1 - p) // 8) * 8
+        members = tuple(zip(names, np.frombuffer(buf, stored, count,
+                                                 offset=p).tolist()))
+        return stored, None, "bool" if dict(members) == BOOL_MEMBERS else members
 
     def _values(self, stored: np.ndarray) -> np.ndarray:
-        """Values of the stored type as the dataset's type: `stored` itself
-        at full precision; for a reduced-precision integer, as the library
-        converts it to the full-width type, the `precision` bits from the
-        bit offset, those of a signed type sign-extended."""
-        return stored if self._bits is None else _reduced(stored, *self._bits)
+        """Values of the stored type as the dataset's type (`_convert`)."""
+        return _convert(stored, self._bits, self._enum)
 
     def _pipeline(self, d) -> list:
         """The filter pipeline message at `d` as [(filter id, flags, client
@@ -886,7 +983,8 @@ class Dataset:
                                   "szip are read)")
             if fid == FILTER_NBIT:
                 try:
-                    hdf5_filters.nbit_check(values, self._stored, self._bits)
+                    hdf5_filters.nbit_check(values, self._stored, self._bits,
+                                            packed=self._enum is None)
                 except NotImplementedError as e:
                     raise unsupported(str(e)) from None
             filters.append((fid, flags, values))
@@ -926,19 +1024,19 @@ class Dataset:
         if version not in (3, 4):
             raise unsupported(f"data layout message version {version}")
         self.chunks = None
+        f, o = self._f, self._f.offset_size
+        self._raw_edges = False  # partial edge chunks stored unfiltered
         if cls == 0:
             self._compact = (d + 4, u("H", d + 2)[0])
         elif cls == 1:
-            self._contiguous = u("QQ", d + 2)
+            self._contiguous = (f._addr(d + 2), f._length(d + 2 + o))
         elif cls == 2 and version == 3:
             ndims = buf[d + 2]
-            self._index_type, self._index_addr = INDEX_BTREE1, u("Q", d + 3)[0]
-            self.chunks = tuple(u(f"{ndims - 1}I", d + 11))
+            self._index_type, self._index_addr = INDEX_BTREE1, f._addr(d + 3)
+            self.chunks = tuple(u(f"{ndims - 1}I", d + 3 + o))
         elif cls == 2:
             flags, ndims, width = buf[d + 2], buf[d + 3], buf[d + 4]
-            if flags & 0x1:
-                raise unsupported("unfiltered partial edge chunks (chunk "
-                                  "option flag 1)")
+            self._raw_edges = bool(flags & 0x1)
             p = d + 5
             dims = [self._f._uint(p + i * width, width) for i in range(ndims)]
             self.chunks = tuple(dims[:-1])  # the last is the element's size
@@ -946,8 +1044,8 @@ class Dataset:
             p += ndims * width + 1
             self._single = None  # a single chunk's filtered size and mask
             if self._index_type == INDEX_SINGLE and flags & 0x2:
-                self._single = u("QI", p)
-                p += 12
+                self._single = (f._length(p), u("I", p + f.length_size)[0])
+                p += f.length_size + 4
             elif self._index_type == INDEX_FIXED_ARRAY:
                 p += 1
             elif self._index_type == INDEX_EXTENSIBLE_ARRAY:
@@ -956,9 +1054,9 @@ class Dataset:
                 p += 6
             elif self._index_type not in (INDEX_SINGLE, INDEX_IMPLICIT):
                 raise unsupported(f"chunk index type {self._index_type}")
-            self._index_addr = u("Q", p)[0]
+            self._index_addr = f._addr(p)
         elif cls == LAYOUT_VIRTUAL and version == 4:
-            heap, index = u("QI", d + 2)
+            heap, index = f._addr(d + 2), u("I", d + 2 + o)[0]
             self._stored_mappings = self._virtual_mappings(
                 self._f._global_heap_object(heap, index))
         else:
@@ -973,21 +1071,22 @@ class Dataset:
         is this file's directory), or else in the working directory, as the
         library does (H5D__build_file_prefix, H5_combine_path)."""
         f = self._f
-        version, n_used, heap = f._buf[d], f._u("H", d + 6)[0], f._u("Q", d + 8)[0]
+        version, n_used, heap = f._buf[d], f._u("H", d + 6)[0], f._addr(d + 8)
         if version != 1:
             raise unsupported(f"external file list message version {version}")
         if self._layout_class != LAYOUT_CONTIGUOUS:
             raise ValueError(f"{self.name}: external storage of a layout of "
                              f"class {self._layout_class}")
-        if f._buf[heap:heap + 4] != b"HEAP":
-            raise ValueError(f"{f.path}: no local heap at {heap}")
-        names = f._u("Q", heap + 24)[0]
+        names = f._local_heap_data(heap)
         prefix = os.environ.get(EXTFILE_PREFIX_ENV, "")
         if prefix.startswith(ORIGIN):
             prefix = str(f._dir) + os.sep + prefix[len(ORIGIN):]
         self._efl = []
         for i in range(n_used):
-            name_off, offset, size = f._u("QQQ", d + 16 + 24 * i)
+            # Each slot: the name's heap offset, the offset in the file and
+            # the size, three lengths.
+            name_off, offset, size = f._length(
+                d + 8 + f.offset_size + 3 * f.length_size * i, 3)
             name = f._cstring(names + name_off)
             if prefix and prefix != "." and not os.path.isabs(name):
                 name = os.path.join(prefix, name)
@@ -997,17 +1096,18 @@ class Dataset:
         """A virtual dataset's mappings from their global heap object: a
         version byte, a count, then per mapping the source file's and
         dataset's names and the source and virtual selections; last, a
-        lookup3 checksum of the rest. Returns [(file name parts, dataset
-        name parts, source selection, virtual selection)] (see
-        `_name_parts` and `_parse_selection`)."""
+        lookup3 checksum of the rest; the count is a length. Returns
+        [(file name parts, dataset name parts, source selection, virtual
+        selection)] (see `_name_parts` and `_parse_selection`)."""
         if len(blob) < 13 or lookup3(blob[:-4]) != struct.unpack_from(
                 "<I", blob, len(blob) - 4)[0]:
             raise ValueError(f"{self._f.path}: {self.name}: the virtual dataset's "
                              "mappings fail their checksum (the file is corrupt)")
         if blob[0] != VDS_HEAP_VERSION:
             raise unsupported(f"virtual dataset mapping encoding version {blob[0]}")
-        count = struct.unpack_from("<Q", blob, 1)[0]
-        p, mappings = 9, []
+        size = self._f.length_size
+        count = int.from_bytes(blob[1:1 + size], "little")
+        p, mappings = 1 + size, []
         for _ in range(count):
             names = []
             for _ in range(2):
@@ -1107,7 +1207,7 @@ class Dataset:
         msgs = self._f._messages(self._addr)
         for _, d, _ in msgs.get(MSG_ATTRIBUTE_INFO, ()):
             flags = self._f._buf[d + 1]
-            heap = self._f._u("Q", d + 2 + (2 if flags & 0x1 else 0))[0]
+            heap = self._f._addr(d + 2 + (2 if flags & 0x1 else 0))
             if heap != UNDEF:
                 raise unsupported("dense attribute storage")
         out = {}
@@ -1134,15 +1234,14 @@ class Dataset:
             raise unsupported(f"attribute message version {version}")
         name = bytes(buf[p:p + name_size - 1]).decode()
         p += pad(name_size)
-        dtype, bits = self._datatype(
+        dtype, bits, enum = self._datatype(
             self._f._shared(p, MSG_DATATYPE) if version > 1 and flags & 0x1 else p)
         p += pad(dt_size)
         shape, _ = self._dataspace(p)
         p += pad(ds_size)
-        value = np.frombuffer(buf, dtype, math.prod(shape), offset=p)
-        if bits is not None:
-            value = _reduced(value, *bits)
-        value = value.astype(dtype.newbyteorder("=")).reshape(shape)
+        value = _convert(np.frombuffer(buf, dtype, math.prod(shape), offset=p),
+                         bits, enum)
+        value = value.astype(_value_type(dtype, enum)).reshape(shape)
         return name, value[()] if shape == () else value
 
     def _selection(self, key):
@@ -1274,7 +1373,9 @@ class Dataset:
         hits = [(offset, index[offset]) for offset in grid if offset in index]
 
         def place(offset, entry):
-            block = self._values(self._inflate(*entry))
+            partial = any(o + c > n for o, c, n in zip(offset, chunks, self.shape))
+            block = self._values(self._inflate(
+                *entry, unfiltered=self._raw_edges and partial))
             src, dst = [], []
             for o, c, (a, b) in zip(offset, chunks, ranges):
                 lo, hi = max(a, o), min(b, o + c)
@@ -1310,7 +1411,7 @@ class Dataset:
             src = [c - a for c, (a, _) in zip(src, box)]
             after.append(functools.partial(
                 _gather, out, dst, buffer, src, pointwise,
-                _conversion(source.dtype, self.dtype)))
+                _conversion(source, self)))
 
     def _source(self, i: int):
         """The source dataset of mapping `i`, opened once a dataset: None
@@ -1338,7 +1439,7 @@ class Dataset:
             source = f[dataset_name]
         except (KeyError, TypeError):
             return None
-        _conversion(source.dtype, self.dtype)  # refuses what is not read
+        _conversion(source, self)  # refuses what is not read
         return source
 
     def _chunk_index(self) -> dict:
@@ -1376,12 +1477,15 @@ class Dataset:
                 self._fixed_array(addr)
                 if self._index_type == INDEX_FIXED_ARRAY
                 else self._extensible_array(addr))
-            size_width = entry - 12 if filtered else 0
+            # An entry: the chunk's address, then for filtered chunks its
+            # size and filter mask.
+            o = f.offset_size
+            size_width = entry - o - 4 if filtered else 0
             for i, e in elements:
-                chunk = f._u("Q", e)[0]
+                chunk = f._addr(e)
                 if chunk == UNDEF:
                     continue
-                stored = ((f._uint(e + 8, size_width), f._u("I", e + 8 + size_width)[0])
+                stored = ((f._uint(e + o, size_width), f._u("I", e + o + size_width)[0])
                           if filtered else (chunk_bytes, 0))
                 index[self._offset(self._scaled(i))] = (chunk, *stored)
         return index
@@ -1431,23 +1535,25 @@ class Dataset:
         f = self._f
         if f._buf[addr:addr + 4] != b"FAHD":
             raise ValueError(f"{f.path}: no fixed array header at {addr}")
-        f._verify(addr, addr + 24, "fixed array header")
+        n, block = f._length(addr + 8), f._addr(addr + 8 + f.length_size)
+        f._verify(addr, addr + 8 + f.length_size + f.offset_size,
+                  "fixed array header")
         filtered, entry, page_bits = f._buf[addr + 5:addr + 8]
-        n, block = f._u("QQ", addr + 8)
         if f._buf[block:block + 4] != b"FADB":
             raise ValueError(f"{f.path}: no fixed array data block at {block}")
         page = 1 << page_bits
+        start = block + 6 + f.offset_size  # past the header's address
         if n <= page:
-            f._verify(block, block + 14 + n * entry, "fixed array data block")
-            return entry, filtered, [(i, block + 14 + i * entry) for i in range(n)]
+            f._verify(block, start + n * entry, "fixed array data block")
+            return entry, filtered, [(i, start + i * entry) for i in range(n)]
         pages = -(-n // page)
-        p = block + 14 + (pages + 7) // 8
+        p = start + (pages + 7) // 8
         f._verify(block, p, "fixed array data block")
         p += 4
         elements = []
         for k in range(pages):
             count = min(page, n - k * page)
-            if self._bit(block + 14, k):
+            if self._bit(start, k):
                 f._verify(p, p + count * entry, "fixed array data block page")
                 elements += [(k * page + i, p + i * entry) for i in range(count)]
             p += count * entry + 4
@@ -1466,24 +1572,29 @@ class Dataset:
             raise ValueError(f"{f.path}: no extensible array header at {addr}")
         (filtered, entry, max_bits, iblock_entries, min_entries, min_pointers,
          page_bits) = buf[addr + 5:addr + 12]
-        f._verify(addr, addr + 68, "extensible array header")
-        used = f._u("Q", addr + 44)[0]  # 1 + the highest index ever set
-        iblock = f._u("Q", addr + 60)[0]
+        # Six lengths (the last two the highest index set plus 1 and the
+        # elements realised), then the index block's address.
+        n, o = f.length_size, f.offset_size
+        f._verify(addr, addr + 12 + 6 * n + o, "extensible array header")
+        used = f._length(addr + 12 + 4 * n)
+        iblock = f._addr(addr + 12 + 6 * n)
         if iblock == UNDEF:
             return entry, filtered, []
         if buf[iblock:iblock + 4] != b"EAIB":
             raise ValueError(f"{f.path}: no extensible array index block at {iblock}")
         page = 1 << page_bits
-        prefix = 14 + (max_bits + 7) // 8  # of a data or super block
+        # A block's prefix: signature, version, client, the header's
+        # address and, in a data or super block, its offset in the array.
+        prefix = 6 + o + (max_bits + 7) // 8
         n_super = 1 + max_bits - _log2(min_entries)
         in_iblock = 2 * _log2(min_pointers)  # super blocks the index block holds
-        p = iblock + 14
+        p = iblock + 6 + o
         elements = [(i, p + i * entry) for i in range(min(iblock_entries, used))]
         p += iblock_entries * entry
         n_dblocks = 2 * (min_pointers - 1)
-        dblocks = f._u(f"{n_dblocks}Q", p)
-        sblocks = f._u(f"{n_super - in_iblock}Q", p + 8 * n_dblocks)
-        f._verify(iblock, p + 8 * (n_dblocks + n_super - in_iblock),
+        dblocks = f._addr(p, n_dblocks)
+        sblocks = f._addr(p + o * n_dblocks, n_super - in_iblock)
+        f._verify(iblock, p + o * (n_dblocks + n_super - in_iblock),
                   "extensible array index block")
 
         def data_block(dblock, first, count, initialised):
@@ -1527,8 +1638,8 @@ class Dataset:
                 # sized for each data block's pages.
                 pages = count // page if count > page else 0
                 q = sblock + prefix + n_blocks * ((pages + 7) // 8)
-                f._verify(sblock, q + 8 * n_blocks, "extensible array super block")
-                for j, dblock in enumerate(f._u(f"{n_blocks}Q", q)):
+                f._verify(sblock, q + o * n_blocks, "extensible array super block")
+                for j, dblock in enumerate(f._addr(q, n_blocks)):
                     if dblock != UNDEF:
                         data_block(dblock, first + j * count, count,
                                    lambda k, j=j: self._bit(sblock + prefix,
@@ -1544,24 +1655,33 @@ class Dataset:
         filtered = bool(self._filters)
         record_type = BTREE2_FILTERED_CHUNKS if filtered else BTREE2_CHUNKS
         record_size, records = f._btree2_records(addr, record_type)
-        size_width = record_size - 8 - 4 - 8 * rank if filtered else 0
+        o = f.offset_size
+        size_width = record_size - o - 4 - 8 * rank if filtered else 0
         index = {}
         for r in records:
-            chunk = f._u("Q", r)[0]
-            stored = ((f._uint(r + 8, size_width), f._u("I", r + 8 + size_width)[0])
+            chunk = f._addr(r)
+            stored = ((f._uint(r + o, size_width), f._u("I", r + o + size_width)[0])
                       if filtered else (chunk_bytes, 0))
             scaled = f._u(f"{rank}Q", r + record_size - 8 * rank)
             index[self._offset(scaled)] = (chunk, *stored)
         return index
 
-    def _inflate(self, addr, nbytes, mask) -> np.ndarray:
+    def _inflate(self, addr, nbytes, mask, unfiltered=False) -> np.ndarray:
         """One stored chunk, unfiltered, as a (chunks) array of the stored
         type (a read-only view of the decoded bytes). The filters run in
         reverse, each skipped where the chunk's filter mask says the writer
         skipped it (as an optional filter that failed, such as LZF on a
-        chunk it cannot shrink). A Fletcher-32 checksum that does not match,
-        or a corrupt stream, raises ValueError."""
+        chunk it cannot shrink), and all of them, Fletcher-32 too, for an
+        `unfiltered` chunk (a partial edge chunk under chunk option flag 1,
+        which the library stores raw whatever its mask says). A Fletcher-32
+        checksum that does not match, or a corrupt stream, raises
+        ValueError."""
         raw = self._f._buf[addr:addr + nbytes]
+        if unfiltered:
+            if nbytes != math.prod(self.chunks) * self._stored.itemsize:
+                raise ValueError(f"{self._f.path}: {self.name}: the unfiltered "
+                                 f"edge chunk at {addr} holds {nbytes} bytes")
+            return np.frombuffer(raw, self._stored).reshape(self.chunks)
         for i in reversed(range(len(self._filters))):
             if mask & (1 << i):
                 continue
@@ -1617,6 +1737,32 @@ def _reduced(stored: np.ndarray, offset: int, precision: int) -> np.ndarray:
         sign = np.array(1 << (precision - 1), unsigned.dtype)
         value = (value ^ sign) - sign  # wraps: the sign bit extended
     return value.view(native)
+
+
+def _value_type(stored: np.dtype, enum) -> np.dtype:
+    """The type a read returns for values stored as `stored` (`enum` as
+    `Dataset._datatype` gives it): numpy bool for h5py's booleans, else
+    the stored type in native byte order."""
+    return np.dtype(np.bool_) if enum == "bool" else stored.newbyteorder("=")
+
+
+def _convert(stored: np.ndarray, bits, enum) -> np.ndarray:
+    """Values of the stored type as a read returns them: as they are at
+    full precision (an enumeration as its base); a reduced-precision
+    integer as the library converts it (`_reduced`); h5py's booleans as
+    h5py reads them. On a 1-byte signed base, h5py's own boolean type, its
+    bytes are taken as they are; any other base the library converts
+    member by member to that type, 0 and 1 staying and every value that is
+    no member becoming 0xFF."""
+    if bits is not None:
+        return _reduced(stored, *bits)
+    if enum != "bool":
+        return stored
+    if stored.dtype.itemsize == 1 and stored.dtype.kind == "i":
+        return stored.view(np.bool_)
+    out = np.where(stored > 1, 0xFF, stored).astype(np.uint8)
+    out[stored < 0] = 0xFF
+    return out.view(np.bool_)
 
 
 def _unshuffle(raw, size: int):
@@ -1883,15 +2029,26 @@ def _gather(out, dst, buffer, src, pointwise: bool, convert) -> None:
     out[_index(dst, pointwise)] = values if convert is None else convert(values)
 
 
-def _conversion(source: np.dtype, target: np.dtype):
+def _conversion(source_ds: Dataset, target_ds: Dataset):
     """How a source's values become a virtual dataset's of another type, as
-    the library converts them: None where numpy's cast is exact; integers
+    the library converts them: an enumeration (booleans too) only from one
+    of the same type, base and members, taken as it is, and no other
+    conversion to or from one; None where numpy's cast is exact; integers
     saturated at the target's range; to float32 or float64, rounded to
     nearest, a float past the target's largest finite value made
     infinite (numpy would round it back to that value). Floats to integers
     are refused (the library's result for NaN and out-of-range values
     follows the platform's C conversion), and so is float16 (the library's
     own conversion there is neither numpy's nor IEEE rounding)."""
+    source, target = source_ds.dtype, target_ds.dtype
+    if source_ds._enum or target_ds._enum:
+        if (source_ds._enum, source_ds._stored) == (target_ds._enum,
+                                                    target_ds._stored):
+            return None
+        raise unsupported(
+            f"virtual dataset sources of type {source_ds._stored} under a dataset "
+            f"of type {target_ds._stored}, either an enumeration, unless both "
+            "are the same enumeration")
     if np.can_cast(source, target, "safe"):
         return None
     if target.kind == "f" and target.itemsize >= 4:
@@ -1969,7 +2126,7 @@ class _Writer:
         address)], leaves first, every node at its full size; returns the
         root's address. A node's last key is its right neighbour's first
         (`right_key` at the right edge), as libhdf5 shares them."""
-        node_size = BTREE_HEADER_SIZE + capacity * 8 + (capacity + 1) * key_size
+        node_size = _btree_header_size(8) + capacity * 8 + (capacity + 1) * key_size
         level = 0
         while True:
             groups = [entries[i:i + capacity]
@@ -2009,7 +2166,7 @@ class _Writer:
         snod = struct.pack("<4sBxH", b"SNOD", 1, len(entries))
         for offset, (_, child) in zip(offsets, entries):
             snod += struct.pack("<QQI4x16x", offset, child, 0)
-        snod += b"\0" * (8 + SNOD_ENTRIES * SYMBOL_ENTRY_SIZE - len(snod))
+        snod += b"\0" * (8 + SNOD_ENTRIES * _symbol_entry_size(8, 8) - len(snod))
         snod_addr = self.put(snod)
         btree = self.btree(0, [(struct.pack("<Q", 0), snod_addr)],
                            struct.pack("<Q", offsets[-1]), GROUP_NODE_ENTRIES, 8)

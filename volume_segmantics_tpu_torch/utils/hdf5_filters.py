@@ -393,11 +393,18 @@ def scaleoffset_decode(data, cd, stored: np.dtype) -> bytes:
     return values.astype(stored).tobytes()
 
 
-def nbit_check(cd, stored: np.dtype, bits) -> None:
+def nbit_check(cd, stored: np.dtype, bits, packed: bool = True) -> None:
     """Read the n-bit filter's parameters against the dataset's type
     `stored` and its (bit offset, precision) `bits` (None at full
     precision): one atom of its class, size, byte order, precision and
-    offset. Anything else raises."""
+    offset. A type the filter does not pack (`packed` False: an
+    enumeration) has the three parameters the library gives it, the last
+    two "no packing" and the value count. Anything else raises."""
+    if not packed:
+        if len(cd) != 3 or cd[0] != 3 or not cd[1]:
+            raise ValueError(f"n-bit: parameters {tuple(cd)} for a type it "
+                             "does not pack")
+        return
     if len(cd) < 8 or cd[0] != len(cd):
         raise ValueError(f"n-bit: a parameter list of {len(cd)} values")
     if cd[3] != NBIT_ATOMIC:
